@@ -1,0 +1,1 @@
+"""Interop of the PyTorch port (counterpart of ``dexiraft_tpu.interop``)."""

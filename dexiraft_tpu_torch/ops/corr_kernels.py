@@ -1,0 +1,257 @@
+"""The flash correlation kernels and their plain PyTorch versions.
+
+Counterpart of the flash half of ``dexiraft_tpu/ops/pallas_corr.py``:
+
+  * ``flash_fused_step`` (B1): every pyramid level's (2r+1)^2 window
+    lookup contracted with the motion encoder's 1x1 corr conv, plus bias,
+    in one kernel launch per refinement iteration;
+  * ``flash_local_corr_level`` (B2): the window lookup alone;
+  * ``fused_reference``: the plain version of B1 (per-level
+    local_corr_level windows, then the 1x1 conv as a contraction).
+
+On CUDA tensors both wrappers launch the hand-written kernel of
+``csrc/flash_corr.cu``; a failure to build or launch raises. On CPU
+tensors (the caller chose ``device="cpu"``) they run the plain version.
+There is no other case and no fallback between the two.
+
+Division of labor for the linear factors, as in the JAX package: the
+kernel applies 1/sqrt(C) itself; per-level int8 scales are the caller's
+(folded into the weight rows for B1, multiplied onto the window for B2).
+
+Gradients: forward-only kernels in ``torch.autograd.Function``s whose
+backward recomputes through the plain version (the custom-VJP contract of
+the JAX package): coords get a zero gradient, int8 levels none.
+
+Each kernel wrapper counts its launches in ``LAUNCHES`` (the count moves
+only where a kernel is launched), so a run can show that its main path
+went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence
+
+import torch
+
+from dexiraft_tpu_torch.ops.local_corr import local_corr_level
+
+KERNEL_SOURCES = ("flash_corr.cu", "flash_corr.cpp")
+LAUNCHES = {"flash_fused_step": 0, "flash_local_corr_level": 0}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_MAX_LEVELS = 8
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def fused_reference(fmap1, fmap2_levels, coords, weight, bias, radius,
+                    row_chunk=None):
+    """Plain version of B1: (B,H,W,C) x L levels x level-0 coords (B,H,W,2)
+    x weight (L*(2r+1)^2, F) x bias (F,) -> (B,H,W,F) float32. Levels may
+    be stored bf16/int8 and are upcast; int8 scales must already be folded
+    into ``weight``."""
+    outs = [local_corr_level(fmap1, f2.to(torch.float32),
+                             coords / (2.0 ** lvl), radius, row_chunk)
+            for lvl, f2 in enumerate(fmap2_levels)]
+    corr = torch.cat(outs, dim=-1)
+    return (torch.einsum("bhwc,cf->bhwf", corr, weight.to(torch.float32))
+            + bias.to(torch.float32))
+
+
+def _use_kernel(*tensors: torch.Tensor) -> bool:
+    """True for CUDA tensors, False for CPU tensors; raises otherwise."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cuda"}:
+        if len({t.device for t in tensors}) != 1:
+            raise ValueError("flash correlation inputs span several CUDA "
+                             f"devices: {sorted({str(t.device) for t in tensors})}")
+        return True
+    if kinds == {"cpu"}:
+        return False
+    raise ValueError("flash correlation inputs must all be on one CUDA "
+                     f"device or all on the CPU, got {sorted(kinds)}")
+
+
+def _library():
+    from dexiraft_tpu_torch.ops.cuda_build import load_library
+
+    lib = load_library("flash_corr", KERNEL_SOURCES)
+    fn = lib.dexiraft_flash_corr
+    if fn.argtypes is None:
+        # without argtypes ctypes would pass each pointer as a 32-bit int
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, ctypes.POINTER(p),
+                       ctypes.POINTER(i), ctypes.POINTER(i),
+                       ctypes.POINTER(ctypes.c_float),
+                       i, i, i, i, i, i, i, i, p]
+        fn.restype = ctypes.c_int
+        lib.dexiraft_cuda_error_string.argtypes = [i]
+        lib.dexiraft_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def build_kernels() -> str:
+    """Build the kernel library now (it is otherwise built at first launch);
+    returns the path of the shared library."""
+    from dexiraft_tpu_torch.ops.cuda_build import build_library
+
+    return build_library("flash_corr", KERNEL_SOURCES)
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def _launch(name: str, fmap1: torch.Tensor, levels: Sequence[torch.Tensor],
+            coords: torch.Tensor, coord_scales: Sequence[float], radius: int,
+            weight: Optional[torch.Tensor] = None,
+            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the flash kernel; returns (B, H, W, out_ch) as a view of a
+    channels-first (B, out_ch, H, W) buffer (the model's layout)."""
+    fused = weight is not None
+    _check(fmap1.dim() == 4 and fmap1.dtype == torch.float32,
+           f"fmap1 must be (B, H, W, C) float32, got {tuple(fmap1.shape)} "
+           f"{fmap1.dtype}")
+    b, h, w, c = fmap1.shape
+    _check(c % 16 == 0, f"the flash kernel needs C % 16 == 0, got C={c}")
+    _check(1 <= len(levels) <= _MAX_LEVELS,
+           f"1..{_MAX_LEVELS} pyramid levels, got {len(levels)}")
+    _check(tuple(coords.shape) == (b, h, w, 2),
+           f"coords must be {(b, h, w, 2)}, got {tuple(coords.shape)}")
+    dtype = levels[0].dtype
+    _check(dtype in _DTYPE_CODES,
+           f"level dtype must be float32, bfloat16 or int8, got {dtype}")
+    for lv in levels:
+        _check(lv.dtype == dtype and lv.dim() == 4 and lv.shape[0] == b
+               and lv.shape[3] == c,
+               f"level {tuple(lv.shape)} {lv.dtype} does not match fmap1 "
+               f"{tuple(fmap1.shape)} / {dtype}")
+        _check(lv.is_contiguous(), "pyramid levels must be contiguous")
+        _check(lv.numel() == 0 or lv.data_ptr() % 16 == 0,
+               "pyramid levels must be 16-byte aligned")
+    kk = (2 * radius + 1) ** 2
+    f1 = fmap1.contiguous()
+    co = coords.to(torch.float32).contiguous()
+    if fused:
+        _check(weight.dtype == torch.float32 and bias.dtype == torch.float32,
+               "weight and bias must be float32")
+        _check(tuple(weight.shape[:1]) == (len(levels) * kk,)
+               and weight.dim() == 2,
+               f"weight must be ({len(levels) * kk}, F), got "
+               f"{tuple(weight.shape)}")
+        feat = weight.shape[1]
+        _check(tuple(bias.shape) == (feat,), f"bias must be ({feat},)")
+        weight, bias = weight.contiguous(), bias.contiguous()
+        out_ch = feat
+    else:
+        feat = 0
+        out_ch = len(levels) * kk
+    out = torch.empty((b, out_ch, h, w), dtype=torch.float32,
+                      device=fmap1.device)
+    n_lvl = len(levels)
+    ptrs = (ctypes.c_void_p * n_lvl)(*[lv.data_ptr() or None for lv in levels])
+    h2 = (ctypes.c_int * n_lvl)(*[lv.shape[1] for lv in levels])
+    w2 = (ctypes.c_int * n_lvl)(*[lv.shape[2] for lv in levels])
+    sc = (ctypes.c_float * n_lvl)(*coord_scales)
+    lib = _library()
+    with torch.cuda.device(fmap1.device):
+        stream = torch.cuda.current_stream(fmap1.device).cuda_stream
+        rc = lib.dexiraft_flash_corr(
+            f1.data_ptr(), co.data_ptr(),
+            weight.data_ptr() if fused else None,
+            bias.data_ptr() if fused else None,
+            out.data_ptr(), ptrs, h2, w2, sc,
+            n_lvl, b, h * w, c, radius, feat, _DTYPE_CODES[dtype],
+            int(fused), stream)
+    if rc != 0:
+        why = ("bad argument" if rc < 0
+               else lib.dexiraft_cuda_error_string(rc).decode())
+        raise RuntimeError(f"{name}: flash_corr kernel launch failed "
+                           f"({rc}: {why})")
+    LAUNCHES[name] += 1
+    return out.permute(0, 2, 3, 1)
+
+
+def _level_grads(levels, grads):
+    """Map the recompute's gradients back onto the level list: None for
+    the int8 levels, which took no part in differentiation."""
+    it = iter(grads)
+    return [next(it) if lv.is_floating_point() else None for lv in levels]
+
+
+class _FlashFusedStep(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, fmap1, coords, weight, bias, radius, row_chunk, *levels):
+        ctx.radius, ctx.row_chunk = radius, row_chunk
+        ctx.save_for_backward(fmap1, coords, weight, bias, *levels)
+        if _use_kernel(fmap1, coords, weight, bias, *levels):
+            return _launch("flash_fused_step", fmap1, levels, coords,
+                           [2.0 ** -lvl for lvl in range(len(levels))],
+                           radius, weight, bias)
+        return fused_reference(fmap1, levels, coords, weight, bias, radius,
+                               row_chunk)
+
+    @staticmethod
+    def backward(ctx, g):
+        fmap1, coords, weight, bias, *levels = ctx.saved_tensors
+        with torch.enable_grad():
+            f1 = fmap1.detach().requires_grad_()
+            w = weight.detach().requires_grad_()
+            bb = bias.detach().requires_grad_()
+            lv = [x.detach().requires_grad_() if x.is_floating_point()
+                  else x.detach() for x in levels]
+            out = fused_reference(f1, lv, coords.detach(), w, bb,
+                                  ctx.radius, ctx.row_chunk)
+            grads = torch.autograd.grad(
+                out, [f1, w, bb] + [x for x in lv if x.requires_grad], g)
+        return (grads[0], torch.zeros_like(coords), grads[1], grads[2],
+                None, None, *_level_grads(levels, grads[3:]))
+
+
+class _FlashLevel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, fmap1, fmap2, coords, radius, row_chunk):
+        ctx.radius, ctx.row_chunk = radius, row_chunk
+        ctx.save_for_backward(fmap1, fmap2, coords)
+        if _use_kernel(fmap1, fmap2, coords):
+            return _launch("flash_local_corr_level", fmap1, [fmap2], coords,
+                           [1.0], radius)
+        return local_corr_level(fmap1, fmap2, coords, radius, row_chunk)
+
+    @staticmethod
+    def backward(ctx, g):
+        fmap1, fmap2, coords = ctx.saved_tensors
+        with torch.enable_grad():
+            f1 = fmap1.detach().requires_grad_()
+            f2 = fmap2.detach()
+            if f2.is_floating_point():
+                f2.requires_grad_()
+            out = local_corr_level(f1, f2, coords.detach(), ctx.radius,
+                                   ctx.row_chunk)
+            grads = torch.autograd.grad(
+                out, [f1] + ([f2] if f2.requires_grad else []), g)
+        return (grads[0], grads[1] if len(grads) > 1 else None,
+                torch.zeros_like(coords), None, None)
+
+
+def flash_fused_step(fmap1: torch.Tensor, fmap2_levels: Sequence[torch.Tensor],
+                     coords: torch.Tensor, weight: torch.Tensor,
+                     bias: torch.Tensor, radius: int,
+                     row_chunk: Optional[int] = 8) -> torch.Tensor:
+    """B1: (B,H,W,C) x L levels (B,H>>l,W>>l,C) x level-0 coords (B,H,W,2)
+    x weight (L*(2r+1)^2, F) x bias (F,) -> (B,H,W,F) float32.
+    ``row_chunk`` bounds the plain version's transient block."""
+    return _FlashFusedStep.apply(fmap1, coords, weight, bias, radius,
+                                 row_chunk, *fmap2_levels)
+
+
+def flash_local_corr_level(fmap1: torch.Tensor, fmap2: torch.Tensor,
+                           coords: torch.Tensor, radius: int,
+                           row_chunk: Optional[int] = 8) -> torch.Tensor:
+    """B2: one level's window lookup, coords in LEVEL pixels
+    -> (B,H,W,(2r+1)^2) float32; a degenerate level gives zeros."""
+    return _FlashLevel.apply(fmap1, fmap2, coords, radius, row_chunk)

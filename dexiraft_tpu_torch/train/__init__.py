@@ -1,0 +1,1 @@
+"""Train of the PyTorch port (counterpart of ``dexiraft_tpu.train``)."""
