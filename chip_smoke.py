@@ -3,27 +3,39 @@
 
     python3 chip_smoke.py [--out record.json]
 
-Drives the port's main path (RAFT v1 at full width, test mode, through
-the bucketed InferenceEngine) on the card, builds the hand-written CUDA
-kernels from the sources in this checkout, holds each kernel against its
-plain PyTorch version, shows from the launch counters that the main path
-went through the kernels, and times them. Imports nothing of JAX or of
-the JAX package (dexiraft_tpu).
+Drives the port's two paths on the card through the bucketed
+InferenceEngine, at full width with seeded random weights: RAFT v1 and
+the v5 dual-stream Dexi-RAFT with its embedded DexiNed. It builds the
+hand-written CUDA kernels from the sources in this checkout, holds each
+kernel against its plain PyTorch version (and each of the two
+formulations against the other), shows from the launch counters that
+each path went through its kernels, and times them. Imports nothing of
+JAX or of the JAX package (dexiraft_tpu).
 
 Phases, one JSON line each:
-  1 device   nvidia-smi name and power limit, torch and CUDA versions
-  2 build    nvcc build of the kernel library, seconds
-  3 kernels  B1 flash_fused_step and B2 flash_local_corr_level against
-             fused_reference / local_corr_level at the v1 shapes (B=1 and
-             B=2, fp32/bf16/int8 storage, far out-of-frame coords, a
-             degenerate level), max abs error <= 1e-3, TF32 off
-  4 slice    4 frame pairs (2 Sintel 436x1024, 2 KITTI 375x1242) through
-             the engine at batch 2, 32 iterations, seeded random weights:
-             path "fused" (B1) and path "lookup" (B2), launch counts read
-             around each; flow_low against the plain-lookup model on the
-             same weights, <= 1e-2 px, TF32 off
-  5 times    CUDA-event medians: forward ms at 440x1024 (TF32 off and
-             PyTorch's default), kernel and plain-version times per call
+  1 device    nvidia-smi name and power limit, torch and CUDA versions
+  2 build     the kernel libraries, one nvcc each, started together
+  3 kernels   B1 flash_fused_step and B2 flash_local_corr_level against
+              fused_reference / local_corr_level at the v1 shapes (B=1 and
+              B=2, fp32/bf16/int8 storage, far out-of-frame coords, a
+              degenerate level); then B3 pallas_fused_step and B4
+              pallas_local_corr_level at the v5 shapes (the same cases with
+              the batch doubled, as the dual stream has it, and the 5x8
+              map of a 40x64 image) against their plain versions and
+              against B1 / B2, NaN coords included; max abs error <= 1e-3,
+              TF32 off
+  4 slice v1  4 frame pairs (2 Sintel 436x1024, 2 KITTI 375x1242) through
+              the engine at batch 2, 32 iterations: path "fused" (B1) and
+              "lookup" (B2), launch counts set to 0 before and read after
+              each; flow_low against the plain-lookup model on the same
+              weights, <= 1e-2 px, TF32 off
+  5 slice v5  the same requests through v5: paths "pallas_fused" (B3),
+              "pallas_lookup" (B4) and "flash_fused" (B1), checked the
+              same way
+  6 times     CUDA-event medians: v1 and v5 forward ms at 440x1024, B=1
+              (TF32 off and PyTorch's default), v5's DexiNed and prelude
+              alone, kernel and plain-version times per call at each
+              path's shapes, one torch.profiler breakdown per model
 Then the {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed phase exits non-zero.
 """
@@ -49,7 +61,8 @@ ITERS = 32
 # operand, so no 16-bit tensor-core rate applies
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOP_S = 67e12
-SOURCE = "dexiraft_tpu_torch/csrc/flash_corr.cu"
+SOURCES = {"flash_corr": "dexiraft_tpu_torch/csrc/flash_corr.cu",
+           "pallas_corr": "dexiraft_tpu_torch/csrc/pallas_corr.cu"}
 # kernel-check cases: (label, B, H/8, W/8, levels, r, C, F)
 KERNEL_CASES = (
     ("sintel_b1", 1, 55, 128, 4, 4, 256, 256),
@@ -57,13 +70,25 @@ KERNEL_CASES = (
     ("kitti_b2", 2, 47, 156, 4, 4, 256, 256),
     ("degenerate_48x64", 2, 6, 8, 4, 4, 256, 256),
 )
+# v5's kernel batch is twice the engine's: image and edge stream
+V5_KERNEL_CASES = (
+    ("sintel_b2", 2, 55, 128, 4, 4, 256, 256),
+    ("sintel_b4", 4, 55, 128, 4, 4, 256, 256),
+    ("kitti_b4", 4, 47, 156, 4, 4, 256, 256),
+    ("degenerate_48x64_b4", 4, 6, 8, 4, 4, 256, 256),
+    ("crop_40x64_b4", 4, 5, 8, 4, 4, 256, 256),
+)
 # the slice's requests: ((H, W), horizontal shift in px)
 PAIRS = (((436, 1024), 3), ((436, 1024), -5), ((375, 1242), 4),
          ((375, 1242), 2))
 SINTEL_BUCKET = (440, 1024)
 
 
+RECORDS: list = []  # every emitted line, for --out
+
+
 def emit(obj) -> None:
+    RECORDS.append(obj)
     print(json.dumps(obj), flush=True)
 
 
@@ -184,8 +209,16 @@ def bound_ms(nbytes, flops):
                                        else "operations")
 
 
+def max_diff(a, b, keep=None) -> float:
+    """Max abs difference, over the ``keep`` mask where one is given."""
+    d = (a - b).abs()
+    if keep is not None:
+        d = d.masked_fill(~keep, 0.0)
+    return float(d.max())
+
+
 def phase_kernels(torch, ck, gen, dev):
-    """B1 and B2 against their plain versions at the main path's shapes."""
+    """B1 and B2 against their plain versions at the v1 shapes."""
     from dexiraft_tpu_torch.ops.local_corr import local_corr_level
 
     worst = {"flash_fused_step": 0.0, "flash_local_corr_level": 0.0}
@@ -198,7 +231,7 @@ def phase_kernels(torch, ck, gen, dev):
             torch.cuda.synchronize()
             ref = ck.fused_reference(pyr.fmap1, pyr.fmap2_pyramid, co,
                                      weight, bias, r, 8)
-            err_b1 = float((out - ref).abs().max())
+            err_b1 = max_diff(out, ref)
             errs_b2 = []
             for lvl, f2 in enumerate(pyr.fmap2_pyramid):
                 c_l = co / 2.0 ** lvl
@@ -208,10 +241,10 @@ def phase_kernels(torch, ck, gen, dev):
                 rr = local_corr_level(pyr.fmap1, f2.float(), c_l, r, 8)
                 if s is not None:  # the scale the lookup path applies
                     o, rr = o * s, rr * s
-                errs_b2.append(float((o - rr).abs().max()))
-            emit({"phase": "kernels", "case": label, "dtype": dtype,
-                  "shape": [b, h, w, c], "levels": [list(x.shape[1:3]) for x in
-                                                    pyr.fmap2_pyramid],
+                errs_b2.append(max_diff(o, rr))
+            emit({"phase": "kernels", "kernels": "B1/B2", "case": label,
+                  "dtype": dtype, "shape": [b, h, w, c],
+                  "levels": [list(x.shape[1:3]) for x in pyr.fmap2_pyramid],
                   "tf32": False, "b1_max_abs_err": err_b1,
                   "b2_max_abs_err_per_level": errs_b2, "tol": TOL_KERNEL})
             worst["flash_fused_step"] = max(worst["flash_fused_step"], err_b1)
@@ -221,6 +254,66 @@ def phase_kernels(torch, ck, gen, dev):
                 raise AssertionError(
                     f"kernel disagrees with its plain version: {label} "
                     f"{dtype} B1 {err_b1} B2 {errs_b2} (tol {TOL_KERNEL})")
+    return worst
+
+
+def phase_kernels_v5(torch, ck, gen, dev):
+    """B3 and B4 against their plain versions and against B1 / B2 (the
+    other formulation, an independent kernel) at the v5 shapes. Row 1 of
+    the coords is NaN for 3 pixels: both kernels clip a NaN center to the
+    low edge, an all-zero window (B3 gives the bias, B4 zeros), where the
+    plain version gives NaN; those pixels are held to that and left out
+    of the plain comparison."""
+    from dexiraft_tpu_torch.ops.local_corr import local_corr_level
+
+    worst = {"pallas_fused_step": 0.0, "pallas_local_corr_level": 0.0}
+    for label, b, h, w, levels, r, c, feat in V5_KERNEL_CASES:
+        for dtype in ("fp32", "bf16", "int8"):
+            pyr, co, weight, bias = make_inputs(gen, b, h, w, c, levels, r,
+                                                feat, dtype, dev)
+            co[:, 1, :3] = float("nan")
+            keep = torch.ones(b, h, w, 1, dtype=torch.bool, device=dev)
+            keep[:, 1, :3] = False
+            b3 = ck.pallas_fused_step(pyr.fmap1, pyr.fmap2_pyramid, co,
+                                      weight, bias, r)
+            torch.cuda.synchronize()
+            b1 = ck.flash_fused_step(pyr.fmap1, pyr.fmap2_pyramid, co,
+                                     weight, bias, r)
+            ref = ck.fused_reference(pyr.fmap1, pyr.fmap2_pyramid, co,
+                                     weight, bias, r, 8)
+            rec = {"b3_vs_plain": max_diff(b3, ref, keep),
+                   "b3_vs_b1": max_diff(b3, b1),
+                   "b3_nan_pixels_vs_bias": max_diff(b3[:, 1, :3], bias)}
+            b4_plain, b4_b2, b4_nan = [], [], []
+            for lvl, f2 in enumerate(pyr.fmap2_pyramid):
+                c_l = co / 2.0 ** lvl
+                s = pyr.level_scale(lvl)
+                o = ck.pallas_local_corr_level(pyr.fmap1, f2, c_l, r)
+                torch.cuda.synchronize()
+                o2 = ck.flash_local_corr_level(pyr.fmap1, f2, c_l, r)
+                rr = local_corr_level(pyr.fmap1, f2.float(), c_l, r, 8)
+                if s is not None:  # the scale the lookup path applies
+                    o, o2, rr = o * s, o2 * s, rr * s
+                b4_plain.append(max_diff(o, rr, keep))
+                b4_b2.append(max_diff(o, o2))
+                b4_nan.append(float(o[:, 1, :3].abs().max()))
+            rec.update(b4_vs_plain_per_level=b4_plain,
+                       b4_vs_b2_per_level=b4_b2,
+                       b4_nan_pixels_max_abs_per_level=b4_nan)
+            emit({"phase": "kernels", "kernels": "B3/B4", "case": label,
+                  "dtype": dtype, "shape": [b, h, w, c],
+                  "levels": [list(x.shape[1:3]) for x in pyr.fmap2_pyramid],
+                  "tf32": False, **rec, "tol": TOL_KERNEL})
+            err_b3 = max(rec["b3_vs_plain"], rec["b3_vs_b1"],
+                         rec["b3_nan_pixels_vs_bias"])
+            err_b4 = max(b4_plain + b4_b2 + b4_nan)
+            worst["pallas_fused_step"] = max(worst["pallas_fused_step"], err_b3)
+            worst["pallas_local_corr_level"] = max(
+                worst["pallas_local_corr_level"], err_b4)
+            if err_b3 > TOL_KERNEL or err_b4 > TOL_KERNEL:
+                raise AssertionError(
+                    f"B3/B4 disagree with their plain versions or with B1/B2: "
+                    f"{label} {dtype} {rec} (tol {TOL_KERNEL})")
     return worst
 
 
@@ -238,29 +331,33 @@ def frame_pairs(seed):
     return items
 
 
-def phase_slice(torch, ck, dev):
-    from dexiraft_tpu_torch.config import raft_v1
+def phase_slice(torch, ck, dev, model_name, variant, paths, expect):
+    """Drive one model's paths through the engine. ``paths``: path ->
+    config kwargs of ``variant`` (the first path's model is seeded, the
+    others load its weights; "plain" is added as corr_impl="local").
+    ``expect``: path -> (kernel, launches that path must make, and no
+    launch of any other kernel)."""
     from dexiraft_tpu_torch.data.padder import InputPadder
     from dexiraft_tpu_torch.models.raft import RAFT, create_model
     from dexiraft_tpu_torch.serve.engine import InferenceEngine, ServeConfig
     from dexiraft_tpu_torch.train.step import make_eval_step
 
-    fused_cfg = raft_v1(corr_impl="flash", fused_update=True)
-    model = create_model(fused_cfg, seed=0, device=dev)
-    state = model.state_dict()
+    names = list(paths)
+    seeded = create_model(variant(**paths[names[0]]), seed=0, device=dev)
+    state = seeded.state_dict()
 
-    def sibling(cfg):
-        m = RAFT(cfg)
+    def sibling(kw):
+        m = RAFT(variant(**kw))
         m.load_state_dict(state, strict=True)
         return m.to(dev).eval()
 
-    models = {"fused": model,
-              "lookup": sibling(raft_v1(corr_impl="flash")),
-              "plain": sibling(raft_v1(corr_impl="local"))}
+    models = {names[0]: seeded}
+    models.update({p: sibling(paths[p]) for p in names[1:]})
+    models["plain"] = sibling({"corr_impl": "local"})
     items = frame_pairs(seed=0)
     launches = {}
     results = {}
-    for path in ("fused", "lookup"):
+    for path in names:
         engine = InferenceEngine(make_eval_step(models[path], ITERS, dev),
                                  ServeConfig(batch_size=2, mode="sintel"))
         ck.reset_launches()
@@ -272,25 +369,24 @@ def phase_slice(torch, ck, dev):
         for r, it in zip(res, items):
             h, w = it["image1"].shape[:2]
             if r.flow_up.shape != (h, w, 2):
-                raise AssertionError(f"{path}: flow_up {r.flow_up.shape} "
-                                     f"for a {h}x{w} pair")
+                raise AssertionError(f"{model_name} {path}: flow_up "
+                                     f"{r.flow_up.shape} for a {h}x{w} pair")
             if not np.isfinite(r.flow_up).all() or not np.isfinite(
                     r.flow_low).all():
-                raise AssertionError(f"{path}: non-finite flow")
-        emit({"phase": "slice", "path": path, "requests": len(res),
-              "batches": engine.stats.batches,
+                raise AssertionError(f"{model_name} {path}: non-finite flow")
+        emit({"phase": "slice", "model": model_name, "path": path,
+              "requests": len(res), "batches": engine.stats.batches,
               "buckets": engine.registry.stats()["buckets"],
               "launches": launches[path],
               "flow_up_shapes": [list(r.flow_up.shape) for r in res],
               "mean_abs_flow_px": [float(np.abs(r.flow_up).mean()) for r in res]})
-    if launches["fused"]["flash_fused_step"] != 2 * ITERS:
-        raise AssertionError(f"fused path launched B1 "
-                             f"{launches['fused']['flash_fused_step']} times, "
-                             f"expected {2 * ITERS}")
-    if launches["lookup"]["flash_local_corr_level"] != 2 * ITERS * 4:
-        raise AssertionError("lookup path launched B2 "
-                             f"{launches['lookup']['flash_local_corr_level']} "
-                             f"times, expected {2 * ITERS * 4}")
+    for path, (kernel, count) in expect.items():
+        got = launches[path]
+        stray = {k: v for k, v in got.items() if k != kernel and v}
+        if got[kernel] != count or stray:
+            raise AssertionError(
+                f"{model_name} path {path!r} launched {kernel} {got[kernel]} "
+                f"times (expected {count}) and other kernels {stray}")
 
     # the same forward with the kernel swapped for its plain version
     # (corr_impl="local", same weights), on the Sintel bucket's batch
@@ -304,31 +400,33 @@ def phase_slice(torch, ck, dev):
     x2 = im2.to(dev).permute(0, 3, 1, 2)
     lows = {}
     with torch.inference_mode():
-        for path in ("fused", "lookup", "plain"):
+        for path in names + ["plain"]:
             lows[path] = models[path](x1, x2, iters=ITERS)[0]
-    diff = {p: float((lows[p] - lows["plain"]).abs().max())
-            for p in ("fused", "lookup")}
+    diff = {p: float((lows[p] - lows["plain"]).abs().max()) for p in names}
     engine_vs_direct = max(
-        float(np.abs(r.flow_low - lows["fused"][i].permute(1, 2, 0)
+        float(np.abs(r.flow_low - lows[names[0]][i].permute(1, 2, 0)
                      .cpu().numpy()).max())
-        for i, r in enumerate(results["fused"][:2]))
-    emit({"phase": "slice", "check": "kernel path vs plain path, same weights",
+        for i, r in enumerate(results[names[0]][:2]))
+    emit({"phase": "slice", "model": model_name,
+          "check": "kernel paths vs plain path, same weights",
           "tf32": False, "flow_low_max_abs_diff_px": diff,
           "engine_vs_direct_flow_low_px": engine_vs_direct,
           "flow_low_max_abs_px": float(lows["plain"].abs().max()),
           "tol_px": TOL_FLOW_PX})
     if max(diff.values()) > TOL_FLOW_PX or engine_vs_direct > TOL_FLOW_PX:
-        raise AssertionError(f"kernel path flow differs from the plain path: "
-                             f"{diff}, engine vs direct {engine_vs_direct}")
+        raise AssertionError(f"{model_name}: kernel path flow differs from "
+                             f"the plain path: {diff}, engine vs direct "
+                             f"{engine_vs_direct}")
     return models, launches
 
 
-def profile_forward(torch, forward) -> dict:
+def profile_forward(torch, forward, kernel_key: str) -> dict:
     """One forward under torch.profiler: device time by kernel (the eight
-    largest), the flash kernel's share, and device-busy time over the
-    host wall time of the same forward. Only device-side (kernel, memcpy,
-    memset) events are summed: host operators also carry the device time
-    of the kernels they launched."""
+    largest), the share of the correlation kernels whose name holds
+    ``kernel_key``, and device-busy time over the host wall time of the
+    same forward. Only device-side (kernel, memcpy, memset) events are
+    summed: host operators also carry the device time of the kernels they
+    launched."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -353,63 +451,124 @@ def profile_forward(torch, forward) -> dict:
         return {"device_time": "not measured (profiler saw no device time)",
                 "wall_ms": wall_ms}
     top = sorted(events, key=dev_us, reverse=True)[:8]
-    flash_ms = sum(dev_us(e) for e in events if "flash_corr" in e.key) / 1e3
+    kernel_ms = sum(dev_us(e) for e in events if kernel_key in e.key) / 1e3
     return {"wall_ms": wall_ms, "device_ms": total_ms,
             "device_busy_share": total_ms / wall_ms,
-            "flash_kernel_ms": flash_ms, "flash_kernel_share": flash_ms / total_ms,
+            "corr_kernel": kernel_key, "corr_kernel_ms": kernel_ms,
+            "corr_kernel_share": kernel_ms / total_ms,
             "top_kernels_ms": {e.key[:80]: dev_us(e) / 1e3 for e in top}}
 
 
-def phase_times(torch, ck, gen, dev, models, card):
-    from dexiraft_tpu_torch.ops.local_corr import local_corr_level
-
-    rec = {"phase": "times", "card": card}
-    bh, bw = SINTEL_BUCKET
-    x1 = torch.rand(1, 3, bh, bw, generator=gen, device=dev) * 255
-    x2 = torch.rand(1, 3, bh, bw, generator=gen, device=dev) * 255
+def time_forwards(torch, models, paths, x1, x2, rec, prefix) -> None:
+    """CUDA-event median forward ms of each path, TF32 off and default."""
+    bh, bw = x1.shape[2:]
     for tf32 in (False, True):
         torch.backends.cudnn.allow_tf32 = tf32
         key = "tf32_default" if tf32 else "tf32_off"
         with torch.inference_mode():
-            for path in ("fused", "lookup", "plain"):
+            for path in paths:
                 ts = sorted(cuda_times_ms(
                     lambda: models[path](x1, x2, iters=ITERS), reps=10,
                     warmup=2))
-                name = f"forward_ms_{bh}x{bw}_{path}_{key}"
+                name = f"{prefix}forward_ms_{bh}x{bw}_{path}_{key}"
                 rec[name] = statistics.median(ts)
                 rec[name + "_min_max"] = [ts[0], ts[-1]]
-    rec["profile_fused_tf32_default"] = profile_forward(
-        torch, lambda: models["fused"](x1, x2, iters=ITERS))
     torch.backends.cudnn.allow_tf32 = False
 
-    b1 = {}
+
+def time_kernels(torch, ck, gen, dev, b, rec, prefix, fused, level) -> None:
+    """Per-call µs of a fused kernel (``{prefix}_fused_*``) and a lookup
+    kernel at every level (``{prefix}_lookup_*``), and of their plain
+    versions, at batch ``b`` of the Sintel bucket, with each one's bound
+    from the bytes and FLOPs these inputs need."""
+    from dexiraft_tpu_torch.ops.local_corr import local_corr_level
+
+    bh, bw = SINTEL_BUCKET
+    fp, lp = prefix + "_fused", prefix + "_lookup"
+    inputs = {}
     for dtype in ("fp32", "bf16", "int8"):
-        pyr, co, w, b = make_inputs(gen, 1, bh // 8, bw // 8, 256, 4, 4, 256,
-                                    dtype, dev)
-        b1[dtype] = (pyr, co, w, b)
-        rec[f"b1_us_{dtype}"] = 1e3 * cuda_time_ms(
-            lambda: ck.flash_fused_step(pyr.fmap1, pyr.fmap2_pyramid, co, w,
-                                        b, 4), reps=10, inner=10)
-    pyr, co, w, b = b1["fp32"]
-    rec["plain_fused_reference_us_fp32"] = 1e3 * cuda_time_ms(
-        lambda: ck.fused_reference(pyr.fmap1, pyr.fmap2_pyramid, co, w, b, 4, 8),
-        reps=10, inner=2)
+        pyr, co, w, bias = make_inputs(gen, b, bh // 8, bw // 8, 256, 4, 4,
+                                       256, dtype, dev)
+        inputs[dtype] = (pyr, co, w, bias)
+        rec[f"{fp}_us_{dtype}"] = 1e3 * cuda_time_ms(
+            lambda: fused(pyr.fmap1, pyr.fmap2_pyramid, co, w, bias, 4),
+            reps=10, inner=10)
+    pyr, co, w, bias = inputs["fp32"]
+    rec[f"{fp}_plain_us_fp32"] = 1e3 * cuda_time_ms(
+        lambda: ck.fused_reference(pyr.fmap1, pyr.fmap2_pyramid, co, w, bias,
+                                   4, 8), reps=10, inner=2)
     nbytes, flops = work_b1(pyr, co, w, 4)
-    rec["b1_bound_us"], rec["b1_bound_by"] = bound_ms(nbytes, flops)
-    rec["b1_bound_us"] *= 1e3
-    rec["b1_bytes"], rec["b1_flops"] = nbytes, flops
+    bm, rec[f"{fp}_bound_by"] = bound_ms(nbytes, flops)
+    rec[f"{fp}_bound_us"] = bm * 1e3
+    rec[f"{fp}_bytes"], rec[f"{fp}_flops"] = nbytes, flops
     for lvl, f2 in enumerate(pyr.fmap2_pyramid):
         c_l = co / 2.0 ** lvl
-        rec[f"b2_us_level{lvl}"] = 1e3 * cuda_time_ms(
-            lambda: ck.flash_local_corr_level(pyr.fmap1, f2, c_l, 4),
-            reps=10, inner=10)
-        rec[f"plain_b2_us_level{lvl}"] = 1e3 * cuda_time_ms(
-            lambda: local_corr_level(pyr.fmap1, f2, c_l, 4, 8), reps=10, inner=2)
-        nb, fl = work_b2(pyr.fmap1, f2, c_l, 4)
-        bm, by = bound_ms(nb, fl)
-        rec[f"b2_bound_us_level{lvl}"], rec[f"b2_bound_by_level{lvl}"] = bm * 1e3, by
+        rec[f"{lp}_us_level{lvl}"] = 1e3 * cuda_time_ms(
+            lambda: level(pyr.fmap1, f2, c_l, 4), reps=10, inner=10)
+        rec[f"{lp}_plain_us_level{lvl}"] = 1e3 * cuda_time_ms(
+            lambda: local_corr_level(pyr.fmap1, f2, c_l, 4, 8), reps=10,
+            inner=2)
+        bm, by = bound_ms(*work_b2(pyr.fmap1, f2, c_l, 4))
+        rec[f"{lp}_bound_us_level{lvl}"] = bm * 1e3
+        rec[f"{lp}_bound_by_level{lvl}"] = by
+
+
+def phase_times(torch, ck, gen, dev, v1_models, v5_models, card):
+    rec = {"phase": "times", "card": card}
+    bh, bw = SINTEL_BUCKET
+    x1 = torch.rand(1, 3, bh, bw, generator=gen, device=dev) * 255
+    x2 = torch.rand(1, 3, bh, bw, generator=gen, device=dev) * 255
+
+    time_forwards(torch, v1_models, ("fused", "lookup", "plain"), x1, x2,
+                  rec, "")
+    time_forwards(torch, v5_models, ("pallas_fused", "pallas_lookup",
+                                     "flash_fused", "plain"), x1, x2, rec,
+                  "v5_")
+    # v5's prelude: DexiNed on both frames, and everything but the loop
+    # (iters=0: DexiNed, the four encoders, the pyramid, the upsampling)
+    v5 = v5_models["pallas_fused"]
+    both = torch.cat([x1, x2]) / 255.0 * 2.0 - 1.0
+    for tf32 in (False, True):
+        torch.backends.cudnn.allow_tf32 = tf32
+        key = "tf32_default" if tf32 else "tf32_off"
+        with torch.inference_mode():
+            rec[f"v5_dexined_ms_{bh}x{bw}_{key}"] = cuda_time_ms(
+                lambda: v5.dexined(both))
+            rec[f"v5_prelude_ms_{bh}x{bw}_{key}"] = cuda_time_ms(
+                lambda: v5(x1, x2, iters=0))
+    rec["profile_v1_fused_tf32_default"] = profile_forward(
+        torch, lambda: v1_models["fused"](x1, x2, iters=ITERS), "flash_corr")
+    rec["profile_v5_pallas_fused_tf32_default"] = profile_forward(
+        torch, lambda: v5(x1, x2, iters=ITERS), "pallas_corr")
+    torch.backends.cudnn.allow_tf32 = False
+
+    # kernels at each path's shapes: v1 batch 1 (B1, B2); v5 batch 2, the
+    # image and edge stream of one pair (B3, B4, and B1/B2 beside them)
+    time_kernels(torch, ck, gen, dev, 1, rec, "v1_flash",
+                 ck.flash_fused_step, ck.flash_local_corr_level)
+    time_kernels(torch, ck, gen, dev, 2, rec, "v5_pallas",
+                 ck.pallas_fused_step, ck.pallas_local_corr_level)
+    time_kernels(torch, ck, gen, dev, 2, rec, "v5_flash",
+                 ck.flash_fused_step, ck.flash_local_corr_level)
     emit(rec)
     return rec
+
+
+def kernel_entry(name, lib, replaces, launches, err, rec, prefix, fused):
+    """One entry of the kernels line: the times of time_kernels' ``prefix``
+    at the path's shapes, fp32 storage, level 0 for a lookup kernel."""
+    if fused:
+        key, suffix = prefix + "_fused", "fp32"
+        bound, by = rec[f"{key}_bound_us"], rec[f"{key}_bound_by"]
+    else:
+        key, suffix = prefix + "_lookup", "level0"
+        bound = rec[f"{key}_bound_us_level0"]
+        by = rec[f"{key}_bound_by_level0"]
+    return {"name": name, "route": "cuda", "source": SOURCES[lib],
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": rec[f"{key}_us_{suffix}"] / 1e3,
+            "plain_ms": rec[f"{key}_plain_us_{suffix}"] / 1e3,
+            "bound_ms": bound / 1e3, "bound_by": by, "library_ms": None}
 
 
 def main(argv=None) -> int:
@@ -430,6 +589,7 @@ def main(argv=None) -> int:
                     "from a checkout of the repository")
     sys.path.insert(0, REPO)
 
+    from dexiraft_tpu_torch.config import raft_v1, raft_v5
     from dexiraft_tpu_torch.ops import corr_kernels as ck
 
     dev = torch.device("cuda:0")
@@ -441,11 +601,11 @@ def main(argv=None) -> int:
             "count": torch.cuda.device_count()}
     emit({"phase": "device", **card})
 
-    # 2. build
+    # 2. build: one nvcc per kernel library, started together
     t0 = time.perf_counter()
-    lib = ck.build_kernels()
+    libs = ck.build_kernels()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": os.path.relpath(lib, REPO)})
+          "libraries": {k: os.path.relpath(v, REPO) for k, v in libs.items()}})
 
     # parity phases run with TF32 off: the reference arithmetic is fp32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -453,32 +613,46 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
 
     worst = phase_kernels(torch, ck, gen, dev)
-    models, launches = phase_slice(torch, ck, dev)
-    times = phase_times(torch, ck, gen, dev, models, smi)
+    worst.update(phase_kernels_v5(torch, ck, gen, dev))
+    v1_models, v1_launches = phase_slice(
+        torch, ck, dev, "v1", raft_v1,
+        {"fused": dict(corr_impl="flash", fused_update=True),
+         "lookup": dict(corr_impl="flash")},
+        {"fused": ("flash_fused_step", 2 * ITERS),
+         "lookup": ("flash_local_corr_level", 2 * ITERS * 4)})
+    v5_models, v5_launches = phase_slice(
+        torch, ck, dev, "v5", raft_v5,
+        {"pallas_fused": dict(corr_impl="pallas", fused_update=True),
+         "pallas_lookup": dict(corr_impl="pallas"),
+         "flash_fused": dict(corr_impl="flash", fused_update=True)},
+        {"pallas_fused": ("pallas_fused_step", 2 * ITERS),
+         "pallas_lookup": ("pallas_local_corr_level", 2 * ITERS * 4),
+         "flash_fused": ("flash_fused_step", 2 * ITERS)})
+    times = phase_times(torch, ck, gen, dev, v1_models, v5_models, smi)
 
+    pc = "dexiraft_tpu/ops/pallas_corr.py"
     kernels = [
-        {"name": "flash_fused_step", "route": "cuda", "source": SOURCE,
-         "replaces": "dexiraft_tpu/ops/pallas_corr.py:867",
-         "launches": launches["fused"]["flash_fused_step"],
-         "max_abs_err": worst["flash_fused_step"],
-         "ms": times["b1_us_fp32"] / 1e3,
-         "plain_ms": times["plain_fused_reference_us_fp32"] / 1e3,
-         "bound_ms": times["b1_bound_us"] / 1e3,
-         "bound_by": times["b1_bound_by"], "library_ms": None},
-        {"name": "flash_local_corr_level", "route": "cuda", "source": SOURCE,
-         "replaces": "dexiraft_tpu/ops/pallas_corr.py:847",
-         "launches": launches["lookup"]["flash_local_corr_level"],
-         "max_abs_err": worst["flash_local_corr_level"],
-         "ms": times["b2_us_level0"] / 1e3,
-         "plain_ms": times["plain_b2_us_level0"] / 1e3,
-         "bound_ms": times["b2_bound_us_level0"] / 1e3,
-         "bound_by": times["b2_bound_by_level0"], "library_ms": None},
+        kernel_entry("flash_fused_step", "flash_corr", f"{pc}:867",
+                     v1_launches["fused"]["flash_fused_step"],
+                     worst["flash_fused_step"], times, "v1_flash", True),
+        kernel_entry("flash_local_corr_level", "flash_corr", f"{pc}:847",
+                     v1_launches["lookup"]["flash_local_corr_level"],
+                     worst["flash_local_corr_level"], times, "v1_flash",
+                     False),
+        kernel_entry("pallas_fused_step", "pallas_corr", f"{pc}:542",
+                     v5_launches["pallas_fused"]["pallas_fused_step"],
+                     worst["pallas_fused_step"], times, "v5_pallas", True),
+        kernel_entry("pallas_local_corr_level", "pallas_corr", f"{pc}:276",
+                     v5_launches["pallas_lookup"]["pallas_local_corr_level"],
+                     worst["pallas_local_corr_level"], times, "v5_pallas",
+                     False),
     ]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump({"card": card, "times": times, "launches": launches,
-                       "kernels": kernels}, f, indent=1)
+            json.dump({"card": card, "times": times,
+                       "launches": {"v1": v1_launches, "v5": v5_launches},
+                       "kernels": kernels, "records": RECORDS}, f, indent=1)
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

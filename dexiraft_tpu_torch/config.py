@@ -19,12 +19,13 @@ from typing import Optional, Tuple
 CORR_DTYPES = ("fp32", "bf16", "int8")
 
 # correlation implementations, as in the JAX package. The port runs
-# "local" (plain PyTorch lookup) and "flash" (the hand-written CUDA
-# kernel of csrc/flash_corr.cu); the others are refused by models/raft.py.
+# "local" (plain PyTorch lookup), "flash" (the hand-written CUDA kernel of
+# csrc/flash_corr.cu) and "pallas" (the per-pixel CUDA kernel of
+# csrc/pallas_corr.cu); "allpairs" is refused by models/raft.py.
 CORR_IMPLS = ("allpairs", "local", "pallas", "flash")
 
-# the corr implementations models/raft.py runs in this slice
-PORTED_CORR_IMPLS = ("local", "flash")
+# the corr implementations models/raft.py runs
+PORTED_CORR_IMPLS = ("local", "flash", "pallas")
 
 
 def resolve_corr_impl(impl: str, platform: str) -> Tuple[str, bool]:
@@ -62,7 +63,7 @@ class RAFTConfig:
       v4  variant='early',  embed_dexined=True 10-ch early fusion with DexiNed
       v5  variant='dual',   embed_dexined=True dual stream with DexiNed
 
-    The port runs v1 only (models/raft.py refuses the others).
+    The port runs v1 and v5 (models/raft.py refuses the others).
     """
 
     variant: str = "raft"  # raft | early | separate | dual

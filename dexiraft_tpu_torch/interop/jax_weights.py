@@ -5,6 +5,11 @@
 port's state dict, key for key:
 
   conv kernel (HWIO)          -> weight (OIHW), transpose (3, 2, 0, 1)
+  conv-transpose kernel       -> weight (in, out, kH, kW): spatial flip,
+    (kH, kW, in, out)            then transpose (2, 3, 0, 1) (torch's
+                                 ConvTranspose2d is the gradient of a
+                                 strided conv, flax's a conv over the
+                                 dilated input: the kernels are mirrored)
   conv bias                   -> bias
   BatchNorm scale / bias      -> weight / bias
   batch_stats mean / var      -> running_mean / running_var
@@ -17,7 +22,10 @@ names the port uses on the other. A strided block's shortcut norm is
 registered twice in the port (``normK`` and ``downsample.1``), and both
 keys get the same flax BatchNorm. ``convc1`` maps to the motion encoder's
 ``Conv_0`` on both the fused and the unfused path: the flax tree is the
-same for both.
+same for both. A v5 tree (it holds ``DexiNed_0``) also maps the edge
+encoders ``efnet``/``ecnet`` (the encoder map again) and every
+``dexined.*`` key (the reference DexiNed names -> flax's auto-numbered
+modules, as ``torch_convert._DEXINED_BLOCKS`` maps them).
 """
 
 from __future__ import annotations
@@ -27,7 +35,7 @@ from typing import Any, Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-from dexiraft_tpu_torch.config import RAFTConfig
+from dexiraft_tpu_torch.config import RAFTConfig, raft_v1, raft_v5
 
 _UPDATE_BLOCK_FULL = {
     "encoder.convc1": ("BasicMotionEncoder_0", "Conv_0"),
@@ -59,6 +67,32 @@ _UPDATE_BLOCK_SMALL = {
     "flow_head.conv2": ("FlowHead_0", "Conv_1"),
 }
 
+# reference DexiNed attribute -> flax module (construction order)
+_DEXINED_BLOCKS = {
+    "block_1": "DoubleConvBlock_0",
+    "block_2": "DoubleConvBlock_1",
+    "dblock_3": "DenseBlock_0",
+    "dblock_4": "DenseBlock_1",
+    "dblock_5": "DenseBlock_2",
+    "dblock_6": "DenseBlock_3",
+    "side_1": "SingleConvBlock_0",
+    "side_2": "SingleConvBlock_1",
+    "side_3": "SingleConvBlock_3",
+    "side_4": "SingleConvBlock_5",
+    "side_5": "side_5",
+    "pre_dense_3": "SingleConvBlock_2",
+    "pre_dense_4": "SingleConvBlock_4",
+    "pre_dense_5": "SingleConvBlock_6",
+    "pre_dense_6": "SingleConvBlock_7",
+    "block_cat": "SingleConvBlock_8",
+    "up_block_1": "UpConvBlock_0",
+    "up_block_2": "UpConvBlock_1",
+    "up_block_3": "UpConvBlock_2",
+    "up_block_4": "UpConvBlock_3",
+    "up_block_5": "UpConvBlock_4",
+    "up_block_6": "UpConvBlock_5",
+}
+
 _BN_LEAVES = {"weight": ("params", "scale"), "bias": ("params", "bias"),
               "running_mean": ("batch_stats", "mean"),
               "running_var": ("batch_stats", "var")}
@@ -88,13 +122,41 @@ def _encoder_module(parts, small: bool) -> Tuple[str, ...]:
     raise KeyError(f"unhandled encoder key {'.'.join(parts)}")
 
 
+def _numbered(sub: str) -> str:
+    """conv / conv1 -> Conv_0, conv2 -> Conv_1, bn / bn1 / norm1 ->
+    BatchNorm_0, ..."""
+    for base, flax in (("conv", "Conv"), ("bn", "BatchNorm"),
+                       ("norm", "BatchNorm")):
+        if sub.startswith(base):
+            suffix = sub[len(base):]
+            return f"{flax}_{int(suffix) - 1 if suffix else 0}"
+    raise KeyError(f"unhandled DexiNed module {sub!r}")
+
+
+def _dexined_module(parts) -> Tuple[str, ...]:
+    """DexiNed torch path (without root and leaf) -> flax module path."""
+    ours = _DEXINED_BLOCKS[parts[0]]
+    if parts[0].startswith("up_block"):
+        # features.{i}: 0, 3, ... 1x1 convs; 2, 5, ... transposed convs
+        stage, pos = divmod(int(parts[2]), 3)
+        if pos not in (0, 2):
+            raise KeyError(f"unexpected UpConvBlock index {parts[2]}")
+        return (ours, f"Conv_{stage}" if pos == 0 else f"ConvTranspose_{stage}")
+    if parts[0].startswith("dblock"):
+        layer = int(parts[1][len("denselayer"):]) - 1
+        return (ours, f"DenseLayer_{layer}", _numbered(parts[2]))
+    return (ours, _numbered(parts[1]))
+
+
 def flax_source(key: str, small: bool = False) -> Tuple[str, Tuple[str, ...]]:
     """Port state-dict key -> (flax collection, flax path incl. leaf name).
     Raises KeyError for num_batches_tracked (no flax counterpart)."""
     parts = key.split(".")
     root, leaf = parts[0], parts[-1]
-    if root in ("fnet", "cnet"):
+    if root in ("fnet", "cnet", "efnet", "ecnet"):
         mod = (root,) + _encoder_module(parts[1:-1], small)
+    elif root == "dexined":
+        mod = ("DexiNed_0",) + _dexined_module(parts[1:-1])
     elif root == "update_block":
         table = _UPDATE_BLOCK_SMALL if small else _UPDATE_BLOCK_FULL
         sub = ".".join(parts[1:-1])
@@ -119,23 +181,57 @@ def _fetch(tree: Mapping[str, Any], path: Tuple[str, ...]) -> np.ndarray:
     return np.asarray(node)
 
 
-def raft_state_dict_from_jax(variables: Mapping[str, Any],
-                             small: bool = False) -> Dict[str, torch.Tensor]:
-    """Flax RAFT v1 variables -> the port's state dict (CPU tensors), ready
-    for ``RAFT.load_state_dict(..., strict=True)``."""
-    from dexiraft_tpu_torch.models.raft import RAFT
+def _config_of(variables: Mapping[str, Any], small: bool) -> RAFTConfig:
+    """The port variant whose state dict the flax tree fills: v5 when it
+    holds the embedded DexiNed, else v1."""
+    variant = raft_v5 if "DexiNed_0" in variables["params"] else raft_v1
+    return variant(small=small, corr_impl="local")
 
-    with torch.device("meta"):
-        keys = list(RAFT(RAFTConfig(small=small, corr_impl="local"))
-                    .state_dict().keys())
+
+def _leaf_to_torch(variables: Mapping[str, Any], coll: str,
+                   path: Tuple[str, ...]) -> torch.Tensor:
+    value = np.asarray(_fetch(variables[coll], path), np.float32)
+    if path[-1] == "kernel" and path[-2].startswith("ConvTranspose"):
+        value = value[::-1, ::-1].transpose(2, 3, 0, 1)
+    elif path[-1] == "kernel":
+        value = value.transpose(3, 2, 0, 1)
+    return torch.from_numpy(np.array(value, np.float32, order="C"))
+
+
+def _state_dict(variables: Mapping[str, Any], keys, source
+                ) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for key in keys:
         if key.endswith("num_batches_tracked"):
             out[key] = torch.tensor(0, dtype=torch.int64)
             continue
-        coll, path = flax_source(key, small)
-        value = np.asarray(_fetch(variables[coll], path), np.float32)
-        if path[-1] == "kernel":
-            value = value.transpose(3, 2, 0, 1)
-        out[key] = torch.from_numpy(np.array(value, np.float32, order="C"))
+        out[key] = _leaf_to_torch(variables, *source(key))
     return out
+
+
+def raft_state_dict_from_jax(variables: Mapping[str, Any],
+                             small: bool = False) -> Dict[str, torch.Tensor]:
+    """Flax RAFT v1 or v5 variables -> the port's state dict (CPU tensors),
+    ready for ``RAFT.load_state_dict(..., strict=True)``."""
+    from dexiraft_tpu_torch.models.raft import RAFT
+
+    with torch.device("meta"):
+        keys = list(RAFT(_config_of(variables, small)).state_dict().keys())
+    return _state_dict(variables, keys, lambda k: flax_source(k, small))
+
+
+def dexined_state_dict_from_jax(variables: Mapping[str, Any]
+                                ) -> Dict[str, torch.Tensor]:
+    """Flax DexiNed variables (the standalone network's tree) -> the
+    port's ``DexiNed`` state dict, by the map RAFT v5 uses for its
+    ``dexined.*`` keys."""
+    from dexiraft_tpu_torch.models.dexined import DexiNed
+
+    with torch.device("meta"):
+        keys = list(DexiNed().state_dict().keys())
+
+    def source(key):
+        coll, path = flax_source("dexined." + key)
+        return coll, path[1:]  # the tree has no DexiNed_0 root
+
+    return _state_dict(variables, keys, source)

@@ -81,17 +81,20 @@ class BottleneckBlock(nn.Module):
 class Encoder(nn.Module):
     """7x7/2 stem -> three two-block stages -> 1x1 projection.
 
-    Accepts one (N, C, H, W) image batch or a list of them; a list is
+    ``in_channels`` is 3 for the image encoders and 7 for v5's edge
+    encoders ``efnet``/``ecnet``, which consume DexiNed's 7 logit maps.
+    Accepts one (N, C, H, W) batch or a list of them; a list is
     concatenated on the batch axis and split again on the way out.
     """
 
     def __init__(self, output_dim: int = 128, norm_fn: str = "batch",
                  dropout: float = 0.0, block: str = "residual",
                  stem_width: int = 64,
-                 stages: Tuple[Tuple[int, int], ...] = BASIC_STAGES):
+                 stages: Tuple[Tuple[int, int], ...] = BASIC_STAGES,
+                 in_channels: int = 3):
         super().__init__()
         block_cls = ResidualBlock if block == "residual" else BottleneckBlock
-        self.conv1 = nn.Conv2d(3, stem_width, 7, stride=2, padding=3)
+        self.conv1 = nn.Conv2d(in_channels, stem_width, 7, stride=2, padding=3)
         self.norm1 = make_norm(norm_fn, 8, stem_width)
         in_planes = stem_width
         for i, (planes, stride) in enumerate(stages, start=1):
@@ -117,11 +120,15 @@ class Encoder(nn.Module):
         return x
 
 
-def BasicEncoder(output_dim=128, norm_fn="batch", dropout=0.0) -> Encoder:
+def BasicEncoder(output_dim=128, norm_fn="batch", dropout=0.0,
+                 in_channels=3) -> Encoder:
     """Residual encoder (64, 96/2, 128/2)."""
-    return Encoder(output_dim, norm_fn, dropout, "residual", 64, BASIC_STAGES)
+    return Encoder(output_dim, norm_fn, dropout, "residual", 64, BASIC_STAGES,
+                   in_channels)
 
 
-def SmallEncoder(output_dim=128, norm_fn="batch", dropout=0.0) -> Encoder:
+def SmallEncoder(output_dim=128, norm_fn="batch", dropout=0.0,
+                 in_channels=3) -> Encoder:
     """Bottleneck encoder (32, 64/2, 96/2)."""
-    return Encoder(output_dim, norm_fn, dropout, "bottleneck", 32, SMALL_STAGES)
+    return Encoder(output_dim, norm_fn, dropout, "bottleneck", 32,
+                   SMALL_STAGES, in_channels)

@@ -27,7 +27,14 @@ def make_norm(norm_fn: str, num_groups: int, planes: int) -> nn.Module:
     raise ValueError(f"unknown norm_fn: {norm_fn!r}")
 
 
-ENCODER_ROOTS = ("fnet", "cnet")
+ENCODER_ROOTS = ("fnet", "cnet", "efnet", "ecnet")
+DEXINED_ROOT = "dexined"
+
+
+def _xavier_normal(shape, fan_in: int, fan_out: int,
+                   generator: torch.Generator) -> torch.Tensor:
+    return torch.randn(shape, generator=generator) * math.sqrt(
+        2.0 / (fan_in + fan_out))
 
 
 @torch.no_grad()
@@ -35,18 +42,26 @@ def seeded_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Initialise every parameter from ``generator`` (a CPU generator; the
     values are copied to wherever the model lives).
 
-    Encoder convs: Kaiming normal, fan-out, relu gain, zero bias (the
-    reference extractor's init). Other convs: PyTorch's default uniform
-    bound 1/sqrt(fan_in) for weight and bias. Norms: identity affine and
-    fresh running stats.
+    Encoder convs (``fnet``, ``cnet``, ``efnet``, ``ecnet``): Kaiming
+    normal, fan-out, relu gain, zero bias (the reference extractor's init).
+    DexiNed convs and transposed convs: Xavier normal, or normal(0.1) for a
+    transposed conv with one output channel, zero bias (the JAX package's
+    DexiNed init). Other convs: PyTorch's default uniform bound
+    1/sqrt(fan_in) for weight and bias. Norms: identity affine and fresh
+    running stats.
     """
     for name, m in model.named_modules():
+        root = name.split(".")[0]
         if isinstance(m, nn.Conv2d):
             kh, kw = m.kernel_size
             fan_in = m.in_channels // m.groups * kh * kw
-            if name.split(".")[0] in ENCODER_ROOTS:
+            if root in ENCODER_ROOTS:
                 std = math.sqrt(2.0 / (m.out_channels * kh * kw))
                 w = torch.randn(m.weight.shape, generator=generator) * std
+                bias = torch.zeros(m.out_channels)
+            elif root == DEXINED_ROOT:
+                w = _xavier_normal(m.weight.shape, fan_in,
+                                   m.out_channels * kh * kw, generator)
                 bias = torch.zeros(m.out_channels)
             else:
                 bound = 1.0 / math.sqrt(fan_in)
@@ -55,6 +70,16 @@ def seeded_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             m.weight.copy_(w)
             if m.bias is not None:
                 m.bias.copy_(bias)
+        elif isinstance(m, nn.ConvTranspose2d):
+            kh, kw = m.kernel_size
+            if m.out_channels == 1:
+                w = torch.randn(m.weight.shape, generator=generator) * 0.1
+            else:
+                w = _xavier_normal(m.weight.shape, m.in_channels * kh * kw,
+                                   m.out_channels * kh * kw, generator)
+            m.weight.copy_(w)
+            if m.bias is not None:
+                m.bias.zero_()
         elif isinstance(m, (nn.BatchNorm2d, nn.GroupNorm)):
             if m.weight is not None:
                 m.weight.fill_(1.0)

@@ -6,11 +6,12 @@ reference's torch attribute names (``encoder.convc1``, ``gru.convz1``,
 
 The motion encoders own the fused refinement-step seam: their ``convc1``
 (the 1x1 conv over the correlation features) is a per-pixel matmul, so
-with ``pyr``/``coords`` given it runs inside the flash kernel
-(ops/corr_kernels.flash_fused_step) and the correlation features are
-never written out. The parameters are the same ``nn.Conv2d`` either way,
-so one state dict serves the fused and the unfused path. On the fused
-path:
+with ``pyr``/``coords`` given it runs inside the pyramid's fused kernel
+(ops/corr_kernels.flash_fused_step, B1, or pallas_fused_step, B3, as
+``pyr.kernel`` says, like the JAX ``FusedCorrEncoder``) and the
+correlation features are never written out. The parameters are the same
+``nn.Conv2d`` either way, so one state dict serves the fused and the
+unfused path. On the fused path:
 
   (a) convc1's weight is taken as (L*(2r+1)^2, F);
   (b) the kernel applies 1/sqrt(C) itself;
@@ -24,21 +25,26 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from dexiraft_tpu_torch.ops.corr_kernels import flash_fused_step
+from dexiraft_tpu_torch.ops.corr_kernels import FUSED_STEPS
 
 
 def fused_corr_conv(conv: nn.Conv2d, pyr, coords: torch.Tensor) -> torch.Tensor:
     """convc1 over the pyramid's windows at ``coords`` (B, H, W, 2, level-0
-    pixels), computed by the flash kernel -> (B, F, H, W), pre-activation."""
+    pixels), computed by the fused kernel of ``pyr.kernel`` -> (B, F, H, W),
+    pre-activation."""
+    if pyr.kernel not in FUSED_STEPS:
+        raise ValueError(f"the {pyr.kernel!r} lookup has no fused kernel; "
+                         f"expected one of {tuple(FUSED_STEPS)}")
     feat = conv.out_channels
     w = conv.weight.reshape(feat, -1).t()  # (L * (2r+1)^2, F)
     if pyr.scales is not None:
         kk = w.shape[0] // len(pyr.fmap2_pyramid)
         w = torch.cat([w[lvl * kk:(lvl + 1) * kk] * pyr.scales[lvl]
                        for lvl in range(len(pyr.fmap2_pyramid))], dim=0)
-    out = flash_fused_step(pyr.fmap1, pyr.fmap2_pyramid, coords,
-                           w.to(torch.float32), conv.bias.to(torch.float32),
-                           pyr.radius, pyr.row_chunk)
+    out = FUSED_STEPS[pyr.kernel](pyr.fmap1, pyr.fmap2_pyramid, coords,
+                                  w.to(torch.float32),
+                                  conv.bias.to(torch.float32), pyr.radius,
+                                  pyr.row_chunk)
     return out.permute(0, 3, 1, 2)
 
 

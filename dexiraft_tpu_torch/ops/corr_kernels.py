@@ -1,22 +1,30 @@
-"""The flash correlation kernels and their plain PyTorch versions.
+"""The correlation kernels and their plain PyTorch versions.
 
-Counterpart of the flash half of ``dexiraft_tpu/ops/pallas_corr.py``:
+Counterpart of ``dexiraft_tpu/ops/pallas_corr.py``. Two formulations of
+the same two functions, each a hand-written CUDA kernel:
 
-  * ``flash_fused_step`` (B1): every pyramid level's (2r+1)^2 window
-    lookup contracted with the motion encoder's 1x1 corr conv, plus bias,
-    in one kernel launch per refinement iteration;
-  * ``flash_local_corr_level`` (B2): the window lookup alone;
-  * ``fused_reference``: the plain version of B1 (per-level
-    local_corr_level windows, then the 1x1 conv as a contraction).
+  * ``flash_fused_step`` (B1) / ``pallas_fused_step`` (B3): every pyramid
+    level's (2r+1)^2 window lookup contracted with the motion encoder's
+    1x1 corr conv, plus bias, in one kernel launch per refinement
+    iteration;
+  * ``flash_local_corr_level`` (B2) / ``pallas_local_corr_level`` (B4):
+    one level's window lookup alone;
+  * ``fused_reference``: the plain version of B1 and B3 (per-level
+    local_corr_level windows, then the 1x1 conv as a contraction);
+    ``local_corr_level`` is the plain version of B2 and B4.
 
-On CUDA tensors both wrappers launch the hand-written kernel of
-``csrc/flash_corr.cu``; a failure to build or launch raises. On CPU
-tensors (the caller chose ``device="cpu"``) they run the plain version.
-There is no other case and no fallback between the two.
+The flash kernels live in ``csrc/flash_corr.cu`` (one warp per query
+pixel, f2 rows read from global memory); the per-pixel kernels B3/B4 in
+``csrc/pallas_corr.cu`` (a tile of pixels per block, f1 and every
+pixel's lattice rows staged in shared memory channel chunk by chunk).
+On CUDA tensors the wrappers launch their kernel; a failure to build or
+launch raises. On CPU tensors (the caller chose ``device="cpu"``) they run
+the plain version. There is no other case and no fallback between the two.
 
 Division of labor for the linear factors, as in the JAX package: the
 kernel applies 1/sqrt(C) itself; per-level int8 scales are the caller's
-(folded into the weight rows for B1, multiplied onto the window for B2).
+(folded into the weight rows for B1/B3, multiplied onto the window for
+B2/B4).
 
 Gradients: forward-only kernels in ``torch.autograd.Function``s whose
 backward recomputes through the plain version (the custom-VJP contract of
@@ -30,14 +38,26 @@ went through the kernels.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
 from dexiraft_tpu_torch.ops.local_corr import local_corr_level
 
-KERNEL_SOURCES = ("flash_corr.cu", "flash_corr.cpp")
-LAUNCHES = {"flash_fused_step": 0, "flash_local_corr_level": 0}
+# kernel library -> (sources under csrc/, C entry point); one nvcc call each
+KERNEL_LIBRARIES = {
+    "flash_corr": (("flash_corr.cu", "flash_corr.cpp"), "dexiraft_flash_corr"),
+    "pallas_corr": (("pallas_corr.cu", "pallas_corr.cpp"),
+                    "dexiraft_pallas_corr"),
+}
+# kernel wrapper -> the library holding its kernel
+KERNEL_LIBRARY_OF = {
+    "flash_fused_step": "flash_corr",
+    "flash_local_corr_level": "flash_corr",
+    "pallas_fused_step": "pallas_corr",
+    "pallas_local_corr_level": "pallas_corr",
+}
+LAUNCHES = {name: 0 for name in KERNEL_LIBRARY_OF}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _MAX_LEVELS = 8
 
@@ -49,10 +69,10 @@ def reset_launches() -> None:
 
 def fused_reference(fmap1, fmap2_levels, coords, weight, bias, radius,
                     row_chunk=None):
-    """Plain version of B1: (B,H,W,C) x L levels x level-0 coords (B,H,W,2)
-    x weight (L*(2r+1)^2, F) x bias (F,) -> (B,H,W,F) float32. Levels may
-    be stored bf16/int8 and are upcast; int8 scales must already be folded
-    into ``weight``."""
+    """Plain version of B1/B3: (B,H,W,C) x L levels x level-0 coords
+    (B,H,W,2) x weight (L*(2r+1)^2, F) x bias (F,) -> (B,H,W,F) float32.
+    Levels may be stored bf16/int8 and are upcast; int8 scales must
+    already be folded into ``weight``."""
     outs = [local_corr_level(fmap1, f2.to(torch.float32),
                              coords / (2.0 ** lvl), radius, row_chunk)
             for lvl, f2 in enumerate(fmap2_levels)]
@@ -66,20 +86,23 @@ def _use_kernel(*tensors: torch.Tensor) -> bool:
     kinds = {t.device.type for t in tensors}
     if kinds == {"cuda"}:
         if len({t.device for t in tensors}) != 1:
-            raise ValueError("flash correlation inputs span several CUDA "
+            raise ValueError("correlation kernel inputs span several CUDA "
                              f"devices: {sorted({str(t.device) for t in tensors})}")
         return True
     if kinds == {"cpu"}:
         return False
-    raise ValueError("flash correlation inputs must all be on one CUDA "
+    raise ValueError("correlation kernel inputs must all be on one CUDA "
                      f"device or all on the CPU, got {sorted(kinds)}")
 
 
-def _library():
+def _entry_point(library: str):
+    """The library's C entry point (built and loaded at first use) and the
+    library itself."""
     from dexiraft_tpu_torch.ops.cuda_build import load_library
 
-    lib = load_library("flash_corr", KERNEL_SOURCES)
-    fn = lib.dexiraft_flash_corr
+    sources, entry = KERNEL_LIBRARIES[library]
+    lib = load_library(library, sources)
+    fn = getattr(lib, entry)
     if fn.argtypes is None:
         # without argtypes ctypes would pass each pointer as a 32-bit int
         p, i = ctypes.c_void_p, ctypes.c_int
@@ -90,15 +113,17 @@ def _library():
         fn.restype = ctypes.c_int
         lib.dexiraft_cuda_error_string.argtypes = [i]
         lib.dexiraft_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    return fn, lib
 
 
-def build_kernels() -> str:
-    """Build the kernel library now (it is otherwise built at first launch);
-    returns the path of the shared library."""
-    from dexiraft_tpu_torch.ops.cuda_build import build_library
+def build_kernels() -> Dict[str, str]:
+    """Build every kernel library now, one nvcc process each, started
+    together (they are otherwise built at first launch); returns library
+    name -> path of the shared library."""
+    from dexiraft_tpu_torch.ops.cuda_build import build_libraries
 
-    return build_library("flash_corr", KERNEL_SOURCES)
+    return build_libraries({name: srcs for name, (srcs, _) in
+                            KERNEL_LIBRARIES.items()})
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -110,14 +135,15 @@ def _launch(name: str, fmap1: torch.Tensor, levels: Sequence[torch.Tensor],
             coords: torch.Tensor, coord_scales: Sequence[float], radius: int,
             weight: Optional[torch.Tensor] = None,
             bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch the flash kernel; returns (B, H, W, out_ch) as a view of a
-    channels-first (B, out_ch, H, W) buffer (the model's layout)."""
+    """Launch the kernel of wrapper ``name``; returns (B, H, W, out_ch) as
+    a view of a channels-first (B, out_ch, H, W) buffer (the model's
+    layout)."""
     fused = weight is not None
     _check(fmap1.dim() == 4 and fmap1.dtype == torch.float32,
            f"fmap1 must be (B, H, W, C) float32, got {tuple(fmap1.shape)} "
            f"{fmap1.dtype}")
     b, h, w, c = fmap1.shape
-    _check(c % 16 == 0, f"the flash kernel needs C % 16 == 0, got C={c}")
+    _check(c % 16 == 0, f"{name} needs C % 16 == 0, got C={c}")
     _check(1 <= len(levels) <= _MAX_LEVELS,
            f"1..{_MAX_LEVELS} pyramid levels, got {len(levels)}")
     _check(tuple(coords.shape) == (b, h, w, 2),
@@ -157,20 +183,20 @@ def _launch(name: str, fmap1: torch.Tensor, levels: Sequence[torch.Tensor],
     h2 = (ctypes.c_int * n_lvl)(*[lv.shape[1] for lv in levels])
     w2 = (ctypes.c_int * n_lvl)(*[lv.shape[2] for lv in levels])
     sc = (ctypes.c_float * n_lvl)(*coord_scales)
-    lib = _library()
+    library = KERNEL_LIBRARY_OF[name]
+    fn, lib = _entry_point(library)
     with torch.cuda.device(fmap1.device):
         stream = torch.cuda.current_stream(fmap1.device).cuda_stream
-        rc = lib.dexiraft_flash_corr(
-            f1.data_ptr(), co.data_ptr(),
-            weight.data_ptr() if fused else None,
-            bias.data_ptr() if fused else None,
-            out.data_ptr(), ptrs, h2, w2, sc,
-            n_lvl, b, h * w, c, radius, feat, _DTYPE_CODES[dtype],
-            int(fused), stream)
+        rc = fn(f1.data_ptr(), co.data_ptr(),
+                weight.data_ptr() if fused else None,
+                bias.data_ptr() if fused else None,
+                out.data_ptr(), ptrs, h2, w2, sc,
+                n_lvl, b, h * w, c, radius, feat, _DTYPE_CODES[dtype],
+                int(fused), stream)
     if rc != 0:
         why = ("bad argument" if rc < 0
                else lib.dexiraft_cuda_error_string(rc).decode())
-        raise RuntimeError(f"{name}: flash_corr kernel launch failed "
+        raise RuntimeError(f"{name}: {library} kernel launch failed "
                            f"({rc}: {why})")
     LAUNCHES[name] += 1
     return out.permute(0, 2, 3, 1)
@@ -183,13 +209,16 @@ def _level_grads(levels, grads):
     return [next(it) if lv.is_floating_point() else None for lv in levels]
 
 
-class _FlashFusedStep(torch.autograd.Function):
+class _FusedStep(torch.autograd.Function):
+    """B1 or B3 (``name``) forward; backward through fused_reference."""
+
     @staticmethod
-    def forward(ctx, fmap1, coords, weight, bias, radius, row_chunk, *levels):
+    def forward(ctx, name, fmap1, coords, weight, bias, radius, row_chunk,
+                *levels):
         ctx.radius, ctx.row_chunk = radius, row_chunk
         ctx.save_for_backward(fmap1, coords, weight, bias, *levels)
         if _use_kernel(fmap1, coords, weight, bias, *levels):
-            return _launch("flash_fused_step", fmap1, levels, coords,
+            return _launch(name, fmap1, levels, coords,
                            [2.0 ** -lvl for lvl in range(len(levels))],
                            radius, weight, bias)
         return fused_reference(fmap1, levels, coords, weight, bias, radius,
@@ -208,18 +237,19 @@ class _FlashFusedStep(torch.autograd.Function):
                                   ctx.radius, ctx.row_chunk)
             grads = torch.autograd.grad(
                 out, [f1, w, bb] + [x for x in lv if x.requires_grad], g)
-        return (grads[0], torch.zeros_like(coords), grads[1], grads[2],
+        return (None, grads[0], torch.zeros_like(coords), grads[1], grads[2],
                 None, None, *_level_grads(levels, grads[3:]))
 
 
-class _FlashLevel(torch.autograd.Function):
+class _LevelLookup(torch.autograd.Function):
+    """B2 or B4 (``name``) forward; backward through local_corr_level."""
+
     @staticmethod
-    def forward(ctx, fmap1, fmap2, coords, radius, row_chunk):
+    def forward(ctx, name, fmap1, fmap2, coords, radius, row_chunk):
         ctx.radius, ctx.row_chunk = radius, row_chunk
         ctx.save_for_backward(fmap1, fmap2, coords)
         if _use_kernel(fmap1, fmap2, coords):
-            return _launch("flash_local_corr_level", fmap1, [fmap2], coords,
-                           [1.0], radius)
+            return _launch(name, fmap1, [fmap2], coords, [1.0], radius)
         return local_corr_level(fmap1, fmap2, coords, radius, row_chunk)
 
     @staticmethod
@@ -234,7 +264,7 @@ class _FlashLevel(torch.autograd.Function):
                                    ctx.row_chunk)
             grads = torch.autograd.grad(
                 out, [f1] + ([f2] if f2.requires_grad else []), g)
-        return (grads[0], grads[1] if len(grads) > 1 else None,
+        return (None, grads[0], grads[1] if len(grads) > 1 else None,
                 torch.zeros_like(coords), None, None)
 
 
@@ -245,8 +275,17 @@ def flash_fused_step(fmap1: torch.Tensor, fmap2_levels: Sequence[torch.Tensor],
     """B1: (B,H,W,C) x L levels (B,H>>l,W>>l,C) x level-0 coords (B,H,W,2)
     x weight (L*(2r+1)^2, F) x bias (F,) -> (B,H,W,F) float32.
     ``row_chunk`` bounds the plain version's transient block."""
-    return _FlashFusedStep.apply(fmap1, coords, weight, bias, radius,
-                                 row_chunk, *fmap2_levels)
+    return _FusedStep.apply("flash_fused_step", fmap1, coords, weight, bias,
+                            radius, row_chunk, *fmap2_levels)
+
+
+def pallas_fused_step(fmap1: torch.Tensor, fmap2_levels: Sequence[torch.Tensor],
+                      coords: torch.Tensor, weight: torch.Tensor,
+                      bias: torch.Tensor, radius: int,
+                      row_chunk: Optional[int] = 8) -> torch.Tensor:
+    """B3: the function of B1, computed by the per-pixel kernel."""
+    return _FusedStep.apply("pallas_fused_step", fmap1, coords, weight, bias,
+                            radius, row_chunk, *fmap2_levels)
 
 
 def flash_local_corr_level(fmap1: torch.Tensor, fmap2: torch.Tensor,
@@ -254,4 +293,19 @@ def flash_local_corr_level(fmap1: torch.Tensor, fmap2: torch.Tensor,
                            row_chunk: Optional[int] = 8) -> torch.Tensor:
     """B2: one level's window lookup, coords in LEVEL pixels
     -> (B,H,W,(2r+1)^2) float32; a degenerate level gives zeros."""
-    return _FlashLevel.apply(fmap1, fmap2, coords, radius, row_chunk)
+    return _LevelLookup.apply("flash_local_corr_level", fmap1, fmap2, coords,
+                              radius, row_chunk)
+
+
+def pallas_local_corr_level(fmap1: torch.Tensor, fmap2: torch.Tensor,
+                            coords: torch.Tensor, radius: int,
+                            row_chunk: Optional[int] = 8) -> torch.Tensor:
+    """B4: the function of B2, computed by the per-pixel kernel."""
+    return _LevelLookup.apply("pallas_local_corr_level", fmap1, fmap2,
+                              coords, radius, row_chunk)
+
+
+# the fused step and the lookup of each LocalCorr kernel name
+FUSED_STEPS = {"flash": flash_fused_step, "pallas": pallas_fused_step}
+LEVEL_LOOKUPS = {"flash": flash_local_corr_level,
+                 "pallas": pallas_local_corr_level}

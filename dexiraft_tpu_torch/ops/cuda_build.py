@@ -2,7 +2,8 @@
 
 Each kernel library is compiled from the package's ``csrc/`` sources by one
 ``nvcc`` call into a shared library with a plain C interface, and loaded
-with ctypes. No source includes a PyTorch header, so a build takes
+with ctypes; ``build_libraries`` starts the calls of several libraries
+together. No source includes a PyTorch header, so a build takes
 seconds. The build happens at first use, never at import (this module
 only computes paths until ``load_library`` is called), into
 ``dexiraft_tpu_torch/_build/``, keyed by a hash of the sources and flags
@@ -20,7 +21,7 @@ import os
 import shutil
 import subprocess
 import tempfile
-from typing import Dict, Sequence
+from typing import Dict, Mapping, Sequence
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -61,28 +62,51 @@ def _headers():
     return [f for f in os.listdir(CSRC_DIR) if f.endswith((".h", ".cuh"))]
 
 
+def build_libraries(libraries: Mapping[str, Sequence[str]]) -> Dict[str, str]:
+    """Compile each library (name -> sources under csrc/) that is not built
+    yet, one ``nvcc`` process per library, all started together; returns
+    name -> path. Raises with nvcc's output when a build fails (after
+    every started build has ended)."""
+    paths = {name: library_path(name, srcs) for name, srcs in libraries.items()}
+    todo = [name for name, out in paths.items() if not os.path.isfile(out)]
+    if not todo:
+        return paths
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = find_nvcc()
+    started = []
+    try:
+        for name in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp,
+                   *[os.path.join(CSRC_DIR, s) for s in libraries[name]]]
+            started.append((name, tmp, cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failures = []
+        for name, tmp, cmd, proc in started:
+            log = proc.communicate()[0]
+            if proc.returncode != 0:
+                failures.append(f"nvcc failed building {name} (exit "
+                                f"{proc.returncode}):\n{' '.join(cmd)}\n{log}")
+            else:
+                os.replace(tmp, paths[name])
+        if failures:
+            raise RuntimeError("\n".join(failures))
+    finally:
+        for _, tmp, _, proc in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return paths
+
+
 def build_library(name: str, sources: Sequence[str]) -> str:
     """Compile ``sources`` into the keyed shared library if it is not built
     yet; returns its path. Raises with nvcc's output when the build fails."""
-    out = library_path(name, sources)
-    if os.path.isfile(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp,
-           *[os.path.join(CSRC_DIR, s) for s in sources]]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed building {name} (exit {proc.returncode}):\n"
-                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return out
+    return build_libraries({name: sources})[name]
 
 
 def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:

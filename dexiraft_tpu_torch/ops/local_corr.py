@@ -25,7 +25,7 @@ from dexiraft_tpu_torch.ops.corr import (
 )
 from dexiraft_tpu_torch.ops.quant import store_corr
 
-LOOKUP_KERNELS = ("plain", "flash")
+LOOKUP_KERNELS = ("plain", "flash", "pallas")
 
 
 def local_corr_level(fmap1: torch.Tensor, fmap2: torch.Tensor,
@@ -55,8 +55,9 @@ def _local_corr_dense(fmap1, fmap2, coords, radius):
 @dataclasses.dataclass
 class LocalCorr:
     """fmap1 and the pooled fmap2 pyramid; correlation is computed per
-    lookup. ``kernel`` picks the lookup: "plain" (local_corr_level) or
-    "flash" (the CUDA kernel of ops/corr_kernels.py)."""
+    lookup. ``kernel`` picks the lookup: "plain" (local_corr_level),
+    "flash" (B2) or "pallas" (B4), the CUDA kernels of
+    ops/corr_kernels.py."""
 
     fmap1: torch.Tensor            # (B, H, W, C) fp32, contiguous
     fmap2_pyramid: Tuple[torch.Tensor, ...]  # (B, H>>l, W>>l, C) stored
@@ -74,13 +75,11 @@ class LocalCorr:
         out: List[torch.Tensor] = []
         for i, f2 in enumerate(self.fmap2_pyramid):
             coords_i = coords / (2.0 ** i)
-            if self.kernel == "flash":
-                from dexiraft_tpu_torch.ops.corr_kernels import (
-                    flash_local_corr_level,
-                )
+            if self.kernel != "plain":
+                from dexiraft_tpu_torch.ops.corr_kernels import LEVEL_LOOKUPS
 
-                corr = flash_local_corr_level(self.fmap1, f2, coords_i,
-                                              self.radius, self.row_chunk)
+                corr = LEVEL_LOOKUPS[self.kernel](
+                    self.fmap1, f2, coords_i, self.radius, self.row_chunk)
             else:
                 corr = local_corr_level(self.fmap1, f2, coords_i,
                                         self.radius, self.row_chunk)

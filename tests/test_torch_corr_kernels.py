@@ -216,7 +216,9 @@ class TestDispatch:
         ck.flash_local_corr_level(torch.from_numpy(f1), torch.from_numpy(f2),
                                   torch.from_numpy(co), 2)
         assert ck.LAUNCHES == {"flash_fused_step": 0,
-                               "flash_local_corr_level": 0}
+                               "flash_local_corr_level": 0,
+                               "pallas_fused_step": 0,
+                               "pallas_local_corr_level": 0}
 
     def test_import_does_not_build_or_invoke_nvcc(self, tmp_path):
         """Importing the kernel module (and the model that uses it) must

@@ -158,9 +158,15 @@ def test_fused_and_unfused_paths_share_weights(variables):
 def test_refusals():
     with pytest.raises(ValueError, match="not ported"):
         RAFT(raft_v1(corr_impl="allpairs"))
-    from dexiraft_tpu_torch.config import raft_v5
+    from dexiraft_tpu_torch.config import raft_v2, raft_v3, raft_v4, raft_v5
+    for variant in (raft_v2, raft_v3, raft_v4):
+        with pytest.raises(ValueError, match="not ported"):
+            RAFT(variant(corr_impl="flash"))
     with pytest.raises(ValueError, match="not ported"):
-        RAFT(raft_v5(corr_impl="flash"))
+        RAFT(raft_v5(corr_impl="allpairs"))
+    with torch.device("meta"):
+        v5 = RAFT(raft_v5(corr_impl="pallas", fused_update=True))
+    assert hasattr(v5, "dexined") and hasattr(v5, "efnet")
     with pytest.raises(ValueError, match="not supported by the PyTorch port"):
         raft_v1(remat=True)
     with pytest.raises(ValueError, match="fused_update=True requires"):
@@ -186,6 +192,7 @@ def test_package_imports_no_jax():
         "import sys\n"
         "import dexiraft_tpu_torch\n"
         "import dexiraft_tpu_torch.config, dexiraft_tpu_torch.models.raft\n"
+        "import dexiraft_tpu_torch.models.dexined\n"
         "import dexiraft_tpu_torch.serve.engine, dexiraft_tpu_torch.train.step\n"
         "import dexiraft_tpu_torch.ops.corr_kernels\n"
         "import dexiraft_tpu_torch.interop.jax_weights\n"
