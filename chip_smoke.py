@@ -18,7 +18,10 @@ Phases, one JSON line each:
   3 kernels   B1 flash_fused_step and B2 flash_local_corr_level against
               fused_reference / local_corr_level at the v1 shapes (B=1 and
               B=2, fp32/bf16/int8 storage, far out-of-frame coords, a
-              degenerate level); then B3 pallas_fused_step and B4
+              degenerate level); B1 on a smooth field (every tile stages
+              one f2 patch) and a scattered one (level-0 tiles read each
+              pixel's lattice) at 55x128, B=1 and 2, against
+              fused_reference and B3; then B3 pallas_fused_step and B4
               pallas_local_corr_level at the v5 shapes (the same cases with
               the batch doubled, as the dual stream has it, and the 5x8
               map of a 40x64 image) against their plain versions and
@@ -35,7 +38,9 @@ Phases, one JSON line each:
   6 times     CUDA-event medians: v1 and v5 forward ms at 440x1024, B=1
               (TF32 off and PyTorch's default), v5's DexiNed and prelude
               alone, kernel and plain-version times per call at each
-              path's shapes, one torch.profiler breakdown per model
+              path's shapes (B1 also on the smooth and scattered fields),
+              torch.profiler breakdowns of v1 fused, v5 pallas fused and
+              v5 flash fused (the main path, B1 on the model's coords)
 Then the {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed phase exits non-zero.
 """
@@ -78,6 +83,10 @@ V5_KERNEL_CASES = (
     ("degenerate_48x64_b4", 4, 6, 8, 4, 4, 256, 256),
     ("crop_40x64_b4", 4, 5, 8, 4, 4, 256, 256),
 )
+# B1's extra coordinate fields (make_coords), checked at the first two
+# KERNEL_CASES and timed beside the jitter field
+B1_FIELDS = ("smooth", "scattered")
+B1_KERNEL = "flash_fused_tile"  # B1's name in a torch.profiler trace
 # the slice's requests: ((H, W), horizontal shift in px)
 PAIRS = (((436, 1024), 3), ((436, 1024), -5), ((375, 1242), 4),
          ((375, 1242), 2))
@@ -129,20 +138,40 @@ def cuda_times_ms(fn, reps: int = 10, inner: int = 1, warmup: int = 2):
     return times
 
 
-def make_inputs(gen, b, h, w, c, levels, radius, feat, dtype, device):
-    """fmap1/fmap2 ~ N(0, 1), coords = grid + U(-6, 6) with one row far out
-    of frame, the pooled pyramid in ``dtype``, weight (with the int8 scales
-    folded in, as the model does) and bias."""
+def make_coords(gen, b, h, w, field, device):
+    """Level-0 coords (B, H, W, 2) of one field:
+      jitter     grid + U(-6, 6), one row far out of frame;
+      smooth     grid + one constant sub-pixel shift per batch item (every
+                 B1 tile stages one small f2 patch);
+      scattered  uniform over the frame (B1's level-0 tiles read each
+                 pixel's own lattice rows)."""
     import torch
     from dexiraft_tpu_torch.ops.grid import coords_grid
+
+    if field == "scattered":
+        u = torch.rand(b, h, w, 2, generator=gen, device=device)
+        return u * torch.tensor([w, h], dtype=torch.float32, device=device)
+    grid = coords_grid(b, h, w, device=device)
+    if field == "smooth":
+        shift = torch.rand(b, 1, 1, 2, generator=gen, device=device) * 6 - 3
+        return grid + shift
+    co = grid + torch.rand(b, h, w, 2, generator=gen, device=device) * 12 - 6
+    co[:, 0, :, 0] += 1.0e4
+    co[:, 0, : w // 2, 1] -= 3.0e4
+    return co
+
+
+def make_inputs(gen, b, h, w, c, levels, radius, feat, dtype, device,
+                field="jitter"):
+    """fmap1/fmap2 ~ N(0, 1), coords of ``field`` (make_coords), the pooled
+    pyramid in ``dtype``, weight (with the int8 scales folded in, as the
+    model does) and bias."""
+    import torch
     from dexiraft_tpu_torch.ops.local_corr import build_local_corr
 
     f1 = torch.randn(b, h, w, c, generator=gen, device=device)
     f2 = torch.randn(b, h, w, c, generator=gen, device=device)
-    co = coords_grid(b, h, w, device=device) + (
-        torch.rand(b, h, w, 2, generator=gen, device=device) * 12 - 6)
-    co[:, 0, :, 0] += 1.0e4
-    co[:, 0, : w // 2, 1] -= 3.0e4
+    co = make_coords(gen, b, h, w, field, device)
     pyr = build_local_corr(f1, f2, levels, radius, dtype=dtype, kernel="flash")
     kk = (2 * radius + 1) ** 2
     weight = torch.randn(levels * kk, feat, generator=gen, device=device) * 0.05
@@ -168,6 +197,49 @@ def valid_lattice_points(co, shape, scale, radius):
         return ((g >= 0) & (g < size)).sum(-1)
 
     return int((axis(co[..., 0], w2) * axis(co[..., 1], h2)).sum())
+
+
+def tile_boxes(co, shape, scale, radius):
+    """(smallest, largest) f2 box in positions over B1's 4x8 query tiles at
+    one level: the bounding box, within the frame, of the lattice rows and
+    columns that each live pixel's blend weighs (tiles with no live pixel
+    left out). The kernel stages a box of up to Qmax positions (~860-990,
+    rows padded to an odd length) once and reads a larger one pixel by
+    pixel."""
+    import torch
+
+    h2, w2 = shape
+    k1 = 2 * radius + 2
+    b, h, w, _ = co.shape
+
+    def axis(t, size):
+        t = torch.nan_to_num(t * scale, nan=-(radius + 1.0))
+        t = torch.clamp(t, -(radius + 1.0), size + float(radius))
+        g0 = torch.floor(t) - radius
+        end = g0 + k1 - (t == torch.floor(t)).float()
+        return g0.clamp(min=0), end.clamp(max=size), (end > 0) & (g0 < size)
+
+    lx, hx, livex = axis(co[..., 0], w2)
+    ly, hy, livey = axis(co[..., 1], h2)
+    live = livex & livey
+    pad = (0, -w % 8, 0, -h % 4)
+    big = float(1 << 30)
+
+    def tiles(t, fill):
+        t = torch.nn.functional.pad(torch.where(live, t, fill), pad,
+                                    value=fill)
+        return t.reshape(b, t.shape[1] // 4, 4, t.shape[2] // 8, 8)
+
+    def lo(t):
+        return tiles(t, big).amin(dim=(2, 4))
+
+    def hi(t):
+        return tiles(t, 0.0).amax(dim=(2, 4))
+
+    box = (hi(hx) - lo(lx)) * (hi(hy) - lo(ly))
+    any_live = tiles(live.float(), 0.0).amax(dim=(2, 4)) > 0
+    box = box[any_live]
+    return int(box.min()), int(box.max())
 
 
 def work_b1(pyr, co, weight, radius):
@@ -254,6 +326,34 @@ def phase_kernels(torch, ck, gen, dev):
                 raise AssertionError(
                     f"kernel disagrees with its plain version: {label} "
                     f"{dtype} B1 {err_b1} B2 {errs_b2} (tol {TOL_KERNEL})")
+    # B1's two branches: a smooth field stages one f2 patch per tile, a
+    # scattered one reads level 0's lattices pixel by pixel; both against
+    # the plain version and against B3, the independent formulation
+    for field in B1_FIELDS:
+        for label, b, h, w, levels, r, c, feat in KERNEL_CASES[:2]:
+            for dtype in ("fp32", "bf16", "int8"):
+                pyr, co, weight, bias = make_inputs(gen, b, h, w, c, levels,
+                                                    r, feat, dtype, dev,
+                                                    field=field)
+                args = (pyr.fmap1, pyr.fmap2_pyramid, co, weight, bias, r)
+                out = ck.flash_fused_step(*args)
+                torch.cuda.synchronize()
+                b3 = ck.pallas_fused_step(*args)
+                ref = ck.fused_reference(*args, 8)
+                err = max(max_diff(out, ref), max_diff(out, b3))
+                emit({"phase": "kernels", "kernels": "B1 branches",
+                      "case": label, "field": field, "dtype": dtype,
+                      "b1_vs_plain": max_diff(out, ref),
+                      "b1_vs_b3": max_diff(out, b3),
+                      "tile_boxes_min_max_per_level": [
+                          tile_boxes(co, f.shape[1:3], 2.0 ** -lvl, r)
+                          for lvl, f in enumerate(pyr.fmap2_pyramid)],
+                      "tf32": False, "tol": TOL_KERNEL})
+                worst["flash_fused_step"] = max(worst["flash_fused_step"], err)
+                if err > TOL_KERNEL:
+                    raise AssertionError(
+                        f"B1 disagrees on the {field} field: {label} {dtype} "
+                        f"{err} (tol {TOL_KERNEL})")
     return worst
 
 
@@ -476,15 +576,28 @@ def time_forwards(torch, models, paths, x1, x2, rec, prefix) -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def time_kernels(torch, ck, gen, dev, b, rec, prefix, fused, level) -> None:
+def time_kernels(torch, ck, gen, dev, b, rec, prefix, fused, level,
+                 fields=()) -> None:
     """Per-call µs of a fused kernel (``{prefix}_fused_*``) and a lookup
     kernel at every level (``{prefix}_lookup_*``), and of their plain
     versions, at batch ``b`` of the Sintel bucket, with each one's bound
-    from the bytes and FLOPs these inputs need."""
+    from the bytes and FLOPs these inputs need. The fused kernel is also
+    timed on each of ``fields`` (``{prefix}_fused_{field}_us_*``, with
+    the bound of those coords)."""
     from dexiraft_tpu_torch.ops.local_corr import local_corr_level
 
     bh, bw = SINTEL_BUCKET
     fp, lp = prefix + "_fused", prefix + "_lookup"
+    for field in fields:
+        for dtype in ("fp32", "bf16", "int8"):
+            pyr, co, w, bias = make_inputs(gen, b, bh // 8, bw // 8, 256, 4,
+                                           4, 256, dtype, dev, field=field)
+            rec[f"{fp}_{field}_us_{dtype}"] = 1e3 * cuda_time_ms(
+                lambda: fused(pyr.fmap1, pyr.fmap2_pyramid, co, w, bias, 4),
+                reps=10, inner=10)
+            if dtype == "fp32":
+                rec[f"{fp}_{field}_bound_us"] = 1e3 * bound_ms(
+                    *work_b1(pyr, co, w, 4))[0]
     inputs = {}
     for dtype in ("fp32", "bf16", "int8"):
         pyr, co, w, bias = make_inputs(gen, b, bh // 8, bw // 8, 256, 4, 4,
@@ -537,19 +650,23 @@ def phase_times(torch, ck, gen, dev, v1_models, v5_models, card):
             rec[f"v5_prelude_ms_{bh}x{bw}_{key}"] = cuda_time_ms(
                 lambda: v5(x1, x2, iters=0))
     rec["profile_v1_fused_tf32_default"] = profile_forward(
-        torch, lambda: v1_models["fused"](x1, x2, iters=ITERS), "flash_corr")
+        torch, lambda: v1_models["fused"](x1, x2, iters=ITERS), B1_KERNEL)
     rec["profile_v5_pallas_fused_tf32_default"] = profile_forward(
         torch, lambda: v5(x1, x2, iters=ITERS), "pallas_corr")
+    # the main path: B1 with the model's own coords
+    rec["profile_v5_flash_fused_tf32_default"] = profile_forward(
+        torch, lambda: v5_models["flash_fused"](x1, x2, iters=ITERS),
+        B1_KERNEL)
     torch.backends.cudnn.allow_tf32 = False
 
     # kernels at each path's shapes: v1 batch 1 (B1, B2); v5 batch 2, the
     # image and edge stream of one pair (B3, B4, and B1/B2 beside them)
     time_kernels(torch, ck, gen, dev, 1, rec, "v1_flash",
-                 ck.flash_fused_step, ck.flash_local_corr_level)
+                 ck.flash_fused_step, ck.flash_local_corr_level, B1_FIELDS)
     time_kernels(torch, ck, gen, dev, 2, rec, "v5_pallas",
                  ck.pallas_fused_step, ck.pallas_local_corr_level)
     time_kernels(torch, ck, gen, dev, 2, rec, "v5_flash",
-                 ck.flash_fused_step, ck.flash_local_corr_level)
+                 ck.flash_fused_step, ck.flash_local_corr_level, B1_FIELDS)
     emit(rec)
     return rec
 

@@ -13,10 +13,13 @@ the same two functions, each a hand-written CUDA kernel:
     local_corr_level windows, then the 1x1 conv as a contraction);
     ``local_corr_level`` is the plain version of B2 and B4.
 
-The flash kernels live in ``csrc/flash_corr.cu`` (one warp per query
-pixel, f2 rows read from global memory); the per-pixel kernels B3/B4 in
-``csrc/pallas_corr.cu`` (a tile of pixels per block, f1 and every
-pixel's lattice rows staged in shared memory channel chunk by chunk).
+The flash kernels live in ``csrc/flash_corr.cu``: B1 takes a 4x8 tile of
+query pixels per block and stages the f2 patch its lattices share once per
+level through cp.async (or reads each pixel's rows from global memory when
+the patch is too large), B2 takes one warp per query pixel reading f2 rows
+from global memory. The per-pixel kernels B3/B4 live in
+``csrc/pallas_corr.cu`` (a tile of pixels per block, f1 and every pixel's
+lattice rows staged in shared memory channel chunk by chunk).
 On CUDA tensors the wrappers launch their kernel; a failure to build or
 launch raises. On CPU tensors (the caller chose ``device="cpu"``) they run
 the plain version. There is no other case and no fallback between the two.

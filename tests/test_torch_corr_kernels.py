@@ -243,25 +243,69 @@ class TestDispatch:
         assert proc.stdout.strip() == "ok"
 
 
+class TestKernelLibraries:
+    CSRC = os.path.join(REPO, "dexiraft_tpu_torch", "csrc")
+
+    def test_every_cuda_source_is_built_once(self):
+        """Each csrc/*.cu and its binding belong to exactly one kernel
+        library, so every kernel is built, and none twice."""
+        listed = [s for srcs, _ in ck.KERNEL_LIBRARIES.values() for s in srcs]
+        assert len(listed) == len(set(listed))
+        on_disk = {f for f in os.listdir(self.CSRC)
+                   if f.endswith((".cu", ".cpp"))}
+        assert set(listed) == on_disk
+
+    def test_every_wrapper_names_a_library_with_an_entry_point(self):
+        """Each kernel wrapper's library exists, exports a C entry point
+        defined in its sources, and has a launch count."""
+        assert set(ck.KERNEL_LIBRARY_OF.values()) == set(ck.KERNEL_LIBRARIES)
+        assert set(ck.LAUNCHES) == set(ck.KERNEL_LIBRARY_OF)
+        for srcs, entry in ck.KERNEL_LIBRARIES.values():
+            text = "".join(open(os.path.join(self.CSRC, s)).read()
+                           for s in srcs)
+            assert f"int {entry}(" in text
+
+
+def _field(co, field, seed):
+    """The test coords (grid + U(-2, 2), far row) or one of B1's branch
+    fields: a smooth shift per batch item (one staged f2 patch per tile)
+    or coords scattered over the frame (level 0 read pixel by pixel)."""
+    rng = np.random.default_rng(seed)
+    b, h, w, _ = co.shape
+    if field == "smooth":
+        ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+        grid = np.stack([xs, ys], -1)[None].astype(np.float32)
+        return grid + rng.uniform(-3, 3, (b, 1, 1, 2)).astype(np.float32)
+    if field == "scattered":
+        return (rng.uniform(0, 1, co.shape) * np.array([w, h])
+                ).astype(np.float32)
+    return co
+
+
 @pytest.mark.gpu
 def test_kernel_matches_plain_on_gpu():
     """On the card: the CUDA kernel against its plain version (B1 and B2,
-    every storage dtype, a degenerate level), max abs error <= 1e-3."""
+    every storage dtype, a degenerate level; B1 also on a smooth and a
+    scattered field, its two branches), max abs error <= 1e-3."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; chip_smoke.py runs this check on the card")
     torch.backends.cuda.matmul.allow_tf32 = False
     for dtype in ("fp32", "bf16", "int8"):
-        f1, f2, co, weight, bias = _setup(50, b=2, h=12, w=16, levels=4,
+        f1, f2, co, weight, bias = _setup(50, b=2, h=40, w=48, levels=4,
                                           radius=4)
         dev = torch.device("cuda")
         pyr = t_build(torch.from_numpy(f1).to(dev), torch.from_numpy(f2).to(dev),
                       4, 4, dtype=dtype)
-        co_d = torch.from_numpy(co).to(dev)
         w = torch.from_numpy(weight).to(dev)
         b = torch.from_numpy(bias).to(dev)
-        out = ck.flash_fused_step(pyr.fmap1, pyr.fmap2_pyramid, co_d, w, b, 4)
-        ref = ck.fused_reference(pyr.fmap1, pyr.fmap2_pyramid, co_d, w, b, 4)
-        assert float((out - ref).abs().max()) <= TOL
+        for field in ("jitter", "smooth", "scattered"):
+            co_f = torch.from_numpy(_field(co, field, 51)).to(dev)
+            out = ck.flash_fused_step(pyr.fmap1, pyr.fmap2_pyramid, co_f, w,
+                                      b, 4)
+            ref = ck.fused_reference(pyr.fmap1, pyr.fmap2_pyramid, co_f, w,
+                                     b, 4)
+            assert float((out - ref).abs().max()) <= TOL, field
+        co_d = torch.from_numpy(co).to(dev)
         for lvl, f2l in enumerate(pyr.fmap2_pyramid):
             c_l = co_d / 2.0 ** lvl
             out = ck.flash_local_corr_level(pyr.fmap1, f2l, c_l, 4)
