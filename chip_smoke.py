@@ -25,8 +25,11 @@ Phases, one JSON line each:
               pallas_local_corr_level at the v5 shapes (the same cases with
               the batch doubled, as the dual stream has it, and the 5x8
               map of a 40x64 image) against their plain versions and
-              against B1 / B2, NaN coords included; max abs error <= 1e-3,
-              TF32 off
+              against B1 / B2, NaN coords included, on the jitter field
+              and on the smooth, scattered and edge fields (clip limits,
+              integer centers half out of the frame), with B3's and B4's
+              TMA box sizes and per-pixel tiles per level; max abs error
+              <= 1e-3, TF32 off
   4 slice v1  4 frame pairs (2 Sintel 436x1024, 2 KITTI 375x1242) through
               the engine at batch 2, 32 iterations: path "fused" (B1) and
               "lookup" (B2), launch counts set to 0 before and read after
@@ -38,9 +41,11 @@ Phases, one JSON line each:
   6 times     CUDA-event medians: v1 and v5 forward ms at 440x1024, B=1
               (TF32 off and PyTorch's default), v5's DexiNed and prelude
               alone, kernel and plain-version times per call at each
-              path's shapes (B1 also on the smooth and scattered fields),
-              torch.profiler breakdowns of v1 fused, v5 pallas fused and
-              v5 flash fused (the main path, B1 on the model's coords)
+              path's shapes (B1 also on the smooth and scattered fields,
+              B3 and B4 on the smooth, scattered and edge fields, every
+              storage dtype), torch.profiler breakdowns of v1 fused, v5
+              pallas fused, v5 pallas lookup and v5 flash fused (the main
+              path, B1 on the model's coords)
 Then the {"kernels": [...]} line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed phase exits non-zero.
 """
@@ -86,7 +91,11 @@ V5_KERNEL_CASES = (
 # B1's extra coordinate fields (make_coords), checked at the first two
 # KERNEL_CASES and timed beside the jitter field
 B1_FIELDS = ("smooth", "scattered")
+# B3/B4's extra fields, checked at every V5_KERNEL_CASES case but sintel_b4
+# and timed beside the jitter field
+V5_FIELDS = ("smooth", "scattered", "edge")
 B1_KERNEL = "flash_fused_tile"  # B1's name in a torch.profiler trace
+B3_KERNEL = "pallas_tile"  # B3's and B4's
 # the slice's requests: ((H, W), horizontal shift in px)
 PAIRS = (((436, 1024), 3), ((436, 1024), -5), ((375, 1242), 4),
          ((375, 1242), 2))
@@ -138,16 +147,56 @@ def cuda_times_ms(fn, reps: int = 10, inner: int = 1, warmup: int = 2):
     return times
 
 
-def make_coords(gen, b, h, w, field, device):
+def make_coords(gen, b, h, w, field, device, radius=4, levels=4):
     """Level-0 coords (B, H, W, 2) of one field:
       jitter     grid + U(-6, 6), one row far out of frame;
       smooth     grid + one constant sub-pixel shift per batch item (every
                  B1 tile stages one small f2 patch);
       scattered  uniform over the frame (B1's level-0 tiles read each
-                 pixel's own lattice rows)."""
+                 pixel's own lattice rows);
+      edge       integer centers on the edges of each level's frame, one
+                 target per 4x8 block of query pixels (so the kernels'
+                 tiles keep small boxes and stage them by TMA): on each
+                 axis half of the blocks on an in-frame position, half on
+                 a clip limit -r-1 or size+r, a half level pixel inside
+                 one, -r, -1, 0, size-1 or size (in level pixels, times
+                 2^l); the block's pixels step from the target toward the
+                 frame, so a block on -r-1 runs from the clip limit across
+                 the frame's edge. There TMA's zero fill at negative
+                 coordinates must agree with the plain version."""
     import torch
     from dexiraft_tpu_torch.ops.grid import coords_grid
 
+    if field == "edge":
+        nty, ntx = -(-h // 4), -(-w // 8)
+
+        def axis(size, n):
+            cands = []
+            for lvl in range(levels):
+                s, sz = 2 ** lvl, size >> lvl
+                half = [-(radius + 0.5) * s, (sz + radius - 0.5) * s] \
+                    if lvl else []
+                cands += [-(radius + 1.0) * s, -radius * s, -s, 0.0,
+                          (sz - 1.0) * s, sz * s, (sz + radius) * s] + half
+            cands = torch.tensor(cands, device=device)
+            pick = cands[torch.randint(len(cands), (n,), generator=gen,
+                                       device=device)]
+            inside = torch.randint(size, (n,), generator=gen,
+                                   device=device).float()
+            keep = torch.rand(n, generator=gen, device=device) < 0.5
+            return torch.where(keep, inside, pick)
+
+        def spread(target, size, offs):
+            # blocks -> pixels; step toward the frame from the target
+            t = target.reshape(b, nty, ntx).repeat_interleave(4, 1)
+            t = t.repeat_interleave(8, 2)[:, :h, :w]
+            return t + torch.where(t < size / 2, 1.0, -1.0) * offs
+
+        dx = (torch.arange(w, device=device) % 8).float().expand(h, w)
+        dy = (torch.arange(h, device=device) % 4).float()[:, None].expand(h, w)
+        x = spread(axis(w, b * nty * ntx), w, dx)
+        y = spread(axis(h, b * nty * ntx), h, dy)
+        return torch.stack([x, y], -1)
     if field == "scattered":
         u = torch.rand(b, h, w, 2, generator=gen, device=device)
         return u * torch.tensor([w, h], dtype=torch.float32, device=device)
@@ -199,47 +248,22 @@ def valid_lattice_points(co, shape, scale, radius):
     return int((axis(co[..., 0], w2) * axis(co[..., 1], h2)).sum())
 
 
-def tile_boxes(co, shape, scale, radius):
-    """(smallest, largest) f2 box in positions over B1's 4x8 query tiles at
-    one level: the bounding box, within the frame, of the lattice rows and
-    columns that each live pixel's blend weighs (tiles with no live pixel
-    left out). The kernel stages a box of up to Qmax positions (~860-990,
-    rows padded to an odd length) once and reads a larger one pixel by
-    pixel."""
-    import torch
+def box_summary(co, shape, scale, radius, limit=None):
+    """B1's (smallest, largest) box in positions over its 4x8 tiles at one
+    level (``limit`` None), or B3/B4's [smallest, largest staged positions,
+    tiles on the per-pixel branch, tiles with a live pixel] for a stage of
+    ``limit`` positions (ops/tiles.py)."""
+    from dexiraft_tpu_torch.ops.tiles import tile_boxes, tma_staging
 
-    h2, w2 = shape
-    k1 = 2 * radius + 2
-    b, h, w, _ = co.shape
-
-    def axis(t, size):
-        t = torch.nan_to_num(t * scale, nan=-(radius + 1.0))
-        t = torch.clamp(t, -(radius + 1.0), size + float(radius))
-        g0 = torch.floor(t) - radius
-        end = g0 + k1 - (t == torch.floor(t)).float()
-        return g0.clamp(min=0), end.clamp(max=size), (end > 0) & (g0 < size)
-
-    lx, hx, livex = axis(co[..., 0], w2)
-    ly, hy, livey = axis(co[..., 1], h2)
-    live = livex & livey
-    pad = (0, -w % 8, 0, -h % 4)
-    big = float(1 << 30)
-
-    def tiles(t, fill):
-        t = torch.nn.functional.pad(torch.where(live, t, fill), pad,
-                                    value=fill)
-        return t.reshape(b, t.shape[1] // 4, 4, t.shape[2] // 8, 8)
-
-    def lo(t):
-        return tiles(t, big).amin(dim=(2, 4))
-
-    def hi(t):
-        return tiles(t, 0.0).amax(dim=(2, 4))
-
-    box = (hi(hx) - lo(lx)) * (hi(hy) - lo(ly))
-    any_live = tiles(live.float(), 0.0).amax(dim=(2, 4)) > 0
-    box = box[any_live]
-    return int(box.min()), int(box.max())
+    cols, rows = tile_boxes(co, shape, scale, radius, whole=limit is not None)
+    if limit is None:
+        box = cols * rows
+        return [int(box.min()), int(box.max())] if box.numel() else [0, 0]
+    staged, per_pixel = tma_staging(cols, rows, limit)
+    on_patch = staged[~per_pixel]
+    return [int(on_patch.min()) if on_patch.numel() else 0,
+            int(on_patch.max()) if on_patch.numel() else 0,
+            int(per_pixel.sum()), int(cols.numel())]
 
 
 def work_b1(pyr, co, weight, radius):
@@ -346,7 +370,7 @@ def phase_kernels(torch, ck, gen, dev):
                       "b1_vs_plain": max_diff(out, ref),
                       "b1_vs_b3": max_diff(out, b3),
                       "tile_boxes_min_max_per_level": [
-                          tile_boxes(co, f.shape[1:3], 2.0 ** -lvl, r)
+                          box_summary(co, f.shape[1:3], 2.0 ** -lvl, r)
                           for lvl, f in enumerate(pyr.fmap2_pyramid)],
                       "tf32": False, "tol": TOL_KERNEL})
                 worst["flash_fused_step"] = max(worst["flash_fused_step"], err)
@@ -359,18 +383,23 @@ def phase_kernels(torch, ck, gen, dev):
 
 def phase_kernels_v5(torch, ck, gen, dev):
     """B3 and B4 against their plain versions and against B1 / B2 (the
-    other formulation, an independent kernel) at the v5 shapes. Row 1 of
-    the coords is NaN for 3 pixels: both kernels clip a NaN center to the
-    low edge, an all-zero window (B3 gives the bias, B4 zeros), where the
-    plain version gives NaN; those pixels are held to that and left out
-    of the plain comparison."""
+    other formulation, an independent kernel) at the v5 shapes, on the
+    jitter field and, for every case but the largest, the smooth,
+    scattered and edge fields. Row 1 of the coords is NaN for 3 pixels:
+    both kernels clip a NaN center to the low edge, an all-zero window (B3
+    gives the bias, B4 zeros), where the plain version gives NaN; those
+    pixels are held to that and left out of the plain comparison. Each
+    record also gives B3's and B4's TMA boxes per level (box_summary)."""
     from dexiraft_tpu_torch.ops.local_corr import local_corr_level
 
     worst = {"pallas_fused_step": 0.0, "pallas_local_corr_level": 0.0}
-    for label, b, h, w, levels, r, c, feat in V5_KERNEL_CASES:
+    cases = [(case, "jitter") for case in V5_KERNEL_CASES]
+    cases += [(case, field) for field in V5_FIELDS for case in V5_KERNEL_CASES
+              if case[0] != "sintel_b4"]
+    for (label, b, h, w, levels, r, c, feat), field in cases:
         for dtype in ("fp32", "bf16", "int8"):
             pyr, co, weight, bias = make_inputs(gen, b, h, w, c, levels, r,
-                                                feat, dtype, dev)
+                                                feat, dtype, dev, field=field)
             co[:, 1, :3] = float("nan")
             keep = torch.ones(b, h, w, 1, dtype=torch.bool, device=dev)
             keep[:, 1, :3] = False
@@ -400,10 +429,18 @@ def phase_kernels_v5(torch, ck, gen, dev):
             rec.update(b4_vs_plain_per_level=b4_plain,
                        b4_vs_b2_per_level=b4_b2,
                        b4_nan_pixels_max_abs_per_level=b4_nan)
+            limits = {kind: ck.pallas_box_limit(pyr.fmap2_pyramid[0].dtype,
+                                                kind == "b3", r, c, feat)
+                      for kind in ("b3", "b4")}
+            for kind, limit in limits.items():
+                rec[f"{kind}_boxes_per_level"] = [
+                    box_summary(co, f.shape[1:3], 2.0 ** -lvl, r, limit)
+                    for lvl, f in enumerate(pyr.fmap2_pyramid)]
             emit({"phase": "kernels", "kernels": "B3/B4", "case": label,
-                  "dtype": dtype, "shape": [b, h, w, c],
+                  "field": field, "dtype": dtype, "shape": [b, h, w, c],
                   "levels": [list(x.shape[1:3]) for x in pyr.fmap2_pyramid],
-                  "tf32": False, **rec, "tol": TOL_KERNEL})
+                  "box_limit": limits, "tf32": False, **rec,
+                  "tol": TOL_KERNEL})
             err_b3 = max(rec["b3_vs_plain"], rec["b3_vs_b1"],
                          rec["b3_nan_pixels_vs_bias"])
             err_b4 = max(b4_plain + b4_b2 + b4_nan)
@@ -413,7 +450,7 @@ def phase_kernels_v5(torch, ck, gen, dev):
             if err_b3 > TOL_KERNEL or err_b4 > TOL_KERNEL:
                 raise AssertionError(
                     f"B3/B4 disagree with their plain versions or with B1/B2: "
-                    f"{label} {dtype} {rec} (tol {TOL_KERNEL})")
+                    f"{label} {field} {dtype} {rec} (tol {TOL_KERNEL})")
     return worst
 
 
@@ -577,17 +614,26 @@ def time_forwards(torch, models, paths, x1, x2, rec, prefix) -> None:
 
 
 def time_kernels(torch, ck, gen, dev, b, rec, prefix, fused, level,
-                 fields=()) -> None:
+                 fields=(), lookup_fields=False) -> None:
     """Per-call µs of a fused kernel (``{prefix}_fused_*``) and a lookup
     kernel at every level (``{prefix}_lookup_*``), and of their plain
     versions, at batch ``b`` of the Sintel bucket, with each one's bound
     from the bytes and FLOPs these inputs need. The fused kernel is also
     timed on each of ``fields`` (``{prefix}_fused_{field}_us_*``, with
-    the bound of those coords)."""
+    the bound of those coords); with ``lookup_fields`` the lookup too, on
+    every field and storage dtype (``{prefix}_lookup_{field}_us_{dtype}_
+    level{l}``, jitter without the field)."""
     from dexiraft_tpu_torch.ops.local_corr import local_corr_level
 
     bh, bw = SINTEL_BUCKET
     fp, lp = prefix + "_fused", prefix + "_lookup"
+
+    def time_lookup(pyr, co, key):
+        for lvl, f2 in enumerate(pyr.fmap2_pyramid):
+            c_l = co / 2.0 ** lvl
+            rec[f"{key}_level{lvl}"] = 1e3 * cuda_time_ms(
+                lambda: level(pyr.fmap1, f2, c_l, 4), reps=10, inner=10)
+
     for field in fields:
         for dtype in ("fp32", "bf16", "int8"):
             pyr, co, w, bias = make_inputs(gen, b, bh // 8, bw // 8, 256, 4,
@@ -598,6 +644,8 @@ def time_kernels(torch, ck, gen, dev, b, rec, prefix, fused, level,
             if dtype == "fp32":
                 rec[f"{fp}_{field}_bound_us"] = 1e3 * bound_ms(
                     *work_b1(pyr, co, w, 4))[0]
+            if lookup_fields:
+                time_lookup(pyr, co, f"{lp}_{field}_us_{dtype}")
     inputs = {}
     for dtype in ("fp32", "bf16", "int8"):
         pyr, co, w, bias = make_inputs(gen, b, bh // 8, bw // 8, 256, 4, 4,
@@ -606,6 +654,8 @@ def time_kernels(torch, ck, gen, dev, b, rec, prefix, fused, level,
         rec[f"{fp}_us_{dtype}"] = 1e3 * cuda_time_ms(
             lambda: fused(pyr.fmap1, pyr.fmap2_pyramid, co, w, bias, 4),
             reps=10, inner=10)
+        if lookup_fields and dtype != "fp32":
+            time_lookup(pyr, co, f"{lp}_us_{dtype}")
     pyr, co, w, bias = inputs["fp32"]
     rec[f"{fp}_plain_us_fp32"] = 1e3 * cuda_time_ms(
         lambda: ck.fused_reference(pyr.fmap1, pyr.fmap2_pyramid, co, w, bias,
@@ -614,10 +664,9 @@ def time_kernels(torch, ck, gen, dev, b, rec, prefix, fused, level,
     bm, rec[f"{fp}_bound_by"] = bound_ms(nbytes, flops)
     rec[f"{fp}_bound_us"] = bm * 1e3
     rec[f"{fp}_bytes"], rec[f"{fp}_flops"] = nbytes, flops
+    time_lookup(pyr, co, f"{lp}_us")
     for lvl, f2 in enumerate(pyr.fmap2_pyramid):
         c_l = co / 2.0 ** lvl
-        rec[f"{lp}_us_level{lvl}"] = 1e3 * cuda_time_ms(
-            lambda: level(pyr.fmap1, f2, c_l, 4), reps=10, inner=10)
         rec[f"{lp}_plain_us_level{lvl}"] = 1e3 * cuda_time_ms(
             lambda: local_corr_level(pyr.fmap1, f2, c_l, 4, 8), reps=10,
             inner=2)
@@ -652,7 +701,10 @@ def phase_times(torch, ck, gen, dev, v1_models, v5_models, card):
     rec["profile_v1_fused_tf32_default"] = profile_forward(
         torch, lambda: v1_models["fused"](x1, x2, iters=ITERS), B1_KERNEL)
     rec["profile_v5_pallas_fused_tf32_default"] = profile_forward(
-        torch, lambda: v5(x1, x2, iters=ITERS), "pallas_corr")
+        torch, lambda: v5(x1, x2, iters=ITERS), B3_KERNEL)
+    rec["profile_v5_pallas_lookup_tf32_default"] = profile_forward(
+        torch, lambda: v5_models["pallas_lookup"](x1, x2, iters=ITERS),
+        B3_KERNEL)
     # the main path: B1 with the model's own coords
     rec["profile_v5_flash_fused_tf32_default"] = profile_forward(
         torch, lambda: v5_models["flash_fused"](x1, x2, iters=ITERS),
@@ -664,7 +716,8 @@ def phase_times(torch, ck, gen, dev, v1_models, v5_models, card):
     time_kernels(torch, ck, gen, dev, 1, rec, "v1_flash",
                  ck.flash_fused_step, ck.flash_local_corr_level, B1_FIELDS)
     time_kernels(torch, ck, gen, dev, 2, rec, "v5_pallas",
-                 ck.pallas_fused_step, ck.pallas_local_corr_level)
+                 ck.pallas_fused_step, ck.pallas_local_corr_level, V5_FIELDS,
+                 lookup_fields=True)
     time_kernels(torch, ck, gen, dev, 2, rec, "v5_flash",
                  ck.flash_fused_step, ck.flash_local_corr_level, B1_FIELDS)
     emit(rec)

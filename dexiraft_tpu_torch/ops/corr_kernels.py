@@ -17,9 +17,11 @@ The flash kernels live in ``csrc/flash_corr.cu``: B1 takes a 4x8 tile of
 query pixels per block and stages the f2 patch its lattices share once per
 level through cp.async (or reads each pixel's rows from global memory when
 the patch is too large), B2 takes one warp per query pixel reading f2 rows
-from global memory. The per-pixel kernels B3/B4 live in
-``csrc/pallas_corr.cu`` (a tile of pixels per block, f1 and every pixel's
-lattice rows staged in shared memory channel chunk by chunk).
+from global memory. B3/B4 live in ``csrc/pallas_corr.cu``: a 4x8 tile of
+query pixels per block whose shared f2 box is staged channel chunk by chunk
+by TMA from tensor maps encoded per call (a box too large for shared
+memory is read pixel by pixel from global memory). A tensor map the driver
+refuses raises like a failed launch.
 On CUDA tensors the wrappers launch their kernel; a failure to build or
 launch raises. On CPU tensors (the caller chose ``device="cpu"``) they run
 the plain version. There is no other case and no fallback between the two.
@@ -98,6 +100,16 @@ def _use_kernel(*tensors: torch.Tensor) -> bool:
                      f"device or all on the CPU, got {sorted(kinds)}")
 
 
+def _argtypes(library: str):
+    """The C entry point's argument types: the flash library takes the
+    query pixel count N, the pallas library the query grid (H, W)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    grid = [i] if library == "flash_corr" else [i, i]
+    return ([p, p, p, p, p, ctypes.POINTER(p), ctypes.POINTER(i),
+             ctypes.POINTER(i), ctypes.POINTER(ctypes.c_float), i, i]
+            + grid + [i, i, i, i, i, p])
+
+
 def _entry_point(library: str):
     """The library's C entry point (built and loaded at first use) and the
     library itself."""
@@ -108,15 +120,39 @@ def _entry_point(library: str):
     fn = getattr(lib, entry)
     if fn.argtypes is None:
         # without argtypes ctypes would pass each pointer as a 32-bit int
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, ctypes.POINTER(p),
-                       ctypes.POINTER(i), ctypes.POINTER(i),
-                       ctypes.POINTER(ctypes.c_float),
-                       i, i, i, i, i, i, i, i, p]
+        fn.argtypes = _argtypes(library)
         fn.restype = ctypes.c_int
-        lib.dexiraft_cuda_error_string.argtypes = [i]
+        lib.dexiraft_cuda_error_string.argtypes = [ctypes.c_int]
         lib.dexiraft_cuda_error_string.restype = ctypes.c_char_p
     return fn, lib
+
+
+def _launch_error(rc: int, lib) -> str:
+    """What a nonzero return code of an entry point means: -1 a refused
+    argument, -2 no tensor-map encoder in the driver, -1000 - CUresult a
+    tensor map the driver refused (pallas library), > 0 a cudaError_t."""
+    if rc == -1:
+        return "bad argument"
+    if rc == -2:
+        return "the driver has no cuTensorMapEncodeTiled"
+    if rc <= -1000:
+        return f"cuTensorMapEncodeTiled failed with CUresult {-1000 - rc}"
+    return lib.dexiraft_cuda_error_string(rc).decode()
+
+
+def pallas_box_limit(dtype: torch.dtype, fused: bool, radius: int, c: int,
+                     feat: int = 0) -> int:
+    """The most f2 box positions one B3 (``fused``) or B4 tile stages at
+    once for levels stored in ``dtype``; a larger box takes the per-pixel
+    branch (ops/tiles.py). Builds and loads the pallas library."""
+    _, lib = _entry_point("pallas_corr")
+    fn = lib.dexiraft_pallas_box_limit
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_int
+    limit = fn(_DTYPE_CODES[dtype], int(fused), radius, c, feat)
+    if limit <= 0:
+        raise ValueError(f"no box limit for {dtype} C={c} r={radius} F={feat}")
+    return limit
 
 
 def build_kernels() -> Dict[str, str]:
@@ -129,51 +165,53 @@ def build_kernels() -> Dict[str, str]:
                             KERNEL_LIBRARIES.items()})
 
 
-def _check(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(msg)
-
-
 def _launch(name: str, fmap1: torch.Tensor, levels: Sequence[torch.Tensor],
             coords: torch.Tensor, coord_scales: Sequence[float], radius: int,
             weight: Optional[torch.Tensor] = None,
             bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the kernel of wrapper ``name``; returns (B, H, W, out_ch) as
     a view of a channels-first (B, out_ch, H, W) buffer (the model's
-    layout)."""
+    layout). Each check formats its message only when it fails: this runs
+    on the host once per kernel launch."""
     fused = weight is not None
-    _check(fmap1.dim() == 4 and fmap1.dtype == torch.float32,
-           f"fmap1 must be (B, H, W, C) float32, got {tuple(fmap1.shape)} "
-           f"{fmap1.dtype}")
+    if not (fmap1.dim() == 4 and fmap1.dtype == torch.float32):
+        raise ValueError(f"fmap1 must be (B, H, W, C) float32, got "
+                         f"{tuple(fmap1.shape)} {fmap1.dtype}")
     b, h, w, c = fmap1.shape
-    _check(c % 16 == 0, f"{name} needs C % 16 == 0, got C={c}")
-    _check(1 <= len(levels) <= _MAX_LEVELS,
-           f"1..{_MAX_LEVELS} pyramid levels, got {len(levels)}")
-    _check(tuple(coords.shape) == (b, h, w, 2),
-           f"coords must be {(b, h, w, 2)}, got {tuple(coords.shape)}")
+    if c % 16:
+        raise ValueError(f"{name} needs C % 16 == 0, got C={c}")
+    if not 1 <= len(levels) <= _MAX_LEVELS:
+        raise ValueError(f"1..{_MAX_LEVELS} pyramid levels, got {len(levels)}")
+    if coords.shape != (b, h, w, 2):
+        raise ValueError(f"coords must be {(b, h, w, 2)}, got "
+                         f"{tuple(coords.shape)}")
     dtype = levels[0].dtype
-    _check(dtype in _DTYPE_CODES,
-           f"level dtype must be float32, bfloat16 or int8, got {dtype}")
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"level dtype must be float32, bfloat16 or int8, "
+                         f"got {dtype}")
     for lv in levels:
-        _check(lv.dtype == dtype and lv.dim() == 4 and lv.shape[0] == b
-               and lv.shape[3] == c,
-               f"level {tuple(lv.shape)} {lv.dtype} does not match fmap1 "
-               f"{tuple(fmap1.shape)} / {dtype}")
-        _check(lv.is_contiguous(), "pyramid levels must be contiguous")
-        _check(lv.numel() == 0 or lv.data_ptr() % 16 == 0,
-               "pyramid levels must be 16-byte aligned")
+        if not (lv.dtype == dtype and lv.dim() == 4 and lv.shape[0] == b
+                and lv.shape[3] == c):
+            raise ValueError(f"level {tuple(lv.shape)} {lv.dtype} does not "
+                             f"match fmap1 {tuple(fmap1.shape)} / {dtype}")
+        if not lv.is_contiguous():
+            raise ValueError("pyramid levels must be contiguous")
+        if lv.numel() and lv.data_ptr() % 16:
+            raise ValueError("pyramid levels must be 16-byte aligned")
     kk = (2 * radius + 1) ** 2
     f1 = fmap1.contiguous()
+    if f1.data_ptr() % 16:  # the kernels read f1 in 16-byte units
+        f1 = f1.clone()
     co = coords.to(torch.float32).contiguous()
     if fused:
-        _check(weight.dtype == torch.float32 and bias.dtype == torch.float32,
-               "weight and bias must be float32")
-        _check(tuple(weight.shape[:1]) == (len(levels) * kk,)
-               and weight.dim() == 2,
-               f"weight must be ({len(levels) * kk}, F), got "
-               f"{tuple(weight.shape)}")
+        if not (weight.dtype == torch.float32 and bias.dtype == torch.float32):
+            raise ValueError("weight and bias must be float32")
+        if not (weight.dim() == 2 and weight.shape[0] == len(levels) * kk):
+            raise ValueError(f"weight must be ({len(levels) * kk}, F), got "
+                             f"{tuple(weight.shape)}")
         feat = weight.shape[1]
-        _check(tuple(bias.shape) == (feat,), f"bias must be ({feat},)")
+        if bias.shape != (feat,):
+            raise ValueError(f"bias must be ({feat},)")
         weight, bias = weight.contiguous(), bias.contiguous()
         out_ch = feat
     else:
@@ -188,19 +226,18 @@ def _launch(name: str, fmap1: torch.Tensor, levels: Sequence[torch.Tensor],
     sc = (ctypes.c_float * n_lvl)(*coord_scales)
     library = KERNEL_LIBRARY_OF[name]
     fn, lib = _entry_point(library)
+    grid = (h * w,) if library == "flash_corr" else (h, w)
     with torch.cuda.device(fmap1.device):
         stream = torch.cuda.current_stream(fmap1.device).cuda_stream
         rc = fn(f1.data_ptr(), co.data_ptr(),
                 weight.data_ptr() if fused else None,
                 bias.data_ptr() if fused else None,
                 out.data_ptr(), ptrs, h2, w2, sc,
-                n_lvl, b, h * w, c, radius, feat, _DTYPE_CODES[dtype],
+                n_lvl, b, *grid, c, radius, feat, _DTYPE_CODES[dtype],
                 int(fused), stream)
     if rc != 0:
-        why = ("bad argument" if rc < 0
-               else lib.dexiraft_cuda_error_string(rc).decode())
         raise RuntimeError(f"{name}: {library} kernel launch failed "
-                           f"({rc}: {why})")
+                           f"({rc}: {_launch_error(rc, lib)})")
     LAUNCHES[name] += 1
     return out.permute(0, 2, 3, 1)
 
