@@ -21,7 +21,11 @@ Phases, one JSON line each:
               degenerate level); B1 on a smooth field (every tile stages
               one f2 patch) and a scattered one (level-0 tiles read each
               pixel's lattice) at 55x128, B=1 and 2, against
-              fused_reference and B3; then B3 pallas_fused_step and B4
+              fused_reference and B3; B2 on the jitter field with NaN
+              pixels and on the smooth, scattered and edge fields at every
+              v1 case, against local_corr_level and B4 (NaN pixels and
+              0-row levels exact zeros), with B2's staged boxes and
+              per-pixel tiles per level; then B3 pallas_fused_step and B4
               pallas_local_corr_level at the v5 shapes (the same cases with
               the batch doubled, as the dual stream has it, and the 5x8
               map of a 40x64 image) against their plain versions and
@@ -38,12 +42,18 @@ Phases, one JSON line each:
   5 slice v5  the same requests through v5: paths "pallas_fused" (B3),
               "pallas_lookup" (B4) and "flash_fused" (B1), checked the
               same way
+  tf32        the eval step's arithmetic: flow_low of v1's and v5's main
+              paths through make_eval_step with TF32 convolutions on
+              (PyTorch's default flags) and off, and with the step's
+              default, against the TF32-off plain-lookup path, <= 1e-2 px
+              for the default; the global flags as they were
   6 times     CUDA-event medians: v1 and v5 forward ms at 440x1024, B=1
               (TF32 off and PyTorch's default), v5's DexiNed and prelude
               alone, kernel and plain-version times per call at each
               path's shapes (B1 also on the smooth and scattered fields,
               B3 and B4 on the smooth, scattered and edge fields, every
-              storage dtype), torch.profiler breakdowns of v1 fused, v5
+              storage dtype; B2 on every field and dtype at v5's batch),
+              torch.profiler breakdowns of v1 fused, v5
               pallas fused, v5 pallas lookup and v5 flash fused (the main
               path, B1 on the model's coords)
 Then the {"kernels": [...]} line, the nvidia-smi line, and last
@@ -94,7 +104,7 @@ B1_FIELDS = ("smooth", "scattered")
 # B3/B4's extra fields, checked at every V5_KERNEL_CASES case but sintel_b4
 # and timed beside the jitter field
 V5_FIELDS = ("smooth", "scattered", "edge")
-B1_KERNEL = "flash_fused_tile"  # B1's name in a torch.profiler trace
+B1_KERNEL = "flash_tile"  # B1's (and B2's) name in a torch.profiler trace
 B3_KERNEL = "pallas_tile"  # B3's and B4's
 # the slice's requests: ((H, W), horizontal shift in px)
 PAIRS = (((436, 1024), 3), ((436, 1024), -5), ((375, 1242), 4),
@@ -248,18 +258,21 @@ def valid_lattice_points(co, shape, scale, radius):
     return int((axis(co[..., 0], w2) * axis(co[..., 1], h2)).sum())
 
 
-def box_summary(co, shape, scale, radius, limit=None):
+def box_summary(co, shape, scale, radius, limit=None, tma=True):
     """B1's (smallest, largest) box in positions over its 4x8 tiles at one
-    level (``limit`` None), or B3/B4's [smallest, largest staged positions,
-    tiles on the per-pixel branch, tiles with a live pixel] for a stage of
-    ``limit`` positions (ops/tiles.py)."""
-    from dexiraft_tpu_torch.ops.tiles import tile_boxes, tma_staging
+    level (``limit`` None), or, for a stage of ``limit`` positions, B3/B4's
+    (``tma``) or B1/B2's [smallest, largest staged positions, tiles on the
+    per-pixel branch, tiles with a live pixel] (ops/tiles.py)."""
+    from dexiraft_tpu_torch.ops.tiles import (flash_staging, tile_boxes,
+                                              tma_staging)
 
-    cols, rows = tile_boxes(co, shape, scale, radius, whole=limit is not None)
+    whole = limit is not None and tma
+    cols, rows = tile_boxes(co, shape, scale, radius, whole=whole)
     if limit is None:
         box = cols * rows
         return [int(box.min()), int(box.max())] if box.numel() else [0, 0]
-    staged, per_pixel = tma_staging(cols, rows, limit)
+    staged, per_pixel = (tma_staging if tma else flash_staging)(cols, rows,
+                                                                limit)
     on_patch = staged[~per_pixel]
     return [int(on_patch.min()) if on_patch.numel() else 0,
             int(on_patch.max()) if on_patch.numel() else 0,
@@ -378,6 +391,65 @@ def phase_kernels(torch, ck, gen, dev):
                     raise AssertionError(
                         f"B1 disagrees on the {field} field: {label} {dtype} "
                         f"{err} (tol {TOL_KERNEL})")
+    worst["flash_local_corr_level"] = max(worst["flash_local_corr_level"],
+                                          check_b2_fields(torch, ck, gen, dev))
+    return worst
+
+
+def check_b2_fields(torch, ck, gen, dev) -> float:
+    """B2's branches on every field at every KERNEL_CASES case: against the
+    plain version (NaN pixels left out) and against B4, the TMA-staged
+    formulation; row 1's first 3 pixels NaN and 0-row levels must come out
+    exactly zero. Each record gives B2's staged boxes per level
+    (box_summary with flash_box_limit). Returns the worst error."""
+    from dexiraft_tpu_torch.ops.local_corr import local_corr_level
+
+    worst = 0.0
+    for field in ("jitter",) + V5_FIELDS:
+        for label, b, h, w, levels, r, c, feat in KERNEL_CASES:
+            for dtype in ("fp32", "bf16", "int8"):
+                pyr, co, _, _ = make_inputs(gen, b, h, w, c, levels, r, feat,
+                                            dtype, dev, field=field)
+                co[:, 1, :3] = float("nan")
+                keep = torch.ones(b, h, w, 1, dtype=torch.bool, device=dev)
+                keep[:, 1, :3] = False
+                vs_plain, vs_b4, nan_px, zero_levels = [], [], [], []
+                for lvl, f2 in enumerate(pyr.fmap2_pyramid):
+                    c_l = co / 2.0 ** lvl
+                    s = pyr.level_scale(lvl)
+                    o = ck.flash_local_corr_level(pyr.fmap1, f2, c_l, r)
+                    torch.cuda.synchronize()
+                    o4 = ck.pallas_local_corr_level(pyr.fmap1, f2, c_l, r)
+                    rr = local_corr_level(pyr.fmap1, f2.float(), c_l, r, 8)
+                    if s is not None:  # the scale the lookup path applies
+                        o, o4, rr = o * s, o4 * s, rr * s
+                    vs_plain.append(max_diff(o, rr, keep))
+                    vs_b4.append(max_diff(o, o4))
+                    nan_px.append(float(o[:, 1, :3].abs().max()))
+                    if 0 in f2.shape[1:3]:
+                        zero_levels.append(float(o.abs().max()))
+                limit = ck.flash_box_limit(pyr.fmap2_pyramid[0].dtype, False,
+                                           r, c)
+                emit({"phase": "kernels", "kernels": "B2 branches",
+                      "case": label, "field": field, "dtype": dtype,
+                      "b2_vs_plain_per_level": vs_plain,
+                      "b2_vs_b4_per_level": vs_b4,
+                      "b2_nan_pixels_max_abs_per_level": nan_px,
+                      "b2_zero_levels_max_abs": zero_levels,
+                      "box_limit": limit,
+                      "b2_boxes_per_level": [
+                          box_summary(co, f.shape[1:3], 2.0 ** -lvl, r, limit,
+                                      tma=False)
+                          for lvl, f in enumerate(pyr.fmap2_pyramid)],
+                      "tf32": False, "tol": TOL_KERNEL})
+                err = max(vs_plain + vs_b4)
+                worst = max(worst, err)
+                if err > TOL_KERNEL or any(nan_px) or any(zero_levels):
+                    raise AssertionError(
+                        f"B2 disagrees on the {field} field: {label} {dtype} "
+                        f"vs plain {vs_plain} vs B4 {vs_b4} NaN pixels "
+                        f"{nan_px} 0-row levels {zero_levels} (tol "
+                        f"{TOL_KERNEL}, zeros exact)")
     return worst
 
 
@@ -495,8 +567,9 @@ def phase_slice(torch, ck, dev, model_name, variant, paths, expect):
     launches = {}
     results = {}
     for path in names:
-        engine = InferenceEngine(make_eval_step(models[path], ITERS, dev),
-                                 ServeConfig(batch_size=2, mode="sintel"))
+        engine = InferenceEngine(
+            make_eval_step(models[path], ITERS, dev, tf32=False),
+            ServeConfig(batch_size=2, mode="sintel"))
         ck.reset_launches()
         res = sorted(engine.stream([dict(it) for it in items]),
                      key=lambda r: r.index)
@@ -554,7 +627,45 @@ def phase_slice(torch, ck, dev, model_name, variant, paths, expect):
         raise AssertionError(f"{model_name}: kernel path flow differs from "
                              f"the plain path: {diff}, engine vs direct "
                              f"{engine_vs_direct}")
-    return models, launches
+    batch = (np.stack([p.pad(it["image1"])[0] for p, it in zip(pads, items)]),
+             np.stack([p.pad(it["image2"])[0] for p, it in zip(pads, items)]),
+             lows["plain"])
+    return models, launches, batch
+
+
+def phase_tf32(torch, dev, model_name, model, batch) -> dict:
+    """The eval step's arithmetic: flow_low of ``model`` (a kernel path)
+    through make_eval_step with TF32 convolutions on (PyTorch's default
+    flags: cuDNN TF32 on, matmuls fp32) and off, and with the step's
+    default, against ``batch``'s TF32-off plain-lookup flow_low after
+    ITERS iterations. Fails if the default setting is over TOL_FLOW_PX or
+    the step leaves the global flags changed."""
+    from dexiraft_tpu_torch.train.step import EVAL_TF32, make_eval_step
+
+    im1, im2, plain_low = batch
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    diff = {}
+    for key, kw in (("tf32_on", {"tf32": True}), ("tf32_off", {"tf32": False}),
+                    ("default", {})):
+        low, _ = make_eval_step(model, ITERS, dev, **kw)(im1, im2)
+        diff[key] = float((low.permute(0, 3, 1, 2) - plain_low).abs().max())
+    after = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    rec = {"phase": "tf32", "model": model_name,
+           "check": "eval step vs TF32-off plain path, same weights",
+           "flow_low_max_abs_diff_px": diff, "default_tf32": EVAL_TF32,
+           "flags_before_after": [list(flags), list(after)],
+           "tol_px": TOL_FLOW_PX}
+    emit(rec)
+    if after != flags:
+        raise AssertionError(f"the eval step left the TF32 flags changed: "
+                             f"{flags} -> {after}")
+    if diff["default"] > TOL_FLOW_PX:
+        raise AssertionError(f"{model_name}: the eval step's default "
+                             f"arithmetic (tf32={EVAL_TF32}) is "
+                             f"{diff['default']} px from the plain path")
+    return rec
 
 
 def profile_forward(torch, forward, kernel_key: str) -> dict:
@@ -719,7 +830,8 @@ def phase_times(torch, ck, gen, dev, v1_models, v5_models, card):
                  ck.pallas_fused_step, ck.pallas_local_corr_level, V5_FIELDS,
                  lookup_fields=True)
     time_kernels(torch, ck, gen, dev, 2, rec, "v5_flash",
-                 ck.flash_fused_step, ck.flash_local_corr_level, B1_FIELDS)
+                 ck.flash_fused_step, ck.flash_local_corr_level, V5_FIELDS,
+                 lookup_fields=True)
     emit(rec)
     return rec
 
@@ -784,13 +896,13 @@ def main(argv=None) -> int:
 
     worst = phase_kernels(torch, ck, gen, dev)
     worst.update(phase_kernels_v5(torch, ck, gen, dev))
-    v1_models, v1_launches = phase_slice(
+    v1_models, v1_launches, v1_batch = phase_slice(
         torch, ck, dev, "v1", raft_v1,
         {"fused": dict(corr_impl="flash", fused_update=True),
          "lookup": dict(corr_impl="flash")},
         {"fused": ("flash_fused_step", 2 * ITERS),
          "lookup": ("flash_local_corr_level", 2 * ITERS * 4)})
-    v5_models, v5_launches = phase_slice(
+    v5_models, v5_launches, v5_batch = phase_slice(
         torch, ck, dev, "v5", raft_v5,
         {"pallas_fused": dict(corr_impl="pallas", fused_update=True),
          "pallas_lookup": dict(corr_impl="pallas"),
@@ -798,6 +910,9 @@ def main(argv=None) -> int:
         {"pallas_fused": ("pallas_fused_step", 2 * ITERS),
          "pallas_lookup": ("pallas_local_corr_level", 2 * ITERS * 4),
          "flash_fused": ("flash_fused_step", 2 * ITERS)})
+    # the eval step's own arithmetic, on each model's main path
+    phase_tf32(torch, dev, "v1", v1_models["fused"], v1_batch)
+    phase_tf32(torch, dev, "v5", v5_models["flash_fused"], v5_batch)
     times = phase_times(torch, ck, gen, dev, v1_models, v5_models, smi)
 
     pc = "dexiraft_tpu/ops/pallas_corr.py"

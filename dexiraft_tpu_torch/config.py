@@ -5,9 +5,10 @@ Counterpart of ``dexiraft_tpu/config.py``: the same frozen ``RAFTConfig``
 constructors and the CLI vocabularies. This package keeps its own copy so
 that it never imports the JAX package.
 
-Fields the port does not implement yet (remat, mixed precision, the
-DexiNed upsampler choice, scan unrolling) are accepted at their defaults
-and refused with a clear error otherwise.
+Fields the port does not implement yet (remat, mixed precision, scan
+unrolling) are accepted at their defaults and refused with a clear error
+otherwise. Both DexiNed upsampler forms are accepted: they are one linear
+map with one parameter tree (models/dexined.py).
 """
 
 from __future__ import annotations
@@ -26,6 +27,11 @@ CORR_IMPLS = ("allpairs", "local", "pallas", "flash")
 
 # the corr implementations models/raft.py runs
 PORTED_CORR_IMPLS = ("local", "flash", "pallas")
+
+# the embedded DexiNed's transposed-conv forms, as in the JAX package: the
+# plain transposed conv and its sub-pixel rewrite compute the same map with
+# the same parameters, so both run the port's nn.ConvTranspose2d
+DEXINED_UPCONVS = ("transpose", "subpixel")
 
 
 def resolve_corr_impl(impl: str, platform: str) -> Tuple[str, bool]:
@@ -48,7 +54,6 @@ _UNPORTED_DEFAULTS = {
     "remat": False,
     "remat_policy": "full",
     "remat_lookup": False,
-    "dexined_upconv": "subpixel",
     "scan_unroll": 1,
 }
 
@@ -104,6 +109,10 @@ class RAFTConfig:
                 "fused_update=True requires corr_impl='flash' (the "
                 "production kernel) or 'pallas'; the allpairs volume and "
                 "the plain lookup have no fused form")
+        if self.dexined_upconv not in DEXINED_UPCONVS:
+            raise ValueError(
+                f"unknown dexined_upconv {self.dexined_upconv!r}; expected "
+                f"one of {DEXINED_UPCONVS}")
         if self.remat_policy not in ("full", "dots_saveable"):
             raise ValueError(
                 f"unknown remat_policy {self.remat_policy!r}; expected "

@@ -21,10 +21,11 @@ extern "C" {
 int dexiraft_flash_corr(const void* f1, const void* coords, const void* weight,
                         const void* bias, void* out, const void* const* levels,
                         const int* h2, const int* w2, const float* coord_scale,
-                        int num_levels, int batch, int n, int c, int radius,
-                        int feat, int dtype, int fused, void* stream) {
+                        int num_levels, int batch, int hq, int wq, int c,
+                        int radius, int feat, int dtype, int fused,
+                        void* stream) {
   if (num_levels < 1 || num_levels > FLASH_CORR_MAX_LEVELS || batch < 1 ||
-      n < 1 || c < 16 || c % 16 != 0 || radius < 0 || radius > 8 ||
+      hq < 1 || wq < 1 || c < 16 || c % 16 != 0 || radius < 0 || radius > 8 ||
       dtype < FLASH_FP32 || dtype > FLASH_INT8 || f1 == nullptr ||
       coords == nullptr || out == nullptr) {
     return kBadArgument;
@@ -48,12 +49,24 @@ int dexiraft_flash_corr(const void* f1, const void* coords, const void* weight,
   }
   a.num_levels = num_levels;
   a.batch = batch;
-  a.n = n;
+  a.hq = hq;
+  a.wq = wq;
   a.c = c;
   a.radius = radius;
   a.feat = fused ? feat : 0;
   return static_cast<int>(flash_corr_launch(
       a, dtype, fused != 0, static_cast<cudaStream_t>(stream)));
+}
+
+// The box limit of flash_corr_box_limit (positions a tile stages at once; 0
+// for arguments the kernel does not take).
+int dexiraft_flash_box_limit(int dtype, int fused, int radius, int c,
+                             int feat) {
+  if (dtype < FLASH_FP32 || dtype > FLASH_INT8 || radius < 0 || radius > 8 ||
+      c < 16 || c % 16 != 0 || (fused && feat < 1)) {
+    return 0;
+  }
+  return flash_corr_box_limit(dtype, fused != 0, radius, c, fused ? feat : 0);
 }
 
 const char* dexiraft_cuda_error_string(int code) {

@@ -1,14 +1,16 @@
 // Flash correlation lookup for Hopper (sm_90a): B1 flash_fused_step and
-// B2 flash_local_corr_level of the PyTorch port.
+// B2 flash_local_corr_level of the PyTorch port, two instances of one kernel
+// template, `flash_tile_kernel<T, FUSED>`.
 //
 // Replaces the TPU kernel `_flash_kernel` of dexiraft_tpu/ops/pallas_corr.py
 // (pallas_corr.py:648, launched through `_flash_forward` :747 ->
 // pl.pallas_call :832) in both of its instantiations:
 //   * fused=true is `flash_fused_step` (pallas_corr.py:867): the window
 //     lookup of every pyramid level contracted with the motion encoder's 1x1
-//     corr conv, plus bias; here `flash_fused_tile_kernel`;
-//   * fused=false is `flash_local_corr_level` (:847): the windows alone;
-//     here `flash_lookup_kernel`.
+//     corr conv, plus bias; here `flash_tile_kernel<T, true>`;
+//   * fused=false is `flash_local_corr_level` (:847): the windows alone, one
+//     level per call with its coords in level pixels; here
+//     `flash_tile_kernel<T, false>`.
 //
 // What both compute, per query pixel p and pyramid level l: coords[p] * s_l
 // clipped to [-r-1, size+r] (every window the clip moves is all-zero, the
@@ -20,27 +22,24 @@
 // give zero windows. Int8 scales are not applied here: the caller folds them
 // into W (fused) or multiplies the window (lookup), as the JAX code does.
 //
-// ---- B1, flash_fused_tile_kernel ------------------------------------------
-// Bound. At v5's kernel batch (2 x 55x128 queries, C=256, 4 levels, r=4,
-// F=256) one call takes ~4.5 GFLOP of fp32 arithmetic (in-frame lattice
-// dots, blend, window @ W) against ~48 MB of compulsory traffic: bound by
-// operations on the fp32 CUDA cores (every product has an fp32 operand), 67
-// us at the published peak. Neighbouring query pixels share most of their
-// lattice rows: read per pixel, the rows are ~5.6 GB of L2->SM traffic per
-// call, which is what held the one-warp-per-pixel kernel of the first port
-// at ~0.9 ms. The TPU kernel shares them by DMA-ing each fmap2 row block
-// once per 256-query block; this kernel shares them through shared memory:
+// ---- The tile: what both instances share ----------------------------------
+// Neighbouring query pixels share most of their lattice rows: read per pixel,
+// the rows are ~1.4 GB of L2->SM traffic per level at v5's kernel batch, which
+// is what held the one-warp-per-pixel kernels of the first port at ~0.23 ms
+// a level. The TPU kernel shares them by DMA-ing each fmap2 row block once
+// per 256-query block; this kernel shares them through shared memory:
 //   * a CTA of 320 threads owns a 4x8 tile of query pixels of one batch
-//     item. 4x8 rather than 4x16: 224 CTAs at v1's batch 1 and 448 at v5's
-//     batch 2 keep all 132 SMs busy, where 64-pixel tiles would leave 20
-//     SMs idle at v1; the box of a 4x8 tile at smooth flow is 13x17 = 221
-//     positions against 3,200 lattice-row reads (14x reuse);
+//     item, on the query grid (H, W) the caller passes. 4x8 rather than
+//     4x16: 224 CTAs at v1's batch 1 and 448 at v5's batch 2 keep all 132
+//     SMs busy, where 64-pixel tiles would leave 20 SMs idle at v1; the box
+//     of a 4x8 tile at smooth flow is 13x17 = 221 positions against 3,200
+//     lattice-row reads (14x reuse);
 //   * per level, warp 0 takes each pixel's clipped lattice origin and the
 //     bounding box of the tile's lattices, intersected with the frame. A
 //     pixel whose whole effective lattice (the rows and columns its blend
 //     weighs nonzero) lies outside the frame is left out of the box: its
 //     window is zero (far or NaN coords, a tail pixel). A tile with no such
-//     pixel left skips the level;
+//     pixel left skips the level (the lookup writes its zeros);
 //   * patch branch, box (rows padded to an odd stride) <= Qmax positions:
 //     the box of f2 is staged ONCE in shared memory, kUnits x 16 bytes of
 //     channels per position at a time (fp32, bf16 or int8: 8, 16 or 32
@@ -50,9 +49,9 @@
 //     read from shared memory;
 //   * per-pixel branch, box > Qmax (a flow discontinuity, scattered coords):
 //     one warp per pixel, lanes across channels, reads each of the pixel's
-//     in-frame lattice rows from global memory (16-byte __ldg), as the
-//     first port did. The branch is chosen per (tile, level) from the data;
-//     both compute the same sums;
+//     in-frame lattice rows from global memory (16-byte __ldg, upcast as the
+//     patch branch does), as the first port did. The branch is chosen per
+//     (tile, level) from the data; both compute the same sums;
 //   * patch dots: a thread owns lattice row ky of a horizontal pixel pair
 //     and half of each chunk's units, and keeps the pair's 2 x (2r+2) <= 20
 //     kx sums in fp32 registers across the chunks (the halves are added in
@@ -61,32 +60,46 @@
 //     both rows' 20 dots, else 10 each. A pair's 8 first rows go to the 8
 //     lanes of a quarter-warp: at the odd row stride they fall in 8
 //     different bank groups whatever the coords. A radius above 4 takes
-//     several passes of the whole chunk loop;
-//   * the corner blend writes the (kk, 32) window into the idle stage
-//     region; W_l's rows follow it there through cp.async, double-buffered,
-//     the first two chunks during the blend; each thread takes 8 pixels
-//     (one tile row) x 4 features FS/4 apart in registers; the [F][36]
-//     accumulator starts at the bias and lives in shared memory across
-//     levels; only (B, F, H, W) is written, a warp per feature and tile.
-// Qmax is what fits when two CTAs share an SM (113 KB each): ~960
-// positions at fp32, C=F=256, r=4, which takes the smoke's U(-6, 6) field
-// (boxes of up to 24x28) on the patch branch at every level. On the card
-// the call stays well above its bound without filling the shared-memory
-// reads, the FMAs or L2: most of a CTA's time goes to issuing its many
-// scattered 32-byte copies, and its chunks, barriers and phases run in
-// sequence with only two CTAs per SM (PERF.md).
+//     several passes of the whole chunk loop.
 //
-// The query grid (H, W) is level 0's shape (the pyramid's first level is
-// fmap2 itself); were it not, the pixels are tiled as one row of N.
+// ---- B1 (FUSED=true): the window @ W epilogue ------------------------------
+// Bound. At v5's kernel batch (2 x 55x128 queries, C=256, 4 levels, r=4,
+// F=256) one call takes ~4.5 GFLOP of fp32 arithmetic (in-frame lattice
+// dots, blend, window @ W) against ~48 MB of compulsory traffic: bound by
+// operations on the fp32 CUDA cores (every product has an fp32 operand), 67
+// us at the published peak. The corner blend writes the (kk, 32) window into
+// the idle stage region; W_l's rows follow it there through cp.async,
+// double-buffered, the first two chunks during the blend; each thread takes 8
+// pixels (one tile row) x 4 features FS/4 apart in registers; the [F][36]
+// accumulator starts at the bias and lives in shared memory across levels;
+// only (B, F, H, W) is written, a warp per feature and tile. Qmax is what
+// fits when two CTAs share an SM (113 KB each): ~960 positions at fp32,
+// C=F=256, r=4, which takes the smoke's U(-6, 6) field (boxes of up to
+// 24x28) on the patch branch at every level. On the card the call stays well
+// above its bound without filling the shared-memory reads, the FMAs or L2:
+// most of a CTA's time goes to issuing its many scattered 32-byte copies, and
+// its chunks, barriers and phases run in sequence with only two CTAs per SM
+// (PERF.md).
 //
-// ---- B2, flash_lookup_kernel ----------------------------------------------
-// One CTA per 16 query pixels, one warp per pixel taking the (2r+2)^2
-// lattice dots against f2 rows read from global memory (16-byte loads in
-// the storage dtype, fp32 accumulation, warp-shuffle sums); the tile's f1
-// rows staged in shared memory pre-scaled by 1/sqrt(C); the window channels
-// are written. Bound by bytes at level 0 (~5 us); it re-reads overlapping
-// f2 rows through L1/L2 and is B1's pre-patch design, to be redesigned the
-// same way.
+// ---- B2 (FUSED=false): the lookup ------------------------------------------
+// Bound. At v5's kernel batch, level 0 (2 x 55x128 queries, C=256, r=4, fp32
+// storage): ~33 MB of compulsory traffic (f1 and f2 14.4 MB each, the
+// window 4.6 MB) against ~0.7 GFLOP of in-frame lattice dots: ~10 us by
+// bytes at the published 3.35 TB/s and about the same by operations at 67
+// TFLOP/s fp32; at the coarser levels f2 shrinks and the dots, whose count
+// does not, bound it (~8-9 us). The tile's
+// front half is B1's, without W, the bias and the accumulator: the corner
+// blend goes from the lattice straight to `out` (B, L * K, H * W), a warp
+// per window channel writing the tile's 4 rows of 8 pixels (32-byte
+// segments), and zeros for the pixels of a dead tile or a 0-row level (out
+// is not cleared by the caller). Without the accumulator and W's stages a
+// CTA needs ~37 KB less at F=256; B2 spends it on chunks of 64 bytes a
+// position for fp32 and bf16 (half B1's chunks, and their barriers; Qmax 736
+// and 704 positions) and on Qmax for int8 (32-byte chunks, 1440 positions).
+// A third CTA per SM (Qmax ~930, registers capped at 64) and a third ring
+// stage ran no faster on the card (PERF.md). It stages f2 by cp.async and
+// B3/B4 (csrc/pallas_corr.cu) by TMA, so the card's check of B4 against B2
+// holds two independent stagings against each other.
 
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -97,207 +110,33 @@
 
 namespace {
 
-// ============================ B2: the lookup ================================
-
-constexpr int kPixels = 16;    // query pixels per CTA
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kUnroll = 4;     // lattice dots in flight per warp
-
-// 16-byte chunk of a storage-dtype row dotted with fp32 f1 values.
-template <typename T>
-struct Chunk;
-
-template <>
-struct Chunk<float> {
-  static constexpr int kVec = 4;
-  __device__ static float dot(const float* row, const float* f) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(row));
-    const float4 g = *reinterpret_cast<const float4*>(f);
-    return v.x * g.x + v.y * g.y + v.z * g.z + v.w * g.w;
-  }
-};
-
-template <>
-struct Chunk<__nv_bfloat16> {
-  static constexpr int kVec = 8;
-  __device__ static float dot(const __nv_bfloat16* row, const float* f) {
-    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(row));
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-    float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 v = __bfloat1622float2(h[i]);
-      s += v.x * f[2 * i] + v.y * f[2 * i + 1];
-    }
-    return s;
-  }
-};
-
-template <>
-struct Chunk<int8_t> {
-  static constexpr int kVec = 16;
-  __device__ static float dot(const int8_t* row, const float* f) {
-    const int4 raw = __ldg(reinterpret_cast<const int4*>(row));
-    const int8_t* q = reinterpret_cast<const int8_t*>(&raw);
-    float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < 16; ++i) s += static_cast<float>(q[i]) * f[i];
-    return s;
-  }
-};
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// 4 CTAs per SM (<= 64 registers): the occupancy of the first port's
-// build of this loop, whose L2 re-reads it needs to hide
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 4)
-flash_lookup_kernel(const FlashCorrArgs a) {
-  const int r = a.radius;
-  const int win = 2 * r + 1;
-  const int kk = win * win;      // window channels per level
-  const int k1 = 2 * r + 2;      // lattice side
-  const int k2 = k1 * k1;
-  const int C = a.c;
-  const int N = a.n;
-  const int b = blockIdx.y;
-  const int n0 = blockIdx.x * kPixels;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-
-  extern __shared__ __align__(16) float smem[];
-  float* f1s = smem;                      // [kPixels][C]
-  float* lattice = f1s + kPixels * C;     // [kPixels][k2]
-  float* frac = lattice + kPixels * k2;   // [kPixels][2]
-
-  const float inv_sqrt_c = rsqrtf(static_cast<float>(C));
-  for (int i = tid; i < kPixels * C; i += kThreads) {
-    const int p = i / C;
-    const int n = n0 + p;
-    f1s[i] = n < N ? a.f1[(static_cast<size_t>(b) * N + n) * C + i % C] *
-                         inv_sqrt_c
-                   : 0.f;
-  }
-  __syncthreads();
-
-  for (int l = 0; l < a.num_levels; ++l) {
-    const int h2 = a.h2[l];
-    const int w2 = a.w2[l];
-    const T* f2 = static_cast<const T*>(a.level[l]);
-
-    // ---- lattice dots: one warp per pixel --------------------------------
-    for (int p = warp; p < kPixels; p += kWarps) {
-      const int n = n0 + p;
-      float cx = -1e30f, cy = -1e30f;  // padded tail pixel: all-zero window
-      if (n < N) {
-        const float* co = a.coords + (static_cast<size_t>(b) * N + n) * 2;
-        cx = co[0] * a.coord_scale[l];
-        cy = co[1] * a.coord_scale[l];
-      }
-      // fmaxf/fminf also send a NaN center to the (all-zero) low clip
-      cx = fminf(fmaxf(cx, -(r + 1.f)), w2 + static_cast<float>(r));
-      cy = fminf(fmaxf(cy, -(r + 1.f)), h2 + static_cast<float>(r));
-      const float x0 = floorf(cx);
-      const float y0 = floorf(cy);
-      if (lane == 0) {
-        frac[2 * p] = cx - x0;
-        frac[2 * p + 1] = cy - y0;
-      }
-      const int gx0 = static_cast<int>(x0) - r;
-      const int gy0 = static_cast<int>(y0) - r;
-      const float* fp = f1s + p * C;
-      for (int k0 = 0; k0 < k2; k0 += kUnroll) {
-        const T* rows[kUnroll];
-        float s[kUnroll];
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          const int k = k0 + u;
-          const int gx = gx0 + k % k1;
-          const int gy = gy0 + k / k1;
-          const bool ok = k < k2 && gx >= 0 && gx < w2 && gy >= 0 && gy < h2;
-          rows[u] = ok ? f2 + ((static_cast<size_t>(b) * h2 + gy) * w2 + gx) *
-                                  static_cast<size_t>(C)
-                       : nullptr;
-          s[u] = 0.f;
-        }
-        for (int c = lane * Chunk<T>::kVec; c < C; c += 32 * Chunk<T>::kVec) {
-#pragma unroll
-          for (int u = 0; u < kUnroll; ++u)
-            if (rows[u] != nullptr) s[u] += Chunk<T>::dot(rows[u] + c, fp + c);
-        }
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          const float v = warp_sum(s[u]);
-          if (lane == 0 && k0 + u < k2) lattice[p * k2 + k0 + u] = v;
-        }
-      }
-    }
-    __syncthreads();
-
-    // ---- corner blend, x offset slow; pixel index fastest ------------------
-    for (int i = tid; i < kPixels * kk; i += kThreads) {
-      const int p = i % kPixels;
-      const int t = i / kPixels;
-      const int ix = t / win;
-      const int iy = t % win;
-      const float fx = frac[2 * p];
-      const float fy = frac[2 * p + 1];
-      const float* L = lattice + p * k2 + iy * k1 + ix;
-      const float v = (1.f - fy) * ((1.f - fx) * L[0] + fx * L[1]) +
-                      fy * ((1.f - fx) * L[k1] + fx * L[k1 + 1]);
-      if (n0 + p < N) {
-        a.out[(static_cast<size_t>(b) * a.num_levels * kk + l * kk + t) * N +
-              n0 + p] = v;
-      }
-    }
-    __syncthreads();
-  }
-}
-
-template <typename T>
-cudaError_t launch_lookup(const FlashCorrArgs& a, cudaStream_t stream) {
-  const int r = a.radius;
-  const int k2 = (2 * r + 2) * (2 * r + 2);
-  const size_t bytes =
-      static_cast<size_t>(kPixels) * (a.c + k2 + 2) * sizeof(float);
-  if (bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_lookup_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
-    if (e != cudaSuccess) return e;
-  }
-  const dim3 grid((a.n + kPixels - 1) / kPixels, a.batch);
-  flash_lookup_kernel<T><<<grid, kThreads, bytes, stream>>>(a);
-  return cudaGetLastError();
-}
-
-// ====================== B1: the fused patch-tile step =======================
-
 constexpr int kTileH = 4;
 constexpr int kTileW = 8;
 constexpr int kTile = kTileH * kTileW;  // 32 query pixels: one per lane
 constexpr int kTileThreads = 320;  // r=4: 16 pixel pairs x 10 rows x 2 halves
 constexpr int kMaxKx = 10;         // dot accumulators per pixel and thread
-constexpr int kUnits = 2;          // 16-byte units per position per stage
 constexpr int kStages = 2;         // cp.async ring: kStages - 1 in flight
+constexpr int kUnroll = 4;         // per-pixel branch: lattice dots in flight
 constexpr int kBudgetTwo = 113 * 1024;  // dynamic smem per CTA, 2 CTAs per SM
 constexpr int kBudgetOne = 227 * 1024;  // the most one CTA may take
 constexpr int kAccStride = kTile + 4;   // accumulator row of one feature
 
+// 16-byte units per patch position per stage: 32 bytes for B1; B2, without
+// B1's accumulator and W stages, stages 64 (half the chunks, with their
+// barriers) where the box still fits, fp32 and bf16, and 32 for int8
+// (PERF.md)
+template <typename T, bool FUSED>
+__host__ __device__ constexpr int stage_units() {
+  return FUSED || sizeof(T) == 1 ? 2 : 4;
+}
+
 enum TileMode { kDead = 0, kPatch = 1, kPerPixel = 2 };
 
 struct TileGeom {
-  int hq, wq;         // query grid
   int qmax;           // patch positions a stage holds
   int stages_bytes;   // the stage region
-  int fs;             // F rounded up to 4: a W row in shared memory
-  int wrows;          // W rows per epilogue stage
+  int fs;             // F rounded up to 4: a W row in shared memory (0: lookup)
+  int wrows;          // W rows per epilogue stage (0: lookup)
   bool w_vec;         // W rows may be copied as float4s
   bool f1_vec;        // f1 rows may be copied as float4s
 };
@@ -374,6 +213,12 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
 // One unit of channels of the lattice rows of a pixel pair whose rows are
 // one position apart: kMaxKx + 1 positions feed both rows' kMaxKx dots.
 template <typename T>
@@ -399,10 +244,11 @@ __device__ __forceinline__ void dot_row(const uint4* src, const float* f,
       dots[kx] = Unit<T>::fma(src[kx], f, dots[kx]);
 }
 
-template <typename T>
+template <typename T, bool FUSED>
 __global__ void __launch_bounds__(kTileThreads, 2)
-flash_fused_tile_kernel(const FlashCorrArgs a, const TileGeom g) {
+flash_tile_kernel(const FlashCorrArgs a, const TileGeom g) {
   constexpr int kVec = Unit<T>::kVec;
+  constexpr int kUnits = stage_units<T, FUSED>();
   constexpr int kGroups = kUnits * kVec / 4;  // f1 float4s per pixel/stage
   constexpr int kTileWarps = kTileThreads / 32;
   const int r = a.radius;
@@ -411,7 +257,10 @@ flash_fused_tile_kernel(const FlashCorrArgs a, const TileGeom g) {
   const int k1 = 2 * r + 2;
   const int k2 = k1 * k1;
   const int C = a.c;
-  const int N = a.n;
+  const int HQ = a.hq;
+  const int WQ = a.wq;
+  const int N = HQ * WQ;
+  const int L = a.num_levels;
   const int F = a.feat;
   const int FS = g.fs;
   const int qmax = g.qmax;
@@ -430,9 +279,9 @@ flash_fused_tile_kernel(const FlashCorrArgs a, const TileGeom g) {
   const float inv_sqrt_c = rsqrtf(static_cast<float>(C));
 
   // shared memory: the stage region (two stages [patch units | f1 chunk];
-  // the per-pixel branch's f1 rows and, between levels, the window alias
-  // it), lattice dots [32][k2 + 1], accumulator [FS][36], per-pixel origin /
-  // fraction / liveness, the tile's box
+  // the per-pixel branch's f1 rows and, between levels, B1's window and W
+  // rows alias it), lattice dots [32][k2 + 1], B1's accumulator [FS][36],
+  // per-pixel origin / fraction / liveness, the tile's box
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int patch_bytes = kUnits * qmax * 16;
   const int stage_bytes = patch_bytes + kGroups * kTile * 16;
@@ -449,28 +298,55 @@ flash_fused_tile_kernel(const FlashCorrArgs a, const TileGeom g) {
   int* s_live = s_gy0 + kTile;
   int* s_box = s_live + kTile;  // mode, bx0, by0, width, height
 
-  for (int i = tid; i < FS * kTile; i += kTileThreads) {
-    const int f = i / kTile;
-    acc[f * kAccStride + i % kTile] = f < F ? a.bias[f] : 0.f;
+  if (FUSED) {
+    for (int i = tid; i < FS * kTile; i += kTileThreads) {
+      const int f = i / kTile;
+      acc[f * kAccStride + i % kTile] = f < F ? a.bias[f] : 0.f;
+    }
   }
 
-  for (int l = 0; l < a.num_levels; ++l) {
+  // lookup: level l's window of the tile's pixels into out, x offset slow,
+  // blended from the lattice, or zeros
+  auto write_window = [&](int l, bool zero) {
+    for (int i = tid; i < kk * kTile; i += kTileThreads) {
+      const int p = i % kTile;
+      const int t = i / kTile;
+      const int y = ty0 + p / kTileW;
+      const int x = tx0 + p % kTileW;
+      if (y >= HQ || x >= WQ) continue;
+      float v = 0.f;
+      if (!zero) {
+        const float fx = s_fx[p];
+        const float fy = s_fy[p];
+        const float* Lp = lattice + p * ls + (t % win) * k1 + t / win;
+        v = (1.f - fy) * ((1.f - fx) * Lp[0] + fx * Lp[1]) +
+            fy * ((1.f - fx) * Lp[k1] + fx * Lp[k1 + 1]);
+      }
+      a.out[(static_cast<size_t>(b) * L * kk + l * kk + t) * N + y * WQ + x] =
+          v;
+    }
+  };
+
+  for (int l = 0; l < L; ++l) {
     const int h2 = a.h2[l];
     const int w2 = a.w2[l];
-    if (h2 == 0 || w2 == 0) continue;  // contributes nothing
+    if (h2 == 0 || w2 == 0) {  // contributes nothing
+      if (!FUSED) write_window(l, true);
+      continue;
+    }
     const T* f2 = static_cast<const T*>(a.level[l]);
-    __syncthreads();  // the last level's epilogue is done with the window
+    __syncthreads();  // the last level's epilogue is done with its inputs
 
     // ---- warp 0: clip, floor, fraction, liveness; the tile's box ---------
     if (warp == 0) {
       const int p = lane;
       const int y = ty0 + p / kTileW;
       const int x = tx0 + p % kTileW;
-      const bool valid = y < g.hq && x < g.wq && y * g.wq + x < N;
+      const bool valid = y < HQ && x < WQ;
       float cx = -1e30f, cy = -1e30f;  // padded tail pixel: all-zero window
       if (valid) {
         const float* co =
-            a.coords + (static_cast<size_t>(b) * N + y * g.wq + x) * 2;
+            a.coords + (static_cast<size_t>(b) * N + y * WQ + x) * 2;
         cx = co[0] * a.coord_scale[l];
         cy = co[1] * a.coord_scale[l];
       }
@@ -514,7 +390,10 @@ flash_fused_tile_kernel(const FlashCorrArgs a, const TileGeom g) {
     }
     __syncthreads();
     const int mode = s_box[0];
-    if (mode == kDead) continue;  // every window of the tile is zero
+    if (mode == kDead) {  // every window of the tile is zero
+      if (!FUSED) write_window(l, true);
+      continue;
+    }
 
     if (mode == kPatch) {
       const int bx0 = s_box[1];
@@ -549,7 +428,7 @@ flash_fused_tile_kernel(const FlashCorrArgs a, const TileGeom g) {
           const int p = i / (cc / cv);
           const int j = (i - p * (cc / cv)) * cv;
           if (!s_live[p]) continue;
-          const int n = (ty0 + p / kTileW) * g.wq + tx0 + p % kTileW;
+          const int n = (ty0 + p / kTileW) * WQ + tx0 + p % kTileW;
           float* dst = f1s + ((j / 4) * kTile + p) * 4 + j % 4;
           const float* src = a.f1 + (static_cast<size_t>(b) * N + n) * C + c0 + j;
           if (g.f1_vec)
@@ -684,7 +563,7 @@ flash_fused_tile_kernel(const FlashCorrArgs a, const TileGeom g) {
       for (int p = warp; p < kTile; p += kTileWarps) {
         const bool live = s_live[p];
         if (live) {
-          const int n = (ty0 + p / kTileW) * g.wq + tx0 + p % kTileW;
+          const int n = (ty0 + p / kTileW) * WQ + tx0 + p % kTileW;
           const float* src = a.f1 + (static_cast<size_t>(b) * N + n) * C;
           for (int c = lane; c < C; c += 32) f1w[c] = src[c];
         }
@@ -707,9 +586,21 @@ flash_fused_tile_kernel(const FlashCorrArgs a, const TileGeom g) {
             s[u] = 0.f;
           }
           for (int c = lane * kVec; c < C; c += 32 * kVec) {
+            float f[kVec];  // f1's channels [c, c + kVec), read once
+#pragma unroll
+            for (int j = 0; j < kVec / 4; ++j) {
+              const float4 v = reinterpret_cast<const float4*>(f1w + c)[j];
+              f[4 * j] = v.x;
+              f[4 * j + 1] = v.y;
+              f[4 * j + 2] = v.z;
+              f[4 * j + 3] = v.w;
+            }
 #pragma unroll
             for (int u = 0; u < kUnroll; ++u)
-              if (rows[u] != nullptr) s[u] += Chunk<T>::dot(rows[u] + c, f1w + c);
+              if (rows[u] != nullptr)
+                s[u] = Unit<T>::fma(
+                    __ldg(reinterpret_cast<const uint4*>(rows[u] + c)), f,
+                    s[u]);
           }
 #pragma unroll
           for (int u = 0; u < kUnroll; ++u) {
@@ -722,6 +613,10 @@ flash_fused_tile_kernel(const FlashCorrArgs a, const TileGeom g) {
       }
     }
     __syncthreads();
+    if (!FUSED) {
+      write_window(l, false);
+      continue;
+    }
 
     // stage W_l's rows [c * g.wrows, ...) into buffer c & 1, after the window
     const float* wl = a.weight + static_cast<size_t>(l) * kk * F;
@@ -826,6 +721,7 @@ flash_fused_tile_kernel(const FlashCorrArgs a, const TileGeom g) {
       }
     }
   }
+  if (!FUSED) return;
   __syncthreads();
 
   // ---- (B, F, H, W) out: a warp writes one feature's 4 rows of 8 -------
@@ -834,84 +730,115 @@ flash_fused_tile_kernel(const FlashCorrArgs a, const TileGeom g) {
     const int p = i % kTile;
     const int y = ty0 + p / kTileW;
     const int x = tx0 + p % kTileW;
-    const int n = y * g.wq + x;
-    if (y < g.hq && x < g.wq && n < N)
-      a.out[(static_cast<size_t>(b) * F + f) * N + n] = acc[f * kAccStride + p];
+    if (y < HQ && x < WQ)
+      a.out[(static_cast<size_t>(b) * F + f) * N + y * WQ + x] =
+          acc[f * kAccStride + p];
   }
 }
 
-template <typename T>
-cudaError_t launch_fused(const FlashCorrArgs& a, cudaStream_t stream) {
+// The shared-memory plan of one call: the stage region, its box capacity
+// and B1's W rows; returns the bytes a CTA takes, or 0 when the arguments do
+// not fit.
+template <typename T, bool FUSED>
+size_t tile_geom(const FlashCorrArgs& a, TileGeom* geom) {
   constexpr int kVec = Unit<T>::kVec;
+  constexpr int kUnits = stage_units<T, FUSED>();
   const size_t r = a.radius;
   const size_t k1 = 2 * r + 2;
   const size_t kk = (2 * r + 1) * (2 * r + 1);
   TileGeom g;
-  if (a.h2[0] > 0 && a.w2[0] > 0 &&
-      static_cast<long long>(a.h2[0]) * a.w2[0] == a.n) {
-    g.hq = a.h2[0];
-    g.wq = a.w2[0];
-  } else {
-    g.hq = 1;
-    g.wq = a.n;
-  }
-  g.fs = (a.feat + 3) / 4 * 4;
-  g.w_vec = a.feat % 4 == 0 &&
+  g.fs = FUSED ? (a.feat + 3) / 4 * 4 : 0;
+  g.w_vec = FUSED && a.feat % 4 == 0 &&
             reinterpret_cast<uintptr_t>(a.weight) % 16 == 0;
   g.f1_vec = reinterpret_cast<uintptr_t>(a.f1) % 16 == 0;  // C % 16 == 0
   // the stage region holds two stages (per_position bytes for each patch
-  // position, f1_bytes of f1), and at other times the window or the
-  // per-pixel branch's f1 rows; the rest is fixed
+  // position, f1_bytes of f1), and at other times the per-pixel branch's f1
+  // rows and B1's window; the rest is fixed
   const size_t per_position = kStages * kUnits * 16;
   const size_t f1_bytes = kStages * kUnits * kVec * kTile * 4;
-  const size_t window = kk * kTile * 4;
   const size_t other = static_cast<size_t>(kTileThreads / 32) * a.c * 4;
   const size_t fixed = (k1 * k1 + 1) * kTile * 4 +
                        static_cast<size_t>(g.fs) * kAccStride * 4 +
                        5 * kTile * 4 + 8 * 4;
   size_t budget = kBudgetTwo;
   if (fixed + f1_bytes + per_position * k1 * k1 > budget) budget = kBudgetOne;
-  if (fixed + f1_bytes > budget) return cudaErrorInvalidValue;
+  if (fixed + f1_bytes > budget) return 0;
   g.qmax = static_cast<int>((budget - fixed - f1_bytes) / per_position) / 32 * 32;
-  // ... and, in the epilogue, the window and two stages of W rows
-  const size_t w_row = static_cast<size_t>(g.fs) * 4;
-  const size_t region = std::max(std::max(per_position * g.qmax + f1_bytes, other),
-                                 window + 2 * w_row);
-  const int wmax = static_cast<int>((region - window) / (2 * w_row));
-  const int wchunks = (static_cast<int>(kk) + wmax - 1) / wmax;
-  g.wrows = (static_cast<int>(kk) + wchunks - 1) / wchunks;
+  size_t region = std::max(per_position * g.qmax + f1_bytes, other);
+  g.wrows = 0;
+  if (FUSED) {
+    // ... and, in the epilogue, the window and two stages of W rows
+    const size_t window = kk * kTile * 4;
+    const size_t w_row = static_cast<size_t>(g.fs) * 4;
+    region = std::max(region, window + 2 * w_row);
+    const int wmax = static_cast<int>((region - window) / (2 * w_row));
+    const int wchunks = (static_cast<int>(kk) + wmax - 1) / wmax;
+    g.wrows = (static_cast<int>(kk) + wchunks - 1) / wchunks;
+  }
   g.stages_bytes = static_cast<int>(region);
   const size_t bytes = g.stages_bytes + fixed;
-  if (bytes > kBudgetOne) return cudaErrorInvalidValue;
+  if (bytes > kBudgetOne) return 0;
+  *geom = g;
+  return bytes;
+}
+
+template <typename T, bool FUSED>
+cudaError_t launch_tile(const FlashCorrArgs& a, cudaStream_t stream) {
+  TileGeom g;
+  const size_t bytes = tile_geom<T, FUSED>(a, &g);
+  if (bytes == 0) return cudaErrorInvalidValue;
+  auto kernel = flash_tile_kernel<T, FUSED>;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fused_tile_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(flash_fused_tile_kernel<T>,
+  e = cudaFuncSetAttribute(kernel,
                            cudaFuncAttributePreferredSharedMemoryCarveout,
                            cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return e;
-  const dim3 grid((g.wq + kTileW - 1) / kTileW, (g.hq + kTileH - 1) / kTileH,
+  const dim3 grid((a.wq + kTileW - 1) / kTileW, (a.hq + kTileH - 1) / kTileH,
                   a.batch);
-  flash_fused_tile_kernel<T><<<grid, kTileThreads, bytes, stream>>>(a, g);
+  kernel<<<grid, kTileThreads, bytes, stream>>>(a, g);
   return cudaGetLastError();
+}
+
+template <bool FUSED>
+cudaError_t launch_dtype(const FlashCorrArgs& a, int dtype,
+                         cudaStream_t stream) {
+  switch (dtype) {
+    case FLASH_FP32: return launch_tile<float, FUSED>(a, stream);
+    case FLASH_BF16: return launch_tile<__nv_bfloat16, FUSED>(a, stream);
+    case FLASH_INT8: return launch_tile<int8_t, FUSED>(a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <bool FUSED>
+int box_limit_dtype(const FlashCorrArgs& a, int dtype) {
+  TileGeom g;
+  size_t bytes = 0;
+  switch (dtype) {
+    case FLASH_FP32: bytes = tile_geom<float, FUSED>(a, &g); break;
+    case FLASH_BF16: bytes = tile_geom<__nv_bfloat16, FUSED>(a, &g); break;
+    case FLASH_INT8: bytes = tile_geom<int8_t, FUSED>(a, &g); break;
+    default: return 0;
+  }
+  return bytes == 0 ? 0 : g.qmax;
 }
 
 }  // namespace
 
 cudaError_t flash_corr_launch(const FlashCorrArgs& args, int dtype, bool fused,
                               cudaStream_t stream) {
-  switch (dtype) {
-    case FLASH_FP32:
-      return fused ? launch_fused<float>(args, stream)
-                   : launch_lookup<float>(args, stream);
-    case FLASH_BF16:
-      return fused ? launch_fused<__nv_bfloat16>(args, stream)
-                   : launch_lookup<__nv_bfloat16>(args, stream);
-    case FLASH_INT8:
-      return fused ? launch_fused<int8_t>(args, stream)
-                   : launch_lookup<int8_t>(args, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return fused ? launch_dtype<true>(args, dtype, stream)
+               : launch_dtype<false>(args, dtype, stream);
+}
+
+int flash_corr_box_limit(int dtype, bool fused, int radius, int c, int feat) {
+  FlashCorrArgs a = {};
+  a.radius = radius;
+  a.c = c;
+  a.feat = feat;
+  return fused ? box_limit_dtype<true>(a, dtype)
+               : box_limit_dtype<false>(a, dtype);
 }

@@ -14,9 +14,10 @@ Attribute names are the reference torch model's (``block_1.conv1``,
 modules exist only for the weights: ``block_cat``'s BatchNorm (never
 applied) and ``side_5`` (never called), as in the reference.
 
-The upsamplers are ``nn.ConvTranspose2d`` with the reference's paddings.
-The JAX package's default "subpixel" upconv is a TPU rewrite of the same
-linear map with the same parameters, so it needs no counterpart here.
+The upsamplers are ``nn.ConvTranspose2d`` with the reference's paddings:
+the JAX package's "transpose" upconv. Its default "subpixel" upconv is a
+TPU rewrite of the same linear map with the same parameters, so both
+values of ``dexined_upconv`` build this one module.
 """
 
 from __future__ import annotations

@@ -13,11 +13,11 @@ the same two functions, each a hand-written CUDA kernel:
     local_corr_level windows, then the 1x1 conv as a contraction);
     ``local_corr_level`` is the plain version of B2 and B4.
 
-The flash kernels live in ``csrc/flash_corr.cu``: B1 takes a 4x8 tile of
-query pixels per block and stages the f2 patch its lattices share once per
-level through cp.async (or reads each pixel's rows from global memory when
-the patch is too large), B2 takes one warp per query pixel reading f2 rows
-from global memory. B3/B4 live in ``csrc/pallas_corr.cu``: a 4x8 tile of
+The flash kernels live in ``csrc/flash_corr.cu``, two instances of one
+kernel: a 4x8 tile of query pixels per block stages the f2 patch its
+lattices share once per level through cp.async (or reads each pixel's rows
+from global memory when the patch is too large); B1 contracts the windows
+with W, B2 writes them. B3/B4 live in ``csrc/pallas_corr.cu``: a 4x8 tile of
 query pixels per block whose shared f2 box is staged channel chunk by chunk
 by TMA from tensor maps encoded per call (a box too large for shared
 memory is read pixel by pixel from global memory). A tensor map the driver
@@ -100,14 +100,13 @@ def _use_kernel(*tensors: torch.Tensor) -> bool:
                      f"device or all on the CPU, got {sorted(kinds)}")
 
 
-def _argtypes(library: str):
-    """The C entry point's argument types: the flash library takes the
-    query pixel count N, the pallas library the query grid (H, W)."""
+def _argtypes():
+    """The argument types of either library's C entry point (both take the
+    query grid H, W)."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    grid = [i] if library == "flash_corr" else [i, i]
-    return ([p, p, p, p, p, ctypes.POINTER(p), ctypes.POINTER(i),
-             ctypes.POINTER(i), ctypes.POINTER(ctypes.c_float), i, i]
-            + grid + [i, i, i, i, i, p])
+    return [p, p, p, p, p, ctypes.POINTER(p), ctypes.POINTER(i),
+            ctypes.POINTER(i), ctypes.POINTER(ctypes.c_float),
+            i, i, i, i, i, i, i, i, i, p]
 
 
 def _entry_point(library: str):
@@ -120,7 +119,7 @@ def _entry_point(library: str):
     fn = getattr(lib, entry)
     if fn.argtypes is None:
         # without argtypes ctypes would pass each pointer as a 32-bit int
-        fn.argtypes = _argtypes(library)
+        fn.argtypes = _argtypes()
         fn.restype = ctypes.c_int
         lib.dexiraft_cuda_error_string.argtypes = [ctypes.c_int]
         lib.dexiraft_cuda_error_string.restype = ctypes.c_char_p
@@ -140,19 +139,33 @@ def _launch_error(rc: int, lib) -> str:
     return lib.dexiraft_cuda_error_string(rc).decode()
 
 
-def pallas_box_limit(dtype: torch.dtype, fused: bool, radius: int, c: int,
-                     feat: int = 0) -> int:
-    """The most f2 box positions one B3 (``fused``) or B4 tile stages at
-    once for levels stored in ``dtype``; a larger box takes the per-pixel
-    branch (ops/tiles.py). Builds and loads the pallas library."""
-    _, lib = _entry_point("pallas_corr")
-    fn = lib.dexiraft_pallas_box_limit
+def _box_limit(library: str, dtype: torch.dtype, fused: bool, radius: int,
+               c: int, feat: int) -> int:
+    _, lib = _entry_point(library)
+    fn = getattr(lib, f"dexiraft_{library.split('_')[0]}_box_limit")
     fn.argtypes = [ctypes.c_int] * 5
     fn.restype = ctypes.c_int
     limit = fn(_DTYPE_CODES[dtype], int(fused), radius, c, feat)
     if limit <= 0:
         raise ValueError(f"no box limit for {dtype} C={c} r={radius} F={feat}")
     return limit
+
+
+def pallas_box_limit(dtype: torch.dtype, fused: bool, radius: int, c: int,
+                     feat: int = 0) -> int:
+    """The most f2 box positions one B3 (``fused``) or B4 tile stages at
+    once for levels stored in ``dtype``; a larger box takes the per-pixel
+    branch (ops/tiles.py). Builds and loads the pallas library."""
+    return _box_limit("pallas_corr", dtype, fused, radius, c, feat)
+
+
+def flash_box_limit(dtype: torch.dtype, fused: bool, radius: int, c: int,
+                    feat: int = 0) -> int:
+    """The most f2 box positions (columns rounded up to odd, times rows) one
+    B1 (``fused``) or B2 tile stages at once for levels stored in ``dtype``;
+    a larger box takes the per-pixel branch (ops/tiles.py). Builds and loads
+    the flash library."""
+    return _box_limit("flash_corr", dtype, fused, radius, c, feat)
 
 
 def build_kernels() -> Dict[str, str]:
@@ -226,14 +239,13 @@ def _launch(name: str, fmap1: torch.Tensor, levels: Sequence[torch.Tensor],
     sc = (ctypes.c_float * n_lvl)(*coord_scales)
     library = KERNEL_LIBRARY_OF[name]
     fn, lib = _entry_point(library)
-    grid = (h * w,) if library == "flash_corr" else (h, w)
     with torch.cuda.device(fmap1.device):
         stream = torch.cuda.current_stream(fmap1.device).cuda_stream
         rc = fn(f1.data_ptr(), co.data_ptr(),
                 weight.data_ptr() if fused else None,
                 bias.data_ptr() if fused else None,
                 out.data_ptr(), ptrs, h2, w2, sc,
-                n_lvl, b, *grid, c, radius, feat, _DTYPE_CODES[dtype],
+                n_lvl, b, h, w, c, radius, feat, _DTYPE_CODES[dtype],
                 int(fused), stream)
     if rc != 0:
         raise RuntimeError(f"{name}: {library} kernel launch failed "

@@ -1,15 +1,15 @@
 """The f2 boxes that the patch-tile kernels stage, computed from the coords.
 
-B1 (``csrc/flash_corr.cu``) and B3/B4 (``csrc/pallas_corr.cu``) take a tile
+B1/B2 (``csrc/flash_corr.cu``) and B3/B4 (``csrc/pallas_corr.cu``) take a tile
 of query pixels per block and, at each pyramid level, stage one box of
 fmap2 that covers the lattices of the tile's live pixels. A pixel is live
 when its effective lattice (the rows and columns its bilinear blend weighs
 nonzero) meets the frame; far, NaN and tail pixels are not, and a tile
 with no live pixel stages nothing. ``tile_boxes`` gives each tile's box
-as the kernels take it; ``tma_staging`` turns B3/B4's boxes into the
-positions their TMA copies stage and the tiles that go per pixel. Used by
-``chip_smoke.py`` to report the branches a field takes, and tested on the
-CPU against a box taken pixel by pixel.
+as the kernels take it; ``flash_staging`` and ``tma_staging`` turn B1/B2's
+and B3/B4's boxes into the positions their copies stage and the tiles that
+go per pixel. Used by ``chip_smoke.py`` to report the branches a field
+takes, and tested on the CPU against a box taken pixel by pixel.
 """
 
 from __future__ import annotations
@@ -73,6 +73,16 @@ def tile_boxes(co: torch.Tensor, shape: Tuple[int, int], scale: float,
     cols = (hi(hx) - lo(lx))[any_live]
     rows = (hi(hy) - lo(ly))[any_live]
     return cols.long().flatten(), rows.long().flatten()
+
+
+def flash_staging(cols: torch.Tensor, rows: torch.Tensor,
+                  limit: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """For B1/B2 boxes (``tile_boxes(..., whole=False)``): the positions
+    each tile stages (its columns rounded up to an odd row stride, times
+    its rows), and whether it takes the per-pixel branch instead (more
+    positions than ``limit``, the stage's capacity)."""
+    staged = (cols | 1) * rows
+    return staged, staged > limit
 
 
 def tma_staging(cols: torch.Tensor, rows: torch.Tensor,

@@ -4,12 +4,14 @@ On the CPU the port's ``flash_fused_step`` and ``flash_local_corr_level``
 run their plain PyTorch versions; here they are held against the JAX
 package's ``fused_reference`` and against its Pallas ``flash_fused_step``
 / ``flash_local_corr_level`` run in interpret mode, at r=2 and r=4, with
-fp32/bf16/int8 levels, far out-of-frame coords and a degenerate level.
+fp32/bf16/int8 levels, far out-of-frame coords and a degenerate level;
+the lookup also on the coordinate fields the card's kernel branches on
+(smooth, scattered, edge).
 Tolerance: max abs error <= 1e-3, the bound the JAX package holds its own
 kernel to (tests/test_zzzflashcorr.py).
 
-The CUDA kernel itself runs only on the card: ``test_kernel_matches_plain_on_gpu``
-carries the ``gpu`` marker and skips without one.
+The CUDA kernels themselves run only on the card: the tests that launch
+them carry the ``gpu`` marker and skip without one.
 """
 
 import os
@@ -282,6 +284,60 @@ def _field(co, field, seed):
     return co
 
 
+def _coords(co, field, seed, radius, levels):
+    """The test coords of ``field``: _field's smooth and scattered fields,
+    or "edge": integer centers, on each axis half on in-frame positions and
+    half on each level's clip limits (-r-1, size+r), a half level pixel
+    inside them, -r, -1, 0, size-1 and size, in level pixels times 2^l."""
+    if field != "edge":
+        return _field(co, field, seed)
+    rng = np.random.default_rng(seed)
+    b, h, w, _ = co.shape
+
+    def axis(size):
+        cands = []
+        for lvl in range(levels):
+            s, sz = 2 ** lvl, size >> lvl
+            cands += [-(radius + 1) * s, -radius * s, -s, 0, (sz - 1) * s,
+                      sz * s, (sz + radius) * s]
+            if lvl:
+                cands += [-(radius + 0.5) * s, (sz + radius - 0.5) * s]
+        pick = rng.choice(np.asarray(cands, np.float32), (b, h, w))
+        inside = rng.integers(0, size, (b, h, w)).astype(np.float32)
+        return np.where(rng.uniform(size=(b, h, w)) < 0.5, inside, pick)
+
+    return np.stack([axis(w), axis(h)], -1).astype(np.float32)
+
+
+FIELDS = ("smooth", "scattered", "edge")
+
+
+class TestLookupFields:
+    """B2's wrapper (its plain version here) against the JAX package's
+    flash_local_corr_level in interpret mode on the fields the card's
+    kernel branches on: a smooth shift (one staged box per tile), coords
+    scattered over the frame (the per-pixel branch) and integer centers on
+    each level's clip limits and edges (pixels half out of the frame)."""
+
+    @pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
+    @pytest.mark.parametrize("field", FIELDS)
+    def test_matches_jax_flash_level(self, field, dtype):
+        radius, levels = 2, 2
+        f1, f2, co, _, _ = _setup(60, radius=radius)
+        co = _coords(co, field, 61, radius, levels)
+        tp, jp = _pyramids(f1, f2, levels, radius, dtype)
+        for lvl in range(levels):
+            scale = 1.0 if jp.scales is None else float(jp.scales[lvl])
+            out = ck.flash_local_corr_level(
+                tp.fmap1, tp.fmap2_pyramid[lvl],
+                torch.from_numpy(co) / 2.0 ** lvl, radius) * scale
+            ref = j_flash_level(jp.fmap1, jp.fmap2_pyramid[lvl],
+                                jnp.asarray(co) / 2.0 ** lvl, radius,
+                                True) * scale
+            assert tuple(out.shape) == (1, 6, 8, (2 * radius + 1) ** 2)
+            assert _maxerr(out, ref) <= TOL
+
+
 @pytest.mark.gpu
 def test_kernel_matches_plain_on_gpu():
     """On the card: the CUDA kernel against its plain version (B1 and B2,
@@ -311,3 +367,35 @@ def test_kernel_matches_plain_on_gpu():
             out = ck.flash_local_corr_level(pyr.fmap1, f2l, c_l, 4)
             ref = ck.local_corr_level(pyr.fmap1, f2l.float(), c_l, 4)
             assert float((out - ref).abs().max()) <= TOL
+
+
+@pytest.mark.gpu
+def test_lookup_fields_match_plain_and_b4_on_gpu():
+    """On the card: B2 against its plain version and against B4 (the
+    TMA-staged formulation) on the jitter, smooth, scattered and edge
+    fields, every storage dtype, with NaN pixels and a 0-row level, which
+    must come out exactly zero; max abs error <= 1e-3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs this check on the card")
+    dev = torch.device("cuda")
+    f1, f2, co, _, _ = _setup(52, b=2, h=24, w=40, levels=4, radius=4)
+    for dtype in ("fp32", "bf16", "int8"):
+        pyr = t_build(torch.from_numpy(f1).to(dev),
+                      torch.from_numpy(f2).to(dev), 4, 4, dtype=dtype)
+        assert pyr.fmap2_pyramid[3].shape[1] == 0
+        for field in ("jitter",) + FIELDS:
+            co_f = _coords(co, field, 53, 4, 4).copy()
+            co_f[:, 1, :3] = np.nan
+            co_d = torch.from_numpy(co_f).to(dev)
+            keep = torch.ones(2, 24, 40, 1, dtype=torch.bool, device=dev)
+            keep[:, 1, :3] = False
+            for lvl, f2l in enumerate(pyr.fmap2_pyramid):
+                c_l = co_d / 2.0 ** lvl
+                out = ck.flash_local_corr_level(pyr.fmap1, f2l, c_l, 4)
+                ref = ck.local_corr_level(pyr.fmap1, f2l.float(), c_l, 4)
+                b4 = ck.pallas_local_corr_level(pyr.fmap1, f2l, c_l, 4)
+                assert float((out - ref).abs().masked_fill(~keep, 0).max()) <= TOL
+                assert float((out - b4).abs().max()) <= TOL
+                assert not out[:, 1, :3].any(), (dtype, field, lvl)
+                if f2l.shape[1] == 0:
+                    assert not out.any()

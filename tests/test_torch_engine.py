@@ -122,3 +122,33 @@ def test_engine_matches_model_on_cpu():
             r.flow_up, padder.unpad(up[0].permute(1, 2, 0).numpy()),
             rtol=1e-4, atol=1e-4)
         assert np.isfinite(r.flow_up).all()
+
+
+@pytest.mark.parametrize("tf32", [True, False])
+@pytest.mark.parametrize("flags", [(True, False), (False, True)])
+def test_eval_step_sets_and_restores_tf32_flags(tf32, flags):
+    """The step runs with cuDNN's TF32 convolutions as asked and fp32
+    matmuls, whatever the global flags are, and leaves them as it found
+    them."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = (cudnn.allow_tf32, matmul.allow_tf32)
+    model = create_model(raft_v1(small=True, corr_impl="local"), seed=1,
+                         device="cpu")
+    seen = []
+    forward = model.forward
+
+    def spy(*a, **k):
+        seen.append((cudnn.allow_tf32, matmul.allow_tf32))
+        return forward(*a, **k)
+
+    model.forward = spy
+    try:
+        cudnn.allow_tf32, matmul.allow_tf32 = flags
+        step = make_eval_step(model, iters=1, device="cpu", tf32=tf32)
+        it = _pair(16, 16, 3)
+        low, up = step(it["image1"][None], it["image2"][None])
+        assert seen == [(tf32, False)]
+        assert (cudnn.allow_tf32, matmul.allow_tf32) == flags
+        assert tuple(low.shape) == (1, 2, 2, 2) and torch.isfinite(up).all()
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved

@@ -34,8 +34,8 @@ from dexiraft_tpu.ops import pallas_corr as jpc
 from dexiraft_tpu_torch.ops import corr_kernels as ck
 from dexiraft_tpu_torch.ops import tiles
 from dexiraft_tpu_torch.ops.local_corr import build_local_corr as t_build
-from test_torch_corr_kernels import (REPO, _field, _fold, _maxerr, _pyramids,
-                                     _setup)
+from test_torch_corr_kernels import (FIELDS, REPO, _coords, _fold, _maxerr,
+                                     _pyramids, _setup)
 
 TOL = 1e-3
 
@@ -249,34 +249,6 @@ def test_kernels_match_plain_on_gpu():
                 assert float((out - ref).abs().max()) <= TOL
                 assert float((out - b2).abs().max()) <= TOL
 
-def _coords(co, field, seed, radius, levels):
-    """The test coords of ``field``: _field's smooth and scattered fields,
-    or "edge": integer centers, on each axis half on in-frame positions and
-    half on each level's clip limits (-r-1, size+r), a half level pixel
-    inside them, -r, -1, 0, size-1 and size, in level pixels times 2^l."""
-    if field != "edge":
-        return _field(co, field, seed)
-    rng = np.random.default_rng(seed)
-    b, h, w, _ = co.shape
-
-    def axis(size):
-        cands = []
-        for lvl in range(levels):
-            s, sz = 2 ** lvl, size >> lvl
-            cands += [-(radius + 1) * s, -radius * s, -s, 0, (sz - 1) * s,
-                      sz * s, (sz + radius) * s]
-            if lvl:
-                cands += [-(radius + 0.5) * s, (sz + radius - 0.5) * s]
-        pick = rng.choice(np.asarray(cands, np.float32), (b, h, w))
-        inside = rng.integers(0, size, (b, h, w)).astype(np.float32)
-        return np.where(rng.uniform(size=(b, h, w)) < 0.5, inside, pick)
-
-    return np.stack([axis(w), axis(h)], -1).astype(np.float32)
-
-
-FIELDS = ("smooth", "scattered", "edge")
-
-
 class TestCoordFields:
     """B3/B4's wrappers (their plain versions here) against the JAX kernels
     in interpret mode on the fields the card's kernels branch on."""
@@ -395,18 +367,31 @@ class TestTileBoxes:
         assert staged.tolist() == [160, 192, 336, 336, 64, 896, 0, 960]
         assert per_pixel.tolist() == [False] * 6 + [True, True]
 
+    def test_flash_staging(self):
+        """B1/B2 stage their box with the columns rounded up to an odd row
+        stride; more positions than the limit go per pixel."""
+        cols = torch.tensor([10, 13, 24, 1, 31])
+        rows = torch.tensor([14, 17, 28, 3, 31])
+        staged, per_pixel = tiles.flash_staging(cols, rows, limit=928)
+        assert staged.tolist() == [154, 221, 700, 3, 961]
+        assert per_pixel.tolist() == [False] * 4 + [True]
+
 
 class TestEntryPoints:
     @pytest.mark.parametrize("library", sorted(ck.KERNEL_LIBRARIES))
     def test_argtypes_match_the_c_signature(self, library):
         """Each library's ctypes argument list has one entry per parameter
-        of its C entry point (the pallas one takes the query grid H, W)."""
+        of its C entry point (both take the query grid H, W), and the
+        library exports the box limit its wrapper reads."""
         srcs, entry = ck.KERNEL_LIBRARIES[library]
         text = "".join(open(os.path.join(REPO, "dexiraft_tpu_torch", "csrc",
                                          s)).read() for s in srcs)
         params = re.search(rf"int {entry}\(([^)]*)\)", text).group(1)
-        assert len(ck._argtypes(library)) == len(params.split(","))
-        assert ("int hq, int wq" in params) == (library == "pallas_corr")
+        assert len(ck._argtypes()) == len(params.split(","))
+        assert "int hq, int wq" in params
+        limit = re.search(rf"int dexiraft_{library.split('_')[0]}_box_limit"
+                          r"\(([^)]*)\)", text).group(1)
+        assert len(limit.split(",")) == 5
 
     def test_launch_errors_are_named(self):
         """A refused tensor map names its CUresult; nothing is retried."""

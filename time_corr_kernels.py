@@ -1,25 +1,30 @@
 #!/usr/bin/env python3
-"""Time the port's B3/B4 correlation kernels on one CUDA card.
+"""Time the port's correlation kernels on one CUDA card.
 
-    python3 time_corr_kernels.py [--root DIR] [--out record.json]
+    python3 time_corr_kernels.py [--root DIR] [--kernels flash,pallas]
+                                 [--out record.json]
 
-Times ``pallas_fused_step`` (B3) and ``pallas_local_corr_level`` (B4, every
-level) of the ``dexiraft_tpu_torch`` package under ``--root`` (a checkout
-of this repository; by default the one holding this script) at v5's kernel
-shapes: batch 2 (one pair's image and edge stream), the Sintel bucket's
-55x128 query grid, C=F=256, 4 levels, r=4. Each field of chip_smoke's
-``make_coords`` (jitter, smooth, scattered, edge) and each storage dtype
-gets the same inputs from the same seed whichever checkout is timed, so two
-checkouts run in one call compare like with like (run them in turns: A, B,
-B, A). Three times per kernel: CUDA events around 10 back-to-back calls
-(median of 10; what a caller waits, the Python wrapper included), the
-device time of the kernel alone from torch.profiler over 10 calls, and the
-host time of one call (wall time of 50 calls enqueued without a
-synchronise, which never fill the launch queue). B2
-``flash_local_corr_level``, the same wrapper on another kernel, is timed
-beside B4 by events as a control. Prints
-one JSON line per (field, dtype), then the nvidia-smi line, then a summary
-line. Needs a card: it fails without one.
+Times the kernels of the ``dexiraft_tpu_torch`` package under ``--root`` (a
+checkout of this repository; by default the one holding this script):
+
+  flash   B1 ``flash_fused_step`` and B2 ``flash_local_corr_level`` (every
+          level) at v1's kernel batch 1 and v5's kernel batch 2 (one pair's
+          image and edge stream);
+  pallas  B3 ``pallas_fused_step`` and B4 ``pallas_local_corr_level``
+          (every level) at v5's kernel batch 2.
+
+Shapes: the Sintel bucket's 55x128 query grid, C=F=256, 4 levels, r=4; a
+lookup level gets its coords in level pixels, as the model passes them.
+Each field of chip_smoke's ``make_coords`` (jitter, smooth, scattered,
+edge) and each storage dtype gets the same inputs from the same seed
+whichever checkout is timed, so two checkouts run in one call compare like
+with like (run them in turns: A, B, B, A). Three times per kernel: CUDA
+events around 10 back-to-back calls (median of 10; what a caller waits, the
+Python wrapper included), the device time of the kernel alone from
+torch.profiler over 10 calls, and the host time of one call (wall time of
+50 calls enqueued without a synchronise, which never fill the launch
+queue). Prints one JSON line per (batch, field, dtype), then the
+nvidia-smi line, then a summary line. Needs a card: it fails without one.
 """
 
 from __future__ import annotations
@@ -35,6 +40,14 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIELDS = ("jitter", "smooth", "scattered", "edge")
 DTYPES = ("fp32", "bf16", "int8")
+# kernel family -> (kernel batches, fused wrapper, lookup wrapper, profiler
+# key, record prefixes of the fused and the lookup kernel)
+FAMILIES = {
+    "flash": ((1, 2), "flash_fused_step", "flash_local_corr_level", "flash_",
+              "b1", "b2"),
+    "pallas": ((2,), "pallas_fused_step", "pallas_local_corr_level",
+               "pallas_", "b3", "b4"),
+}
 
 
 def load_smoke():
@@ -78,13 +91,41 @@ def host_us(torch, fn, calls: int = 50) -> float:
     return (t1 - t0) / calls * 1e6
 
 
+def time_family(torch, ck, cs, dev, family, b, field, dtype, seed, rec):
+    """Events, device and host time of one family's fused kernel and of its
+    lookup at every level, into ``rec``."""
+    _, fused_name, lookup_name, key, fp, lp = FAMILIES[family]
+    fused, lookup = getattr(ck, fused_name), getattr(ck, lookup_name)
+    h, w, c, levels, r, feat = 55, 128, 256, 4, 4, 256
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pyr, co, weight, bias = cs.make_inputs(gen, b, h, w, c, levels, r, feat,
+                                           dtype, dev, field=field)
+    fmap1, lv = pyr.fmap1, pyr.fmap2_pyramid
+
+    def one(prefix, fn):
+        rec[f"{prefix}_us"] = 1e3 * cs.cuda_time_ms(fn, reps=10, inner=10)
+        rec[f"{prefix}_device_us"] = device_us(torch, fn, key)
+        rec[f"{prefix}_host_us"] = host_us(torch, fn)
+
+    one(fp, lambda: fused(fmap1, lv, co, weight, bias, r))
+    for lvl, f2 in enumerate(lv):
+        c_l = co / 2.0 ** lvl
+        one(f"{lp}_level{lvl}", lambda: lookup(fmap1, f2, c_l, r))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=HERE,
                     help="checkout whose dexiraft_tpu_torch is timed")
+    ap.add_argument("--kernels", default="flash,pallas",
+                    help="comma-separated kernel families: flash, pallas")
     ap.add_argument("--out", default=None, help="also write the records here")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
+    families = [f for f in args.kernels.split(",") if f]
+    unknown = sorted(set(families) - set(FAMILIES))
+    if unknown:
+        ap.error(f"unknown kernel families {unknown}; expected {sorted(FAMILIES)}")
 
     import torch
 
@@ -102,40 +143,19 @@ def main(argv=None) -> int:
     ck.build_kernels()
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda:0")
-    b, h, w, c, levels, r, feat = 2, 55, 128, 256, 4, 4, 256
     records = []
-    for fi, field in enumerate(FIELDS):
-        for di, dtype in enumerate(DTYPES):
-            gen = torch.Generator(device=dev).manual_seed(1000 + 10 * fi + di)
-            pyr, co, weight, bias = cs.make_inputs(gen, b, h, w, c, levels, r,
-                                                   feat, dtype, dev,
-                                                   field=field)
-            fmap1, lv = pyr.fmap1, pyr.fmap2_pyramid
-
-            def b3():
-                ck.pallas_fused_step(fmap1, lv, co, weight, bias, r)
-
-            rec = {"root": root, "field": field, "dtype": dtype,
-                   "shape": [b, h, w, c],
-                   "b3_us": 1e3 * cs.cuda_time_ms(b3, reps=10, inner=10),
-                   "b3_device_us": device_us(torch, b3, "pallas_"),
-                   "b3_host_us": host_us(torch, b3)}
-            for lvl, f2 in enumerate(lv):
-                c_l = co / 2.0 ** lvl
-
-                def b4():
-                    ck.pallas_local_corr_level(fmap1, f2, c_l, r)
-
-                rec[f"b4_us_level{lvl}"] = 1e3 * cs.cuda_time_ms(
-                    b4, reps=10, inner=10)
-                rec[f"b4_device_us_level{lvl}"] = device_us(torch, b4,
-                                                            "pallas_")
-                rec[f"b4_host_us_level{lvl}"] = host_us(torch, b4)
-                rec[f"b2_us_level{lvl}"] = 1e3 * cs.cuda_time_ms(
-                    lambda: ck.flash_local_corr_level(fmap1, f2, c_l, r),
-                    reps=10, inner=10)
-            records.append(rec)
-            print(json.dumps(rec), flush=True)
+    for b in (1, 2):
+        for fi, field in enumerate(FIELDS):
+            for di, dtype in enumerate(DTYPES):
+                rec = {"root": root, "field": field, "dtype": dtype,
+                       "shape": [b, 55, 128, 256]}
+                for family in families:
+                    if b in FAMILIES[family][0]:
+                        time_family(torch, ck, cs, dev, family, b, field,
+                                    dtype, 1000 + 100 * b + 10 * fi + di, rec)
+                if len(rec) > 4:
+                    records.append(rec)
+                    print(json.dumps(rec), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
