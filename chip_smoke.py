@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py [--out record.json]
 
-Drives the port's two paths on the card through the bucketed
-InferenceEngine, at full width with seeded random weights: RAFT v1 and
-the v5 dual-stream Dexi-RAFT with its embedded DexiNed. It builds the
+Drives the port's paths on the card at full width with seeded random
+weights: RAFT v1 and the v5 dual-stream Dexi-RAFT with its embedded
+DexiNed through the bucketed InferenceEngine, v2, v3 and v4 through the
+eval step, v5's convergence-gated loop, and a v5 VideoEngine stream over
+the encode/refine split. It builds the
 hand-written CUDA kernels from the sources in this checkout, holds each
 kernel against its plain PyTorch version (and each of the two
 formulations against the other), shows from the launch counters that
@@ -42,13 +44,30 @@ Phases, one JSON line each:
   5 slice v5  the same requests through v5: paths "pallas_fused" (B3),
               "pallas_lookup" (B4) and "flash_fused" (B1), checked the
               same way
+  conv_search the motion encoder's 3x3 convs at v5's loop batches with
+              cuDNN's heuristic algorithm and with the eval step's
+              algorithm search (run before any other convolution)
   tf32        the eval step's arithmetic: flow_low of v1's and v5's main
               paths through make_eval_step with TF32 convolutions on
               (PyTorch's default flags) and off, and with the step's
               default, against the TF32-off plain-lookup path, <= 1e-2 px
               for the default; the global flags as they were
+  variants    v2, v3 and v4 at batch 1 in the Sintel bucket (v2/v3 with
+              seeded uint8 edge frames): B1's path against the plain path
+              on the same weights, <= 1e-2 px, ITERS B1 launches, ms
+  adaptive    v5 on B1, batch 2: the convergence-gated loop at tol 0
+              against the fixed step (<= 1e-6 px), with damped weights
+              each item against a fixed forward of its iters_used (<=
+              1e-5 px), a budget of 8, B1's launches, ms, and the cost of
+              the per-iteration host read of the done mask
+  video       a v5 VideoEngine stream of 6 frames in two chunks: each
+              flow against the pair forward with the same warm start
+              (<= 1e-2 px), B1's launches, bytes per stream, ms per warm
+              frame against the pair engine's per pair, and
+              forward_interpolate on the card against the CPU
   6 times     CUDA-event medians: v1 and v5 forward ms at 440x1024, B=1
-              (TF32 off and PyTorch's default), v5's DexiNed and prelude
+              (TF32 off and PyTorch's default, and the main paths under
+              the eval step's arithmetic), v5's DexiNed and prelude
               alone, kernel and plain-version times per call at each
               path's shapes (B1 also on the smooth and scattered fields,
               B3 and B4 on the smooth, scattered and edge fields, every
@@ -668,6 +687,359 @@ def phase_tf32(torch, dev, model_name, model, batch) -> dict:
     return rec
 
 
+def sintel_frames(seed, n, shift=3, edges=False):
+    """``n`` chained Sintel-shaped frames (436x1024): a smooth random scene
+    moved ``shift`` px to the right per frame, plus noise. With ``edges``,
+    also one seeded uint8 edge frame per frame (sparse 0/255 lines, as an
+    edge detector's output looks), moved with the scene."""
+    rng = np.random.default_rng(seed)
+    (h, w), _ = PAIRS[0]
+    base = np.kron(rng.uniform(0, 255, (h // 8 + 2, w // 8 + 2, 3)),
+                   np.ones((8, 8, 1)))[:h, :w]
+    lines = (rng.uniform(0, 1, (h, w, 3)) > 0.9).astype(np.uint8) * 255
+    frames, edge_frames = [], []
+    for i in range(n):
+        im = np.roll(base, shift * i, axis=1) + rng.normal(0, 2, base.shape)
+        frames.append(np.clip(im, 0, 255).astype(np.float32))
+        edge_frames.append(np.roll(lines, shift * i, axis=1))
+    return (frames, edge_frames) if edges else frames
+
+
+def pad_batch(pad, arrays):
+    return np.stack([pad.pad(np.asarray(a, np.float32))[0] for a in arrays])
+
+
+def timed_ms(torch, fn, reps=10, warmup=2) -> dict:
+    """CUDA-event median ms per call over ``reps`` (min and max beside)."""
+    ts = sorted(cuda_times_ms(fn, reps=reps, warmup=warmup))
+    return {"median": statistics.median(ts), "min": ts[0], "max": ts[-1]}
+
+
+def phase_conv_search(torch, dev) -> dict:
+    """The motion encoder's two 3x3 convs over 256 channels (convc2 to
+    192, conv to 126) at the 55x128 map, batch 2 and 4 (v5's loop at
+    engine batches 1 and 2), TF32 off: ms with cuDNN's heuristic
+    algorithm (PyTorch's default flags) and with the eval step's
+    algorithm search (train.step.eval_arithmetic). Runs before any other
+    convolution: cuDNN keeps the algorithm a search found for a shape and
+    uses it with the heuristics too."""
+    import torch.nn as nn
+
+    from dexiraft_tpu_torch.train.step import eval_arithmetic
+
+    rec = {"phase": "conv_search", "tf32": False,
+           "map": [SINTEL_BUCKET[0] // 8, SINTEL_BUCKET[1] // 8]}
+    with torch.inference_mode():
+        for name, out_ch in (("convc2", 192), ("conv", 126)):
+            conv = nn.Conv2d(256, out_ch, 3, padding=1).to(dev)
+            for n in (2, 4):
+                x = torch.randn(n, 256, *rec["map"], device=dev)
+                rec[f"{name}_batch{n}_heuristic_ms"] = timed_ms(
+                    torch, lambda: conv(x), reps=3, warmup=1)
+                with eval_arithmetic(False):
+                    rec[f"{name}_batch{n}_search_ms"] = timed_ms(
+                        torch, lambda: conv(x), reps=3, warmup=1)
+    emit(rec)
+    return rec
+
+
+def phase_variants(torch, ck, dev) -> dict:
+    """v2, v3 and v4 at full width, batch 1, one Sintel pair padded to the
+    440x1024 bucket (v2/v3 with seeded uint8 edge frames), ITERS
+    iterations: the flash fused path (B1) through the eval step against
+    the plain path (corr_impl="local") on the same weights, flow_low <=
+    TOL_FLOW_PX; B1's launches in that forward (ITERS: one per iteration,
+    v3's two streams on one 2B batch) and no other kernel; the forward's
+    ms (CUDA events, the eval step's arithmetic: TF32 off)."""
+    from dexiraft_tpu_torch.config import raft_v2, raft_v3, raft_v4
+    from dexiraft_tpu_torch.data.padder import InputPadder
+    from dexiraft_tpu_torch.models.raft import RAFT, create_model
+    from dexiraft_tpu_torch.train.step import eval_arithmetic, make_eval_step
+
+    frames, edges = sintel_frames(seed=1, n=2, edges=True)
+    pad = InputPadder(frames[0].shape, "sintel", target=SINTEL_BUCKET)
+    im1, im2 = pad_batch(pad, frames[:1]), pad_batch(pad, frames[1:])
+    e1, e2 = pad_batch(pad, edges[:1]), pad_batch(pad, edges[1:])
+    out = {}
+    for name, variant in (("v2", raft_v2), ("v3", raft_v3), ("v4", raft_v4)):
+        flash = create_model(variant(corr_impl="flash", fused_update=True),
+                             seed=0, device=dev)
+        plain = RAFT(variant(corr_impl="local"))
+        plain.load_state_dict(flash.state_dict(), strict=True)
+        plain = plain.to(dev).eval()
+        kw = {} if name == "v4" else {"edges1": e1, "edges2": e2}
+        ck.reset_launches()
+        low, up = make_eval_step(flash, ITERS, dev, tf32=False)(im1, im2,
+                                                                **kw)
+        torch.cuda.synchronize()
+        launches = dict(ck.LAUNCHES)
+        low_p, up_p = make_eval_step(plain, ITERS, dev, tf32=False)(im1, im2,
+                                                                    **kw)
+        x1, x2 = (torch.from_numpy(x).to(dev).permute(0, 3, 1, 2)
+                  for x in (im1, im2))
+        xe = {k: torch.from_numpy(v).to(dev).permute(0, 3, 1, 2)
+              for k, v in kw.items()}
+        with torch.inference_mode(), eval_arithmetic(False):
+            ms = timed_ms(torch, lambda: flash(x1, x2, iters=ITERS, **xe))
+        rec = {"phase": "variants", "variant": name, "batch": 1,
+               "bucket": list(SINTEL_BUCKET), "iters": ITERS, "tf32": False,
+               "launches": launches,
+               "flow_low_vs_plain_px": float((low - low_p).abs().max()),
+               "flow_up_vs_plain_px": float((up - up_p).abs().max()),
+               "flow_low_max_abs_px": float(low_p.abs().max()),
+               "finite": bool(torch.isfinite(up).all()),
+               "forward_ms_flash_fused": ms, "tol_px": TOL_FLOW_PX}
+        emit(rec)
+        out[name] = rec
+        stray = {k: v for k, v in launches.items()
+                 if k != "flash_fused_step" and v}
+        if launches["flash_fused_step"] != ITERS or stray:
+            raise AssertionError(f"{name}: B1 launched "
+                                 f"{launches['flash_fused_step']} times "
+                                 f"(expected {ITERS}), other kernels {stray}")
+        if rec["flow_low_vs_plain_px"] > TOL_FLOW_PX or not rec["finite"]:
+            raise AssertionError(f"{name}: flash fused flow_low "
+                                 f"{rec['flow_low_vs_plain_px']} px from the "
+                                 f"plain path (tol {TOL_FLOW_PX}), finite "
+                                 f"{rec['finite']}")
+        del flash, plain
+    return out
+
+
+def damped_state(state):
+    """The contraction fixture of tests/test_zzzadaptive.py: the flow
+    head's parameters x 0.01, so each update moves the flow little and the
+    convergence gate fires."""
+    return {k: v * 0.01 if k.startswith("update_block.flow_head.") else v
+            for k, v in state.items()}
+
+
+def phase_adaptive(torch, ck, dev) -> dict:
+    """v5 flash fused, batch 2 (two different Sintel pairs in the 440x1024
+    bucket), ITERS iterations, the convergence-gated loop:
+      * converge_tol=0 with the full budget against the fixed eval step
+        (<= 1e-6 px; the gate never fires, so 0 is expected);
+      * the damped weights at tol 0.02: every item stops before ITERS, and
+        each item's flow_low equals a fixed forward of its iters_used on
+        the same batch (<= 1e-5 px);
+      * a budget of 8: iters_used <= 8;
+      * B1's launches per adaptive forward (one per iteration run);
+      * ms of the fixed and adaptive forwards (the eval step's
+        arithmetic), and the cost of the per-iteration host read of the
+        done mask: adaptive at tol 0 reading it every iteration against
+        never reading it."""
+    import dataclasses
+
+    from dexiraft_tpu_torch.config import raft_v5
+    from dexiraft_tpu_torch.data.padder import InputPadder
+    from dexiraft_tpu_torch.models.raft import RAFT, create_model
+    from dexiraft_tpu_torch.train.step import eval_arithmetic, make_eval_step
+
+    base = create_model(raft_v5(corr_impl="flash", fused_update=True),
+                        seed=0, device=dev)
+    state = base.state_dict()
+
+    def model(tol, sd):
+        m = RAFT(dataclasses.replace(base.cfg, converge_tol=tol))
+        m.load_state_dict(sd, strict=True)
+        return m.to(dev).eval()
+
+    items = frame_pairs(seed=2)[:2]
+    pad = InputPadder(items[0]["image1"].shape, "sintel",
+                      target=SINTEL_BUCKET)
+    im1 = pad_batch(pad, [it["image1"] for it in items])
+    im2 = pad_batch(pad, [it["image2"] for it in items])
+    rec = {"phase": "adaptive", "model": "v5", "path": "flash_fused",
+           "batch": 2, "iters": ITERS, "tf32": False}
+
+    fixed = make_eval_step(base, ITERS, dev)
+    low_fixed, _ = fixed(im1, im2)
+    tol0 = model(0.0, state)
+    ck.reset_launches()
+    low0, _, iu0, fd0 = make_eval_step(tol0, ITERS, dev, adaptive=True)(
+        im1, im2, None, ITERS)
+    torch.cuda.synchronize()
+    rec["tol0_launches"] = dict(ck.LAUNCHES)
+    rec["tol0_iters_used"] = iu0.tolist()
+    rec["tol0_vs_fixed_px"] = float((low0 - low_fixed).abs().max())
+    _, _, iu8, _ = make_eval_step(tol0, ITERS, dev, adaptive=True)(
+        im1, im2, None, 8)
+    rec["budget8_iters_used"] = iu8.tolist()
+
+    damped = damped_state(state)
+    gated = model(0.02, damped)
+    ck.reset_launches()
+    low_g, _, iu_g, fd_g = make_eval_step(gated, ITERS, dev, adaptive=True)(
+        im1, im2, None, None)
+    torch.cuda.synchronize()
+    rec["gated_launches"] = dict(ck.LAUNCHES)
+    rec["gated_iters_used"] = iu_g.tolist()
+    rec["gated_final_delta"] = fd_g.tolist()
+    per_item = []
+    for i, n in enumerate(iu_g.tolist()):
+        low_n, _ = make_eval_step(gated, n, dev)(im1, im2)
+        per_item.append(float((low_g[i] - low_n[i]).abs().max()))
+    rec["gated_vs_fixed_at_iters_used_px"] = per_item
+
+    x1, x2 = (torch.from_numpy(x).to(dev).permute(0, 3, 1, 2)
+              for x in (im1, im2))
+    with torch.inference_mode(), eval_arithmetic(False):
+        rec["fixed_ms"] = timed_ms(torch, lambda: base(x1, x2, iters=ITERS))
+        rec["adaptive_tol0_ms"] = timed_ms(
+            torch, lambda: tol0(x1, x2, iters=ITERS, adaptive=True))
+        rec["adaptive_tol0_no_exit_read_ms"] = timed_ms(
+            torch, lambda: tol0(x1, x2, iters=ITERS, adaptive=True,
+                                exit_check_every=ITERS))
+        rec["fixed_damped_ms"] = timed_ms(
+            torch, lambda: gated(x1, x2, iters=ITERS))
+        rec["adaptive_gated_ms"] = timed_ms(
+            torch, lambda: gated(x1, x2, iters=ITERS, adaptive=True))
+    rec["exit_read_ms_per_iteration"] = (
+        rec["adaptive_tol0_ms"]["median"]
+        - rec["adaptive_tol0_no_exit_read_ms"]["median"]) / (ITERS - 1)
+    rec["select_ms_per_iteration"] = (
+        rec["adaptive_tol0_no_exit_read_ms"]["median"]
+        - rec["fixed_ms"]["median"]) / ITERS
+    emit(rec)
+    if rec["tol0_vs_fixed_px"] > 1e-6 or iu0.tolist() != [ITERS, ITERS]:
+        raise AssertionError(f"adaptive tol=0 differs from the fixed step: "
+                             f"{rec['tol0_vs_fixed_px']} px, iters_used "
+                             f"{iu0.tolist()}")
+    if rec["tol0_launches"]["flash_fused_step"] != ITERS:
+        raise AssertionError(f"adaptive tol=0 launched B1 "
+                             f"{rec['tol0_launches']} (expected {ITERS})")
+    if not all(n < ITERS for n in iu_g.tolist()) or max(per_item) > 1e-5:
+        raise AssertionError(f"the gated loop: iters_used {iu_g.tolist()}, "
+                             f"vs fixed at those iters {per_item} px")
+    if rec["gated_launches"]["flash_fused_step"] != max(iu_g.tolist()):
+        raise AssertionError(f"the gated loop launched B1 "
+                             f"{rec['gated_launches']} times, ran "
+                             f"{max(iu_g.tolist())} iterations")
+    if max(iu8.tolist()) > 8:
+        raise AssertionError(f"budget 8 ran {iu8.tolist()} iterations")
+    return rec
+
+
+def phase_video(torch, ck, dev) -> dict:
+    """A v5 (flash fused) VideoEngine over one session: 6 chained Sintel
+    frames in two chunks of 3 (the second warm: 2 + 3 flows). Each flow's
+    flow_low against the pair forward (the eval step) of the same two
+    frames with the same splatted warm start, <= TOL_FLOW_PX; B1's
+    launches (ITERS per flow); the session's bytes; ms per warm frame
+    against the pair engine's ms per pair (host pad, upload and fetch
+    included in both); and forward_interpolate on the card against its CPU
+    run on a collision-free 55x128 field (<= 1e-6), with its ms."""
+    from dexiraft_tpu_torch.config import raft_v5
+    from dexiraft_tpu_torch.data.padder import InputPadder
+    from dexiraft_tpu_torch.eval.interpolate import forward_interpolate
+    from dexiraft_tpu_torch.models.raft import create_model
+    from dexiraft_tpu_torch.serve.engine import InferenceEngine, ServeConfig
+    from dexiraft_tpu_torch.serve.sessions import (DeviceSessionStore,
+                                                   carry_nbytes)
+    from dexiraft_tpu_torch.serve.video import VideoEngine
+    from dexiraft_tpu_torch.train.step import (make_encode_step,
+                                               make_eval_step,
+                                               make_refine_step)
+
+    model = create_model(raft_v5(corr_impl="flash", fused_update=True),
+                         seed=0, device=dev)
+    encode = make_encode_step(model, dev)
+    refine = make_refine_step(model, ITERS, dev)
+    seen = []  # (flow_init, flow_low) of every refinement the engine ran
+
+    def recorded_refine(f1, f2, fi):
+        low, up = refine(f1, f2, fi)
+        seen.append((fi, low))
+        return low, up
+
+    def splat(low):
+        return forward_interpolate(low[0])[None]
+
+    def put(x):
+        return torch.from_numpy(x).to(dev)
+
+    video = VideoEngine(encode, recorded_refine, splat,
+                        sessions=DeviceSessionStore(), put=put)
+    (h, w), _ = PAIRS[0]
+    video.warmup([f"{h}x{w}"])
+    seen.clear()
+    frames = sintel_frames(seed=3, n=9)
+    ck.reset_launches()
+    res1 = video.process_chunk("cam", np.stack(frames[:3]))
+    res2 = video.process_chunk("cam", np.stack(frames[3:6]))
+    torch.cuda.synchronize()
+    launches = dict(ck.LAUNCHES)
+    rec = {"phase": "video", "model": "v5", "path": "flash_fused",
+           "iters": ITERS, "tf32": False, "launches": launches,
+           "flows": [len(res1.flows), len(res2.flows)],
+           "warm": [res1.warm, res2.warm]}
+
+    pad = InputPadder(frames[0].shape, "sintel", target=SINTEL_BUCKET)
+    step = make_eval_step(model, ITERS, dev)
+    low_diff, up_diff = [], []
+    for i, (fi, low) in enumerate(seen):
+        low_p, up_p = step(pad_batch(pad, frames[i:i + 1]),
+                           pad_batch(pad, frames[i + 1:i + 2]), fi)
+        low_diff.append(float((low - low_p).abs().max()))
+        flow = (res1.flows + res2.flows)[i]
+        up_diff.append(float(np.abs(flow - pad.unpad(
+            up_p[0].cpu().numpy())).max()))
+    rec["split_vs_pair_flow_low_px"] = low_diff
+    rec["split_vs_pair_flow_up_px"] = up_diff
+    feats, seed = video.sessions.get("cam", SINTEL_BUCKET)
+    rec["bytes_per_stream"] = carry_nbytes(feats, seed)
+    rec["carry_shapes"] = {k: list(v.shape) for k, v in feats.items()}
+    rec["store"] = video.sessions.stats_record()
+
+    # ms per warm frame (a warm chunk of 3) against ms per pair through
+    # the pair engine, wall clock with the fetch of flow_up included
+    def wall_ms(fn, reps=3):
+        ts = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return sorted(ts)
+
+    ts = wall_ms(lambda: video.process_chunk("cam", np.stack(frames[6:9])))
+    rec["warm_ms_per_frame"] = {"median": statistics.median(ts) / 3,
+                                "min": ts[0] / 3, "max": ts[-1] / 3}
+    engine = InferenceEngine(step, ServeConfig(batch_size=1))
+    pair = [{"image1": frames[0], "image2": frames[1]}]
+    engine.run_batch(pair)
+    ts = wall_ms(lambda: engine.run_batch(pair))
+    rec["pair_engine_ms_per_pair"] = {"median": statistics.median(ts),
+                                      "min": ts[0], "max": ts[-1]}
+    x = pad_batch(pad, frames[:1])
+    with torch.inference_mode():
+        feats = encode(x)
+        rec["encode_ms"] = timed_ms(torch, lambda: encode(x))
+        zeros = torch.zeros(1, SINTEL_BUCKET[0] // 8, SINTEL_BUCKET[1] // 8,
+                            2, device=dev)
+        rec["refine_ms"] = timed_ms(torch, lambda: refine(feats, feats, zeros))
+
+    field = torch.zeros(SINTEL_BUCKET[0] // 8, SINTEL_BUCKET[1] // 8, 2)
+    field += torch.tensor([1.3, -0.7])  # a uniform shift: no collisions
+    on_card = forward_interpolate(field.to(dev))
+    rec["splat_card_vs_cpu"] = float((on_card.cpu()
+                                      - forward_interpolate(field)).abs().max())
+    rec["splat_ms"] = timed_ms(torch,
+                               lambda: forward_interpolate(field.to(dev)))
+    emit(rec)
+    if launches["flash_fused_step"] != 5 * ITERS or rec["flows"] != [2, 3] \
+            or rec["warm"] != [False, True]:
+        raise AssertionError(f"video: flows {rec['flows']} warm "
+                             f"{rec['warm']} launches {launches} (expected "
+                             f"[2, 3], [False, True], {5 * ITERS} B1)")
+    if max(low_diff) > TOL_FLOW_PX or rec["splat_card_vs_cpu"] > 1e-6:
+        raise AssertionError(f"video: split vs pair {low_diff} px (tol "
+                             f"{TOL_FLOW_PX}), splat card vs CPU "
+                             f"{rec['splat_card_vs_cpu']}")
+    return rec
+
+
 def profile_forward(torch, forward, kernel_key: str) -> dict:
     """One forward under torch.profiler: device time by kernel (the eight
     largest), the share of the correlation kernels whose name holds
@@ -797,6 +1169,15 @@ def phase_times(torch, ck, gen, dev, v1_models, v5_models, card):
     time_forwards(torch, v5_models, ("pallas_fused", "pallas_lookup",
                                      "flash_fused", "plain"), x1, x2, rec,
                   "v5_")
+    # the main paths under the eval step's arithmetic (cuDNN's search)
+    from dexiraft_tpu_torch.train.step import eval_arithmetic
+
+    with torch.inference_mode(), eval_arithmetic(False):
+        for prefix, model in (("", v1_models["fused"]),
+                              ("v5_", v5_models["flash_fused"])):
+            path = "fused" if not prefix else "flash_fused"
+            rec[f"{prefix}forward_ms_{bh}x{bw}_{path}_eval_step"] = timed_ms(
+                torch, lambda: model(x1, x2, iters=ITERS))
     # v5's prelude: DexiNed on both frames, and everything but the loop
     # (iters=0: DexiNed, the four encoders, the pyramid, the upsampling)
     v5 = v5_models["pallas_fused"]
@@ -893,6 +1274,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(0)
+    phase_conv_search(torch, dev)  # before any other convolution
 
     worst = phase_kernels(torch, ck, gen, dev)
     worst.update(phase_kernels_v5(torch, ck, gen, dev))
@@ -913,6 +1295,11 @@ def main(argv=None) -> int:
     # the eval step's own arithmetic, on each model's main path
     phase_tf32(torch, dev, "v1", v1_models["fused"], v1_batch)
     phase_tf32(torch, dev, "v5", v5_models["flash_fused"], v5_batch)
+    # the rest of the model family, the adaptive loop and the streaming
+    # engine, each on B1, the production kernel
+    phase_variants(torch, ck, dev)
+    phase_adaptive(torch, ck, dev)
+    phase_video(torch, ck, dev)
     times = phase_times(torch, ck, gen, dev, v1_models, v5_models, smi)
 
     pc = "dexiraft_tpu/ops/pallas_corr.py"

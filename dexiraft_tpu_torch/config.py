@@ -68,7 +68,10 @@ class RAFTConfig:
       v4  variant='early',  embed_dexined=True 10-ch early fusion with DexiNed
       v5  variant='dual',   embed_dexined=True dual stream with DexiNed
 
-    The port runs v1 and v5 (models/raft.py refuses the others).
+    The port runs all five (models/raft.py), with the JAX package's
+    refusals: ``dual`` needs the embedded DexiNed, and the two pairings
+    outside the five (``raft`` or ``separate`` with ``embed_dexined``) are
+    refused when the model is built.
     """
 
     variant: str = "raft"  # raft | early | separate | dual
@@ -91,8 +94,9 @@ class RAFTConfig:
     remat_lookup: bool = False
     dexined_upconv: str = "subpixel"
     scan_unroll: int = 1
-    # convergence gate of the adaptive inference path (not ported yet;
-    # validated as in the JAX package)
+    # convergence gate of the adaptive inference path (models/raft.py
+    # adaptive=True): an item freezes once the mean per-pixel L2 norm of
+    # its 1/8-res flow delta drops below this; 0 disables the gate
     converge_tol: float = 0.02
 
     def __post_init__(self):

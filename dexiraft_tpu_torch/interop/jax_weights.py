@@ -22,20 +22,30 @@ names the port uses on the other. A strided block's shortcut norm is
 registered twice in the port (``normK`` and ``downsample.1``), and both
 keys get the same flax BatchNorm. ``convc1`` maps to the motion encoder's
 ``Conv_0`` on both the fused and the unfused path: the flax tree is the
-same for both. A v5 tree (it holds ``DexiNed_0``) also maps the edge
-encoders ``efnet``/``ecnet`` (the encoder map again) and every
-``dexined.*`` key (the reference DexiNed names -> flax's auto-numbered
-modules, as ``torch_convert._DEXINED_BLOCKS`` maps them).
+same for both. v5 also maps the edge encoders ``efnet``/``ecnet`` (the
+encoder map again); v4 and v5 map every ``dexined.*`` key (the reference
+DexiNed names -> flax's auto-numbered modules, as
+``torch_convert._DEXINED_BLOCKS`` maps them). v3's ``refine_flow.conv``
+has no entry in the JAX package's map: it is the 1x1 conv
+``ScanRAFTStep_0/RefineFlow_0/Conv_0`` of the flax tree (the path a v3
+init gives), transposed like every conv kernel.
+
+Which variant's key set to fill is the caller's ``cfg`` where one is
+given; else it is read off the tree: DexiNed with ``efnet`` is v5,
+DexiNed without it v4; without DexiNed, a ``RefineFlow_0`` leaf under
+``ScanRAFTStep_0`` is v3, a 6-channel ``fnet`` stem v2, else v1.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+import dataclasses
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-from dexiraft_tpu_torch.config import RAFTConfig, raft_v1, raft_v5
+from dexiraft_tpu_torch.config import (RAFTConfig, raft_v1, raft_v2, raft_v3,
+                                       raft_v4, raft_v5)
 
 _UPDATE_BLOCK_FULL = {
     "encoder.convc1": ("BasicMotionEncoder_0", "Conv_0"),
@@ -157,6 +167,8 @@ def flax_source(key: str, small: bool = False) -> Tuple[str, Tuple[str, ...]]:
         mod = (root,) + _encoder_module(parts[1:-1], small)
     elif root == "dexined":
         mod = ("DexiNed_0",) + _dexined_module(parts[1:-1])
+    elif root == "refine_flow":
+        mod = ("ScanRAFTStep_0", "RefineFlow_0", "Conv_0")
     elif root == "update_block":
         table = _UPDATE_BLOCK_SMALL if small else _UPDATE_BLOCK_FULL
         sub = ".".join(parts[1:-1])
@@ -182,9 +194,17 @@ def _fetch(tree: Mapping[str, Any], path: Tuple[str, ...]) -> np.ndarray:
 
 
 def _config_of(variables: Mapping[str, Any], small: bool) -> RAFTConfig:
-    """The port variant whose state dict the flax tree fills: v5 when it
-    holds the embedded DexiNed, else v1."""
-    variant = raft_v5 if "DexiNed_0" in variables["params"] else raft_v1
+    """The variant whose state dict the flax tree fills (module
+    docstring)."""
+    params = variables["params"]
+    if "DexiNed_0" in params:
+        variant = raft_v5 if "efnet" in params else raft_v4
+    elif "RefineFlow_0" in params.get("ScanRAFTStep_0", {}):
+        variant = raft_v3
+    elif np.shape(params["fnet"]["Conv_0"]["kernel"])[2] == 6:
+        variant = raft_v2
+    else:
+        variant = raft_v1
     return variant(small=small, corr_impl="local")
 
 
@@ -210,13 +230,22 @@ def _state_dict(variables: Mapping[str, Any], keys, source
 
 
 def raft_state_dict_from_jax(variables: Mapping[str, Any],
-                             small: bool = False) -> Dict[str, torch.Tensor]:
-    """Flax RAFT v1 or v5 variables -> the port's state dict (CPU tensors),
-    ready for ``RAFT.load_state_dict(..., strict=True)``."""
+                             small: bool = False,
+                             cfg: Optional[RAFTConfig] = None
+                             ) -> Dict[str, torch.Tensor]:
+    """Flax RAFT variables of any of the five variants -> the port's state
+    dict (CPU tensors), ready for ``RAFT(cfg).load_state_dict(...,
+    strict=True)``. ``cfg`` decides the key set (and ``small``); without
+    it the variant is read off the tree (module docstring)."""
     from dexiraft_tpu_torch.models.raft import RAFT
 
+    if cfg is None:
+        cfg = _config_of(variables, small)
+    small = cfg.small
+    # the key set does not depend on the lookup
+    cfg = dataclasses.replace(cfg, corr_impl="local", fused_update=False)
     with torch.device("meta"):
-        keys = list(RAFT(_config_of(variables, small)).state_dict().keys())
+        keys = list(RAFT(cfg).state_dict().keys())
     return _state_dict(variables, keys, lambda k: flax_source(k, small))
 
 

@@ -1,4 +1,5 @@
-"""Update operators: motion encoders, ConvGRU cells, flow and mask heads.
+"""Update operators: motion encoders, ConvGRU cells, flow and mask heads,
+and v3's RefineFlow fusion head.
 
 Counterpart of ``dexiraft_tpu/models/update.py`` in NCHW with the
 reference's torch attribute names (``encoder.convc1``, ``gru.convz1``,
@@ -184,3 +185,17 @@ class BasicUpdateBlock(nn.Module):
         delta_flow = self.flow_head(net)
         mask = 0.25 * self.mask(net)
         return net, mask, delta_flow
+
+
+class RefineFlow(nn.Module):
+    """v3's fusion head: a 1x1 conv of cat(flow_up, eflow_up), 4 channels,
+    to the refined 2-channel flow. The reference's conv maps 4 channels to
+    1, which cannot be a flow; the JAX package corrects it to 4 -> 2, and
+    so does the port."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv = nn.Conv2d(4, 2, 1)
+
+    def forward(self, flow_up, eflow_up):
+        return self.conv(torch.cat([flow_up, eflow_up], dim=1))

@@ -1,7 +1,8 @@
 """Bucketed, batched inference engine over the test-mode forward step.
 
 Counterpart of ``dexiraft_tpu/serve/engine.py``, without the mesh,
-device-carry, adaptive and strict-guard machinery (not ported yet):
+in-flight dispatch, device-carry and strict-guard machinery (not ported
+yet):
 
   * shape buckets (serve.buckets): each frame pair is padded
     (replicate-edge, data.padder) to its bucket shape;
@@ -13,7 +14,16 @@ device-carry, adaptive and strict-guard machinery (not ported yet):
 
 eval_fn contract (train.step.make_eval_step): eval_fn(image1, image2,
 flow_init) -> (flow_low, flow_up), batched NHWC in [0, 255], flow_init
-None or (B, H/8, W/8, 2); outputs NHWC tensors or arrays.
+None or (B, H/8, W/8, 2); outputs NHWC tensors or arrays. Like the JAX
+engine, it passes no edge images, so v2/v3 (data-supplied edges) are
+driven through the eval step directly.
+
+Adaptive engines (``ServeConfig.adaptive``): the eval_fn takes a trailing
+``iter_budget`` (None = the step's full iterations) and returns
+(flow_low, flow_up, iters_used (B,), final_delta (B,))
+(make_eval_step(adaptive=True)); each Result carries its row's two
+values and the stats keep them as samples. A fixed engine refuses a
+budget.
 """
 
 from __future__ import annotations
@@ -38,6 +48,9 @@ class ServeConfig:
     bucket_multiple: Optional[int] = None
     # always pass a flow_init (zeros for cold items)
     warm_start: bool = False
+    # the eval_fn is adaptive: dispatches thread an iter_budget and
+    # Results carry iters_used / final_delta
+    adaptive: bool = False
 
     def __post_init__(self):
         if self.batch_size < 1:
@@ -46,12 +59,16 @@ class ServeConfig:
 
 class Result(NamedTuple):
     """One frame pair's output: flow_up unpadded to the item's (H, W, 2);
-    flow_low at the bucket's padded 1/8 resolution (the warm-start carry)."""
+    flow_low at the bucket's padded 1/8 resolution (the warm-start carry).
+    iters_used / final_delta: the adaptive path's refinement updates
+    applied and last 1/8-res flow-delta norm; None on fixed engines."""
 
     index: int
     item: Dict[str, Any]
     flow_low: np.ndarray
     flow_up: np.ndarray
+    iters_used: Optional[int] = None
+    final_delta: Optional[float] = None
 
 
 @dataclasses.dataclass
@@ -59,6 +76,9 @@ class EngineStats:
     frames: int = 0
     batches: int = 0
     pad_frames: int = 0
+    # adaptive engines: one sample per real (non-filler) row
+    iters_used: List[int] = dataclasses.field(default_factory=list)
+    final_delta: List[float] = dataclasses.field(default_factory=list)
 
 
 def _host(x) -> np.ndarray:
@@ -105,9 +125,14 @@ class InferenceEngine:
                                  f"{self.config.stride}, 2), got {fi.shape}")
 
     def _run(self, bucket: Tuple[int, int],
-             group: List[Tuple[int, Dict[str, Any]]], mode: str
-             ) -> List[Result]:
+             group: List[Tuple[int, Dict[str, Any]]], mode: str,
+             iter_budget: Optional[int] = None) -> List[Result]:
         cfg = self.config
+        if iter_budget is not None and not cfg.adaptive:
+            raise ValueError(
+                "iter_budget passed to a fixed-iteration engine — build "
+                "it with ServeConfig(adaptive=True) and an adaptive "
+                "eval_fn (make_eval_step(adaptive=True))")
         padders = [InputPadder(it["image1"].shape, mode=mode,
                                stride=cfg.stride, target=bucket)
                    for _, it in group]
@@ -129,19 +154,30 @@ class InferenceEngine:
             for row, init in enumerate(inits):
                 if init is not None:
                     fi[row] = init
-        low, up = self.eval_fn(np.stack(im1), np.stack(im2), fi)
+        if cfg.adaptive:
+            low, up, iu, fd = self.eval_fn(np.stack(im1), np.stack(im2), fi,
+                                           iter_budget)
+            iu = [int(x) for x in _host(iu)[:len(group)]]
+            fd = [float(x) for x in _host(fd)[:len(group)]]
+            self.stats.iters_used += iu
+            self.stats.final_delta += fd
+        else:
+            low, up = self.eval_fn(np.stack(im1), np.stack(im2), fi)
+            iu = fd = [None] * len(group)
         low, up = _host(low), _host(up)
         self.stats.batches += 1
         self.stats.frames += len(group)
         # rows past len(group) are the tail filler: dropped here
-        return [Result(idx, it, low[row], p.unpad(up[row]))
+        return [Result(idx, it, low[row], p.unpad(up[row]), iu[row], fd[row])
                 for row, ((idx, it), p) in enumerate(zip(group, padders))]
 
     def stream(self, items: Iterable[Dict[str, Any]],
-               mode: Optional[str] = None) -> Iterator[Result]:
+               mode: Optional[str] = None,
+               iter_budget: Optional[int] = None) -> Iterator[Result]:
         """Run every item through the engine; yields Results as their
         batches complete (bucket-grouped, not input order: each Result
-        carries its original index)."""
+        carries its original index). ``iter_budget`` (adaptive engines
+        only) caps every batch's refinement iterations."""
         mode = mode or self.config.mode
         pending: Dict[Tuple[int, int], List[Tuple[int, Dict[str, Any]]]] = {}
         for index, item in enumerate(items):
@@ -150,13 +186,17 @@ class InferenceEngine:
             bucket = self.registry.bucket_for(h, w)
             pending.setdefault(bucket, []).append((index, item))
             if len(pending[bucket]) == self.config.batch_size:
-                yield from self._run(bucket, pending.pop(bucket), mode)
+                yield from self._run(bucket, pending.pop(bucket), mode,
+                                     iter_budget)
         for bucket in sorted(pending):  # partial tails, deterministic order
-            yield from self._run(bucket, pending.pop(bucket), mode)
+            yield from self._run(bucket, pending.pop(bucket), mode,
+                                 iter_budget)
 
     def run_batch(self, items: List[Dict[str, Any]],
-                  mode: Optional[str] = None) -> List[Result]:
-        """One batch of same-bucket items, Results in input order."""
+                  mode: Optional[str] = None,
+                  iter_budget: Optional[int] = None) -> List[Result]:
+        """One batch of same-bucket items, Results in input order;
+        ``iter_budget`` as in :meth:`stream`."""
         if not items:
             return []
         if len(items) > self.config.batch_size:
@@ -169,4 +209,4 @@ class InferenceEngine:
         if len(buckets) > 1:
             raise ValueError(f"run_batch items span buckets {buckets}")
         return self._run(buckets.pop(), list(enumerate(items)),
-                         mode or self.config.mode)
+                         mode or self.config.mode, iter_budget)

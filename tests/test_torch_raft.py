@@ -158,10 +158,14 @@ def test_fused_and_unfused_paths_share_weights(variables):
 def test_refusals():
     with pytest.raises(ValueError, match="not ported"):
         RAFT(raft_v1(corr_impl="allpairs"))
-    from dexiraft_tpu_torch.config import raft_v2, raft_v3, raft_v4, raft_v5
+    from dexiraft_tpu_torch.config import (RAFTConfig, raft_v2, raft_v3,
+                                           raft_v4, raft_v5)
+    # v2-v4 are ported; what JAX refuses stays refused
     for variant in (raft_v2, raft_v3, raft_v4):
-        with pytest.raises(ValueError, match="not ported"):
+        with torch.device("meta"):
             RAFT(variant(corr_impl="flash"))
+    with pytest.raises(ValueError, match="requires embed_dexined=True"):
+        RAFT(RAFTConfig(variant="dual", corr_impl="flash"))
     with pytest.raises(ValueError, match="not ported"):
         RAFT(raft_v5(corr_impl="allpairs"))
     with torch.device("meta"):
@@ -185,8 +189,8 @@ def test_resolve_corr_impl():
 
 
 def test_package_imports_no_jax():
-    """The port's package, model, engine, kernel and bridge modules load
-    neither jax/flax nor any dexiraft_tpu module (a subprocess: this test
+    """The port's package, model, engine, kernel, bridge, splat, session
+    and video modules load neither jax/flax nor any dexiraft_tpu module (a subprocess: this test
     process has jax loaded by conftest)."""
     code = (
         "import sys\n"
@@ -196,6 +200,10 @@ def test_package_imports_no_jax():
         "import dexiraft_tpu_torch.serve.engine, dexiraft_tpu_torch.train.step\n"
         "import dexiraft_tpu_torch.ops.corr_kernels\n"
         "import dexiraft_tpu_torch.interop.jax_weights\n"
+        "import dexiraft_tpu_torch.eval.interpolate\n"
+        "import dexiraft_tpu_torch.serve.locks\n"
+        "import dexiraft_tpu_torch.serve.sessions\n"
+        "import dexiraft_tpu_torch.serve.video\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'dexiraft_tpu'))\n"
         "print(bad)\n")
@@ -210,10 +218,16 @@ def test_cuda_entry_points_raise_without_device():
     entry point moves to the CPU on its own."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    from dexiraft_tpu_torch.train.step import make_eval_step
+    from dexiraft_tpu_torch.train.step import (make_encode_step,
+                                               make_eval_step,
+                                               make_refine_step)
 
     cfg = raft_v1(small=True, corr_impl="flash", fused_update=True)
     with pytest.raises(RuntimeError, match="'cuda'"):
         create_model(cfg)
     with pytest.raises(RuntimeError, match="'cuda:0'"):
         make_eval_step(RAFT(cfg).eval(), iters=1, device="cuda:0")
+    with pytest.raises(RuntimeError, match="'cuda'"):
+        make_encode_step(RAFT(cfg).eval())
+    with pytest.raises(RuntimeError, match="'cuda'"):
+        make_refine_step(RAFT(cfg).eval(), iters=1, adaptive=True)
