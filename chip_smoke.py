@@ -6,8 +6,9 @@
 Drives the port's paths on the card at full width with seeded random
 weights: RAFT v1 and the v5 dual-stream Dexi-RAFT with its embedded
 DexiNed through the bucketed InferenceEngine, v2, v3 and v4 through the
-eval step, v5's convergence-gated loop, and a v5 VideoEngine stream over
-the encode/refine split. It builds the
+eval step, v5's convergence-gated loop, a v5 VideoEngine stream over
+the encode/refine split, and the flow service (scheduler, sessions, HTTP
+server and its CLI) on v5's main path. It builds the
 hand-written CUDA kernels from the sources in this checkout, holds each
 kernel against its plain PyTorch version (and each of the two
 formulations against the other), shows from the launch counters that
@@ -47,6 +48,9 @@ Phases, one JSON line each:
   conv_search the motion encoder's 3x3 convs at v5's loop batches with
               cuDNN's heuristic algorithm and with the eval step's
               algorithm search (run before any other convolution)
+  conv_threads the same convs at batch 3: wall ms of the first and second
+              call on the main thread, a fresh thread and a DeviceThread
+              (cuDNN's search results are kept per thread)
   tf32        the eval step's arithmetic: flow_low of v1's and v5's main
               paths through make_eval_step with TF32 convolutions on
               (PyTorch's default flags) and off, and with the step's
@@ -65,6 +69,21 @@ Phases, one JSON line each:
               (<= 1e-2 px), B1's launches, bytes per stream, ms per warm
               frame against the pair engine's per pair, and
               forward_interpolate on the card against the CPU
+  serve       the flow service on v5's main path (B1), built by the
+              CLI's builders (python -m dexiraft_tpu_torch serve):
+              warm-up of the Sintel and KITTI buckets, then 8 client
+              threads with 24 pair requests over HTTP, a session of 3
+              chained requests (device carry) and a 3-frame
+              /v1/flow/stream chunk at the same time; B1 launched ITERS x
+              (batches + stream flows) and nothing else; HTTP flows
+              against engine.run_batch, the warm request against the eval
+              step on the splatted seed, the chunk against its solo run,
+              <= 1e-2 px; global flags unchanged; no admitted request
+              dropped on drain; requests/s, p50/p99 latency, fetch and
+              dispatch seconds (and engine.stream at inflight 1 and 2),
+              carry bytes, device memory
+  serve_cli   the CLI in a child process (v1, --warmup 440x1024): 2
+              requests, then SIGTERM, exit 0 within 60 s
   6 times     CUDA-event medians: v1 and v5 forward ms at 440x1024, B=1
               (TF32 off and PyTorch's default, and the main paths under
               the eval step's arithmetic), v5's DexiNed and prelude
@@ -743,6 +762,55 @@ def phase_conv_search(torch, dev) -> dict:
     return rec
 
 
+def phase_conv_threads(torch, dev) -> dict:
+    """Where cuDNN's search results live: the motion encoder's two 3x3
+    convs at the 55x128 map and batch 3 (a shape no other phase runs),
+    under the eval step's arithmetic, wall ms (synchronized) of the first
+    and second call on the main thread, on a fresh thread, and on a
+    device.DeviceThread after one call there. A first call on a fresh
+    thread as slow as the main thread's first says the search is kept per
+    thread, which is why the service runs its forwards on DeviceThreads."""
+    import threading
+
+    import torch.nn as nn
+
+    from dexiraft_tpu_torch.device import DeviceThread
+    from dexiraft_tpu_torch.train.step import eval_arithmetic
+
+    convs = [nn.Conv2d(256, c, 3, padding=1).to(dev) for c in (192, 126)]
+    x = torch.randn(3, 256, SINTEL_BUCKET[0] // 8, SINTEL_BUCKET[1] // 8,
+                    device=dev)
+
+    @torch.inference_mode()
+    def call_ms():
+        with eval_arithmetic(False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for conv in convs:
+                conv(x)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+    rec = {"phase": "conv_threads", "tf32": False, "batch": 3,
+           "main_first_ms": call_ms(), "main_again_ms": call_ms()}
+    fresh = {}
+
+    def on_fresh_thread():
+        fresh["first"] = call_ms()
+        fresh["again"] = call_ms()
+
+    t = threading.Thread(target=on_fresh_thread)
+    t.start()
+    t.join()
+    rec["fresh_thread_first_ms"] = fresh["first"]
+    rec["fresh_thread_again_ms"] = fresh["again"]
+    worker = DeviceThread("conv-threads")
+    rec["device_thread_first_ms"] = worker.call(call_ms)
+    rec["device_thread_again_ms"] = worker.call(call_ms)
+    emit(rec)
+    return rec
+
+
 def phase_variants(torch, ck, dev) -> dict:
     """v2, v3 and v4 at full width, batch 1, one Sintel pair padded to the
     440x1024 bucket (v2/v3 with seeded uint8 edge frames), ITERS
@@ -1040,6 +1108,338 @@ def phase_video(torch, ck, dev) -> dict:
     return rec
 
 
+# the serve phase's traffic
+SERVE_CLIENTS = 8
+SERVE_REQUESTS = 24
+SERVE_GEOMS = ((436, 1024), (375, 1242))  # Sintel 440x1024, KITTI 376x1248
+SERVE_BATCH = 2
+SERVE_CLI_GEOM = "440x1024"
+
+
+def arithmetic_flags(torch) -> dict:
+    """The process-global flags the eval step sets while it runs."""
+    c = torch.backends.cudnn
+    return {"cudnn_enabled": c.enabled, "cudnn_benchmark": c.benchmark,
+            "cudnn_deterministic": c.deterministic,
+            "cudnn_allow_tf32": c.allow_tf32,
+            "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+
+
+def http_post(url, path, body, session=None, timeout=300.0):
+    """POST an npz body; (response body, headers)."""
+    import urllib.request
+
+    headers = {"Content-Type": "application/x-npz"}
+    if session:
+        headers["X-Session-Id"] = session
+    req = urllib.request.Request(url + path, data=body, headers=headers)
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.read(), dict(r.headers)
+
+
+def http_json(url, path):
+    import urllib.request
+
+    with urllib.request.urlopen(url + path, timeout=60) as r:
+        return json.load(r)
+
+
+def phase_serve(torch, ck, dev) -> dict:
+    """The flow service on v5's main path (flash fused, B1) through the
+    CLI's builders (serve_cli: synthetic init, eval step, engine with
+    device carry, carry splat, VideoEngine, warmup) and a FlowService on
+    an ephemeral port, under the eval step's own arithmetic. Warm-up of
+    the Sintel and KITTI buckets, then with B1's count set to 0: 8 client
+    threads send 24 pair requests over HTTP, one session sends 3 chained
+    requests, and one 3-frame /v1/flow/stream chunk runs while the pair
+    traffic does. Checked: every flow_up of its input's (H, W, 2) and
+    finite; B1 launched ITERS x (dispatched batches + stream flows) and no
+    other kernel; an HTTP flow_up against engine.run_batch on the same
+    pair, the warm session request against the eval step with flow_init =
+    forward_interpolate(the previous flow_low), and the stream chunk
+    against the same chunk run alone, each <= TOL_FLOW_PX; the global
+    cuDNN/matmul flags as before; every admitted request completed after
+    drain_and_stop. Measured: requests/s and the scheduler's p50/p99
+    latency at concurrency 8, the engine's fetch and dispatch seconds
+    (also of an engine.stream at inflight 1 and 2), carry bytes per warm
+    request, device memory."""
+    import threading
+
+    from dexiraft_tpu_torch import serve_cli
+    from dexiraft_tpu_torch.data.padder import InputPadder
+    from dexiraft_tpu_torch.eval.interpolate import forward_interpolate
+    from dexiraft_tpu_torch.serve.engine import InferenceEngine, ServeConfig
+    from dexiraft_tpu_torch.serve.server import (FlowService, decode_response,
+                                                 decode_stream_response,
+                                                 encode_request,
+                                                 encode_stream_request)
+    from dexiraft_tpu_torch.train.step import make_eval_step
+
+    flags_before = arithmetic_flags(torch)
+    args = serve_cli.build_parser().parse_args(
+        ["--synthetic_init", "--variant", "v5", "--corr_impl", "flash",
+         "--fused_update", "--batch_size", str(SERVE_BATCH), "--iters",
+         str(ITERS), "--bucket_multiple", "8", "--port", "0"])
+    cfg, model = serve_cli._load(args, dev)
+    eval_fn = serve_cli._make_eval_fn(args, model, args.iters, dev)
+    engine = InferenceEngine(
+        eval_fn, ServeConfig.from_args(args, mode=args.mode, warm_start=True,
+                                       device_carry=True), device=dev)
+    splat = serve_cli._make_carry_fn(dev, device=True)
+    carries = []  # (flow_low, carry) of every splat, in order
+
+    def carry_fn(low):
+        out = splat(low)
+        carries.append((low.clone(), out))
+        return out
+
+    video = serve_cli._make_video_engine(args, cfg, model, dev, True)
+    geoms = [f"{h}x{w}" for h, w in SERVE_GEOMS]
+    t0 = time.perf_counter()
+    search_s = serve_cli._warmup(engine, geoms, carry_fn, video)
+    rec = {"phase": "serve", "model": "v5", "path": "flash_fused",
+           "iters": ITERS, "batch_size": SERVE_BATCH, "tf32": False,
+           "warmup_s": time.perf_counter() - t0,
+           "warmup_pair_search_s": search_s, "warmup_geoms": geoms}
+    carries.clear()
+    svc = FlowService(engine, port=0, slo_ms=args.slo_ms,
+                      max_queue=args.max_queue, max_iters=args.iters,
+                      min_iters=args.min_iters,
+                      session_ttl_s=args.session_ttl_s, carry_fn=carry_fn,
+                      request_timeout_s=args.request_timeout_s,
+                      video=video).start()
+    try:
+        items = [it for k in range(SERVE_REQUESTS // len(PAIRS))
+                 for it in frame_pairs(seed=100 + k)]
+        chain = sintel_frames(seed=7, n=4)
+        chunk = sintel_frames(seed=9, n=3)
+        flows = [None] * len(items)
+        session_flows, errors = [], []
+        stream_out = {}
+        started = threading.Event()
+        ck.reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+        def client(k):
+            try:
+                for i in range(k, len(items), SERVE_CLIENTS):
+                    started.set()
+                    body, _ = http_post(svc.url, "/v1/flow", encode_request(
+                        items[i]["image1"], items[i]["image2"]))
+                    flows[i] = decode_response(body)
+            except Exception as e:  # reported below, fails the phase
+                errors.append(f"client {k}: {type(e).__name__}: {e}")
+
+        def session():
+            try:
+                for j in range(3):
+                    body, hdr = http_post(
+                        svc.url, "/v1/flow",
+                        encode_request(chain[j], chain[j + 1]), session="cam")
+                    session_flows.append((decode_response(body),
+                                          hdr["X-Warm-Start"]))
+            except Exception as e:
+                errors.append(f"session: {type(e).__name__}: {e}")
+
+        def stream():
+            started.wait(60)
+            try:
+                body, hdr = http_post(svc.url, "/v1/flow/stream",
+                                      encode_stream_request(np.stack(chunk)),
+                                      session="stream")
+                stream_out["flows"] = decode_stream_response(body)
+                stream_out["headers"] = {k: hdr[k] for k in (
+                    "X-Warm-Start", "X-Frames-In", "X-Flows-Out")}
+            except Exception as e:
+                errors.append(f"stream: {type(e).__name__}: {e}")
+
+        threads = ([threading.Thread(target=client, args=(k,))
+                    for k in range(SERVE_CLIENTS)]
+                   + [threading.Thread(target=session),
+                      threading.Thread(target=stream)])
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ck.LAUNCHES)
+        stats = http_json(svc.url, "/stats")
+        health = http_json(svc.url, "/healthz")
+    finally:
+        drained = svc.drain_and_stop(timeout=300.0)
+    sched = stats["scheduler"]
+    requests = len(items) + 3
+    rec.update(
+        launches=launches, wall_s=wall, requests=requests,
+        requests_per_s=requests / wall,
+        latency_p50_ms=sched["latency_p50_ms"],
+        latency_p99_ms=sched["latency_p99_ms"],
+        wait_p50_ms=sched["wait_p50_ms"], wait_p99_ms=sched["wait_p99_ms"],
+        dispatch_full=sched["dispatch_full"],
+        dispatch_slo=sched["dispatch_slo"],
+        mean_batch_fill=sched["mean_batch_fill"],
+        fetch_s=engine.stats.fetch_s, dispatch_s=engine.stats.dispatch_s,
+        engine=stats["engine"], health=health, locks=stats["locks"],
+        video=stats["video"], stream_headers=stream_out.get("headers"),
+        session_warm=[w for _, w in session_flows],
+        max_memory_allocated_bytes=torch.cuda.max_memory_allocated(dev),
+        memory_reserved_bytes=torch.cuda.memory_reserved(dev),
+        drained=drained, completed=svc.scheduler.stats.completed)
+    warm = sum(w == "1" for _, w in session_flows)
+    rec["carry_bytes_per_warm_request"] = (
+        (engine.stats.carry_h2d_bytes + engine.stats.carry_d2h_bytes)
+        / max(warm, 1))
+    if errors:
+        emit(rec)
+        raise AssertionError(f"serve: {errors}")
+
+    # every flow_up of its input's shape and finite
+    bad = [i for i, (f, it) in enumerate(zip(flows, items))
+           if f is None or f.shape != it["image1"].shape[:2] + (2,)
+           or not np.isfinite(f).all()]
+    bad += [f"session {j}" for j, (f, _) in enumerate(session_flows)
+            if f.shape != chain[0].shape[:2] + (2,)
+            or not np.isfinite(f).all()]
+    sflows = stream_out["flows"]
+    if sflows.shape != (2,) + chunk[0].shape[:2] + (2,) \
+            or not np.isfinite(sflows).all():
+        bad.append(f"stream {sflows.shape}")
+    batches = engine.stats.batches
+    expect = ITERS * (batches + len(sflows))
+    rec["b1_launches_expected"] = expect
+
+    # HTTP against the engine and the eval step, the stream against a solo
+    # run of the same chunk (the service is stopped: nothing else runs)
+    (direct,) = engine.run_batch([dict(items[0])])
+    rec["http_vs_run_batch_px"] = float(np.abs(flows[0]
+                                               - direct.flow_up).max())
+    step = make_eval_step(model, ITERS, dev)
+    pad = InputPadder(chain[0].shape, args.mode, target=SINTEL_BUCKET)
+    prev_low = carries[1][0]
+    low, up = step(pad_batch(pad, chain[2:3]), pad_batch(pad, chain[3:4]),
+                   forward_interpolate(prev_low)[None])
+    rec["warm_session_vs_eval_step_px"] = float(np.abs(
+        session_flows[2][0] - pad.unpad(up[0].cpu().numpy())).max())
+    solo = video.process_chunk(None, np.stack(chunk))
+    rec["stream_vs_solo_px"] = float(max(
+        np.abs(a - b).max() for a, b in zip(sflows, solo.flows)))
+    rec["flags_before"], rec["flags_after"] = (flags_before,
+                                               arithmetic_flags(torch))
+
+    # the in-flight window: engine.stream over Sintel pairs at 1 and 2
+    sintel = [it for it in items
+              if it["image1"].shape[:2] == PAIRS[0][0]][:8]
+    for inflight in (1, 2):
+        eng = InferenceEngine(eval_fn, ServeConfig(
+            batch_size=SERVE_BATCH, inflight=inflight), device=dev)
+        list(eng.stream([dict(it) for it in sintel[:SERVE_BATCH]]))
+        eng.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = len(list(eng.stream([dict(it) for it in sintel])))
+        rec[f"stream_inflight{inflight}"] = {
+            "pairs": n, "batches": eng.stats.batches,
+            "wall_s": time.perf_counter() - t0,
+            "fetch_s": eng.stats.fetch_s,
+            "dispatch_s": eng.stats.dispatch_s,
+            "peak_inflight": eng.stats.peak_inflight}
+    emit(rec)
+
+    others = {k: v for k, v in launches.items() if k != "flash_fused_step"}
+    if bad:
+        raise AssertionError(f"serve: bad flows {bad}")
+    if launches["flash_fused_step"] != expect or any(others.values()):
+        raise AssertionError(f"serve: launches {launches}, expected "
+                             f"{expect} B1 ({batches} batches + "
+                             f"{len(sflows)} stream flows) and no other")
+    worst = max(rec["http_vs_run_batch_px"],
+                rec["warm_session_vs_eval_step_px"], rec["stream_vs_solo_px"])
+    if worst > TOL_FLOW_PX:
+        raise AssertionError(f"serve: HTTP vs direct {worst} px (tol "
+                             f"{TOL_FLOW_PX})")
+    if rec["session_warm"] != ["0", "1", "1"]:
+        raise AssertionError(f"serve: session warm {rec['session_warm']}")
+    if rec["flags_after"] != flags_before:
+        raise AssertionError(f"serve: global flags moved: {flags_before} -> "
+                             f"{rec['flags_after']}")
+    if not drained or rec["completed"] != requests:
+        raise AssertionError(f"serve: completed {rec['completed']} of "
+                             f"{requests} (drained {drained})")
+    return rec
+
+
+def phase_serve_cli(torch) -> dict:
+    """``python -m dexiraft_tpu_torch serve --synthetic_init --variant v1
+    --port 0 --warmup 440x1024`` in a child process: its ``listening on``
+    line, 2 POSTed pairs (200, flows of the input's shape, finite), the
+    child's device memory (its /stats), then SIGTERM: exit 0 within 60
+    s."""
+    import re
+    import signal
+    import threading
+
+    from dexiraft_tpu_torch.serve.server import decode_response, encode_request
+
+    cmd = [sys.executable, "-m", "dexiraft_tpu_torch", "serve",
+           "--synthetic_init", "--variant", "v1", "--port", "0",
+           "--warmup", SERVE_CLI_GEOM]
+    t0 = time.perf_counter()
+    child = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+    lines = []
+    rec = {"phase": "serve_cli", "cmd": " ".join(cmd[1:])}
+    try:
+        url = None
+        watchdog = threading.Timer(600, child.kill)  # a hung start fails
+        watchdog.start()
+        for line in child.stdout:
+            lines.append(line.rstrip())
+            m = re.search(r"listening on (http://\S+)", line)
+            if m:
+                url = m.group(1)
+                break
+        watchdog.cancel()
+        if url is None:
+            raise AssertionError(f"serve_cli: no 'listening on' line: "
+                                 f"{lines[-20:]}")
+        rec["startup_s"] = time.perf_counter() - t0
+        reader = threading.Thread(
+            target=lambda: lines.extend(ln.rstrip() for ln in child.stdout),
+            daemon=True)
+        reader.start()
+        shapes = []
+        for seed in (1, 2):
+            it = frame_pairs(seed)[0]
+            body, hdr = http_post(url, "/v1/flow",
+                                  encode_request(it["image1"], it["image2"]))
+            f = decode_response(body)
+            if f.shape != it["image1"].shape[:2] + (2,) \
+                    or not np.isfinite(f).all():
+                raise AssertionError(f"serve_cli: flow {f.shape}")
+            shapes.append(list(f.shape))
+        rec["flows"] = shapes
+        rec["health"] = http_json(url, "/healthz")
+        rec["child_device_memory_reserved_bytes"] = http_json(
+            url, "/stats")["service"]["device_memory_reserved_bytes"]
+        t1 = time.perf_counter()
+        child.send_signal(signal.SIGTERM)
+        rc = child.wait(timeout=60)
+        rec["sigterm_to_exit_s"] = time.perf_counter() - t1
+        rec["rc"] = rc
+        reader.join(5)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    rec["log_tail"] = lines[-6:]
+    emit(rec)
+    if rc != 0:
+        raise AssertionError(f"serve_cli: exit {rc}: {lines[-20:]}")
+    return rec
+
+
 def profile_forward(torch, forward, kernel_key: str) -> dict:
     """One forward under torch.profiler: device time by kernel (the eight
     largest), the share of the correlation kernels whose name holds
@@ -1275,6 +1675,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(0)
     phase_conv_search(torch, dev)  # before any other convolution
+    phase_conv_threads(torch, dev)
 
     worst = phase_kernels(torch, ck, gen, dev)
     worst.update(phase_kernels_v5(torch, ck, gen, dev))
@@ -1300,6 +1701,9 @@ def main(argv=None) -> int:
     phase_variants(torch, ck, dev)
     phase_adaptive(torch, ck, dev)
     phase_video(torch, ck, dev)
+    # the flow service on the main path, in process and as the CLI
+    serve = phase_serve(torch, ck, dev)
+    phase_serve_cli(torch)
     times = phase_times(torch, ck, gen, dev, v1_models, v5_models, smi)
 
     pc = "dexiraft_tpu/ops/pallas_corr.py"
@@ -1319,6 +1723,8 @@ def main(argv=None) -> int:
                      worst["pallas_local_corr_level"], times, "v5_pallas",
                      False),
     ]
+    # B1's launches on this slice's path, the service
+    kernels[0]["serve_launches"] = serve["launches"]["flash_fused_step"]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

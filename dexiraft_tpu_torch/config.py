@@ -47,6 +47,22 @@ def resolve_corr_impl(impl: str, platform: str) -> Tuple[str, bool]:
     return impl, False
 
 
+def resolve_corr_impl_args(args, platform: str, label: str) -> Tuple[str, bool]:
+    """The CLI glue around :func:`resolve_corr_impl`: merge the
+    --fused_update flag into the resolution, refuse fused on a non-kernel
+    impl with a one-line error, and announce what "auto" resolved to."""
+    impl, fused_auto = resolve_corr_impl(args.corr_impl, platform)
+    fused = args.fused_update or fused_auto
+    if fused and impl not in ("pallas", "flash"):
+        raise SystemExit(f"{label}: --fused_update requires --corr_impl "
+                         "flash or pallas (pass one explicitly — 'auto' "
+                         "resolves to local off the card)")
+    if args.corr_impl == "auto":
+        print(f"[{label}] corr_impl auto -> {impl}"
+              f"{' + fused_update' if fused else ''}", flush=True)
+    return impl, fused
+
+
 # fields that exist for parity with the JAX config but that the port does
 # not implement yet: name -> the only value accepted
 _UNPORTED_DEFAULTS = {
@@ -55,6 +71,13 @@ _UNPORTED_DEFAULTS = {
     "remat_policy": "full",
     "remat_lookup": False,
     "scan_unroll": 1,
+}
+# the ROADMAP item that ports each of them
+_UNPORTED_ITEMS = {
+    "mixed_precision": "A2",
+    "remat": "A10",
+    "remat_policy": "A10",
+    "remat_lookup": "A10",
 }
 
 
@@ -127,10 +150,12 @@ class RAFTConfig:
                 f"0 disables the gate), got {self.converge_tol}")
         for name, default in _UNPORTED_DEFAULTS.items():
             if getattr(self, name) != default:
+                item = _UNPORTED_ITEMS.get(name)
                 raise ValueError(
                     f"{name}={getattr(self, name)!r} is not supported by the "
-                    f"PyTorch port yet (only {default!r}); use the JAX "
-                    "package (dexiraft_tpu) for it")
+                    f"PyTorch port yet (only {default!r}"
+                    + (f"; ROADMAP {item}" if item else "")
+                    + "); use the JAX package (dexiraft_tpu) for it")
 
     @property
     def radius(self) -> int:

@@ -94,7 +94,8 @@ class RAFT(nn.Module):
                 "variants (raft_v1 ... raft_v5 in config.py)")
         if cfg.corr_impl not in PORTED_CORR_IMPLS:
             raise ValueError(
-                f"corr_impl {cfg.corr_impl!r} is not ported to PyTorch yet; "
+                f"corr_impl {cfg.corr_impl!r} is not ported to PyTorch yet "
+                "(the all-pairs path is ROADMAP A9); "
                 f"expected one of {PORTED_CORR_IMPLS}")
         self.cfg = cfg
         encoder = SmallEncoder if cfg.small else BasicEncoder

@@ -43,6 +43,7 @@ went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -63,13 +64,17 @@ KERNEL_LIBRARY_OF = {
     "pallas_local_corr_level": "pallas_corr",
 }
 LAUNCHES = {name: 0 for name in KERNEL_LIBRARY_OF}
+# the service launches from several threads (the scheduler's dispatcher,
+# the streaming handlers): each count moves under this lock
+_LAUNCHES_LOCK = threading.Lock()
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _MAX_LEVELS = 8
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCHES_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def fused_reference(fmap1, fmap2_levels, coords, weight, bias, radius,
@@ -250,7 +255,8 @@ def _launch(name: str, fmap1: torch.Tensor, levels: Sequence[torch.Tensor],
     if rc != 0:
         raise RuntimeError(f"{name}: {library} kernel launch failed "
                            f"({rc}: {_launch_error(rc, lib)})")
-    LAUNCHES[name] += 1
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
     return out.permute(0, 2, 3, 1)
 
 

@@ -1,13 +1,20 @@
-"""Device-resident streaming carry: stream id -> the newest frame's
-features and the splatted flow seed.
+"""Session carry: stream id -> the newest warm-start seed.
 
-Counterpart of ``DeviceSessionStore`` and ``carry_nbytes`` in
-``dexiraft_tpu/serve/sessions.py``. The carry is bucket-scoped (features
-and seed live at the padded bucket's 1/8 resolution), so a stream whose
-frames move to another bucket restarts cold, counted; a stream silent
-for ``ttl_s`` expires; at most ``max_sessions`` streams live; and on top
-of that a byte budget governs admission, since the carry is CUDA memory.
-Thread-safe: one lock, no device work under it.
+Counterpart of ``dexiraft_tpu/serve/sessions.py``, two stores:
+
+  * :class:`SessionStore`, the pair service's flow-seed carry: one
+    (h/8, w/8, 2) seed per stream (``X-Session-Id``), the previous
+    request's splatted flow_low, a host array or a device tensor;
+  * :class:`DeviceSessionStore`, the streaming tier's carry: the newest
+    frame's features and the splatted flow seed, on the device, under a
+    byte budget as well, since the carry is CUDA memory.
+
+Both are bucket-scoped (the carry lives at the padded bucket's 1/8
+resolution), so a stream whose frames move to another bucket restarts
+cold, counted; a stream silent for ``ttl_s`` expires (lazily, on every
+get/put, and in a sweep on ``stats_record``); at most ``max_sessions``
+streams live, the least recently used evicted first. Thread-safe: one
+lock each, no device work under it.
 """
 
 from __future__ import annotations
@@ -16,7 +23,128 @@ import collections
 import time
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
+
 from dexiraft_tpu_torch.serve.locks import OrderedLock
+
+
+class _Entry:
+    __slots__ = ("bucket", "carry", "t_touch")
+
+    def __init__(self, bucket: Tuple[int, int], carry: Any,
+                 t_touch: float):
+        self.bucket = bucket
+        self.carry = carry
+        self.t_touch = t_touch
+
+
+class SessionStore:
+    """TTL+LRU map: stream id -> (bucket, latest flow carry)."""
+
+    def __init__(self, ttl_s: float = 60.0, max_sessions: int = 1024,
+                 clock=None):
+        if ttl_s <= 0:
+            raise ValueError(f"ttl_s must be > 0, got {ttl_s}")
+        if max_sessions < 1:
+            raise ValueError(f"max_sessions must be >= 1, got {max_sessions}")
+        self.ttl_s = ttl_s
+        self.max_sessions = max_sessions
+        self.clock = clock if clock is not None else time.monotonic
+        self._lock = OrderedLock("serve.sessions.store")
+        # insertion order == recency order (move_to_end on touch)
+        self._entries: "collections.OrderedDict[str, _Entry]" = \
+            collections.OrderedDict()
+        self.hits = 0
+        self.misses = 0            # unknown id (fresh stream)
+        self.expired = 0           # TTL evictions
+        self.lru_evicted = 0       # max_sessions evictions
+        self.bucket_resets = 0     # geometry moved buckets -> cold restart
+
+    # ---- internal (lock held) ------------------------------------------
+
+    def _sweep(self, now: float) -> None:
+        """Drop every TTL-expired entry (oldest-touched first)."""
+        dead = [sid for sid, e in self._entries.items()
+                if now - e.t_touch > self.ttl_s]
+        for sid in dead:
+            del self._entries[sid]
+        self.expired += len(dead)
+
+    # ---- handler-thread API --------------------------------------------
+
+    def get(self, session_id: str,
+            bucket: Tuple[int, int]) -> Any:
+        """The stream's carry for this bucket, or None (cold start:
+        unknown id, TTL-expired, or the stream changed buckets)."""
+        now = self.clock()
+        with self._lock:
+            e = self._entries.get(session_id)
+            if e is None:
+                self.misses += 1
+                return None
+            if now - e.t_touch > self.ttl_s:
+                del self._entries[session_id]
+                self.expired += 1
+                return None
+            if e.bucket != bucket:
+                # misaligned seed is worse than a cold start — restart
+                del self._entries[session_id]
+                self.bucket_resets += 1
+                return None
+            e.t_touch = now
+            self._entries.move_to_end(session_id)
+            self.hits += 1
+            return e.carry
+
+    def put(self, session_id: str, bucket: Tuple[int, int],
+            carry: Any) -> None:
+        """Record the stream's newest carry (frame j's splatted flow_low).
+        Host numpy or a device tensor: the device-resident handoff
+        (serve_cli's default) stores the tensor as it is (converting it
+        would be the host round trip the handoff removes), while
+        list-like host input still normalizes."""
+        if not hasattr(carry, "shape"):
+            carry = np.asarray(carry)
+        now = self.clock()
+        with self._lock:
+            self._sweep(now)
+            e = self._entries.get(session_id)
+            if e is None:
+                while len(self._entries) >= self.max_sessions:
+                    self._entries.popitem(last=False)
+                    self.lru_evicted += 1
+                self._entries[session_id] = _Entry(bucket, carry, now)
+            else:
+                e.bucket = bucket
+                e.carry = carry
+                e.t_touch = now
+                self._entries.move_to_end(session_id)
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+    def reset_counters(self) -> None:
+        """Zero the flow counters (the /stats?reset=1 scrape window
+        handoff); live sessions — the actual carry state — survive."""
+        with self._lock:
+            self.hits = self.misses = self.expired = 0
+            self.lru_evicted = self.bucket_resets = 0
+
+    def stats_record(self) -> dict:
+        """Self-describing blob for the /stats endpoint."""
+        with self._lock:
+            self._sweep(self.clock())
+            return {
+                "active": len(self._entries),
+                "ttl_s": self.ttl_s,
+                "max_sessions": self.max_sessions,
+                "hits": self.hits,
+                "misses": self.misses,
+                "expired": self.expired,
+                "lru_evicted": self.lru_evicted,
+                "bucket_resets": self.bucket_resets,
+            }
 
 
 def carry_nbytes(features: Dict[str, Any], flow_init: Any) -> int:
@@ -151,6 +279,14 @@ class DeviceSessionStore:
             self.bytes_in_use += nbytes
             self._evict_to_fit(keep=session_id)
             self.peak_bytes = max(self.peak_bytes, self.bytes_in_use)
+
+    def drop(self, session_id: str) -> bool:
+        """Forget one stream; True if it existed."""
+        with self._lock:
+            if session_id not in self._entries:
+                return False
+            self._drop(session_id)
+            return True
 
     def __len__(self) -> int:
         with self._lock:

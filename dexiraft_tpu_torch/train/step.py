@@ -10,13 +10,15 @@ Each step states its own arithmetic rather than inheriting PyTorch's
 global flags: cuDNN's TF32 convolutions follow ``tf32`` (``EVAL_TF32``
 unless the caller says otherwise), matmuls run in full fp32, and cuDNN
 picks each convolution's algorithm by timing its deterministic candidates
-at the first call of a shape (``benchmark``, ``deterministic``), for the
-duration of each call; the global flags are restored when it returns.
+at the first call of a shape (``benchmark``, ``deterministic``), while
+any call runs, on any thread; the global flags are restored when the
+last one returns (``eval_arithmetic``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -35,12 +37,59 @@ EVAL_TF32 = False
 Features = Dict[str, torch.Tensor]
 
 
+class _Arithmetic:
+    """Who is inside :func:`eval_arithmetic`, process-wide.
+
+    The flags it sets are process-global, and forwards run on several
+    threads at once (the scheduler's dispatcher and the streaming
+    handlers of serve/server.py). So the flags are set when the first
+    forward enters (depth 0 -> 1) and restored when the last one leaves
+    (1 -> 0); a forward that asks for another TF32 setting waits until
+    the forwards of the current setting have left. The mutex guards this
+    bookkeeping only; forwards of one setting run concurrently."""
+
+    def __init__(self):
+        self.cv = threading.Condition(threading.Lock())
+        self.depth = 0
+        self.tf32: Optional[bool] = None
+        self.saved = None
+
+    def enter(self, tf32: bool) -> None:
+        with self.cv:
+            while self.depth and self.tf32 != tf32:
+                self.cv.wait()
+            if not self.depth:
+                matmul = torch.backends.cuda.matmul
+                cudnn = torch.backends.cudnn
+                self.saved = (matmul.allow_tf32, cudnn.set_flags(
+                    _enabled=cudnn.enabled, _benchmark=True,
+                    _deterministic=True, _allow_tf32=tf32))
+                matmul.allow_tf32 = False
+                self.tf32 = tf32
+            self.depth += 1
+
+    def leave(self) -> None:
+        with self.cv:
+            self.depth -= 1
+            if not self.depth:
+                matmul_tf32, cudnn_flags = self.saved
+                torch.backends.cudnn.set_flags(*cudnn_flags)
+                torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+                self.tf32 = self.saved = None
+                self.cv.notify_all()
+
+
+_ARITHMETIC = _Arithmetic()
+
+
 @contextlib.contextmanager
 def eval_arithmetic(tf32: bool):
     """cuDNN's TF32 flag set to ``tf32``, fp32 matmuls, and cuDNN's
     algorithm search over its deterministic algorithms (``benchmark``,
     ``deterministic``) for the body; the global flags as they were
-    afterwards.
+    afterwards. Safe across threads (:class:`_Arithmetic`): the flags
+    hold for every body running on any thread, and are restored when the
+    last one leaves.
 
     The search matters: with TF32 off, cuDNN's heuristic choice for the
     motion encoder's 3x3 convs (256 -> 192 and 256 -> 126 channels) at
@@ -52,16 +101,11 @@ def eval_arithmetic(tf32: bool):
     the step's output the same from call to call: an unrestricted search
     may pick one that is not, and two calls then differ in the last bit
     of the flow."""
-    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
-    matmul_tf32 = matmul.allow_tf32
+    _ARITHMETIC.enter(tf32)
     try:
-        matmul.allow_tf32 = False
-        with cudnn.flags(enabled=cudnn.enabled, benchmark=True,
-                         benchmark_limit=cudnn.benchmark_limit,
-                         deterministic=True, allow_tf32=tf32):
-            yield
+        yield
     finally:
-        matmul.allow_tf32 = matmul_tf32
+        _ARITHMETIC.leave()
 
 
 def _nchw(dev: torch.device):

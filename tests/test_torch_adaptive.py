@@ -253,7 +253,7 @@ class TestAdaptiveEngine:
         (r3,) = eng.run_batch([_item()], iter_budget=3)
         assert r3.iters_used == 3
         # the tail filler row of the last batch is not sampled
-        assert eng.stats.iters_used == [_FULL, _FULL, 3]
+        assert list(eng.stats.iters_used) == [_FULL, _FULL, 3]
         assert len(eng.stats.final_delta) == 3
 
     def test_fixed_engine_refuses_budget(self):
@@ -264,7 +264,7 @@ class TestAdaptiveEngine:
             list(eng.stream([_item()], iter_budget=4))
         (r,) = eng.run_batch([_item()])
         assert r.iters_used is None and r.final_delta is None
-        assert eng.stats.iters_used == []
+        assert list(eng.stats.iters_used) == []
 
     def test_stream_threads_budget_through(self):
         eng = InferenceEngine(_stub_adaptive,

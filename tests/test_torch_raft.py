@@ -189,9 +189,10 @@ def test_resolve_corr_impl():
 
 
 def test_package_imports_no_jax():
-    """The port's package, model, engine, kernel, bridge, splat, session
-    and video modules load neither jax/flax nor any dexiraft_tpu module (a subprocess: this test
-    process has jax loaded by conftest)."""
+    """The port's package, model, engine, kernel, bridge, splat, session,
+    video, scheduler, server and CLI modules load neither jax/flax nor any
+    dexiraft_tpu module (a subprocess: this test process has jax loaded by
+    conftest)."""
     code = (
         "import sys\n"
         "import dexiraft_tpu_torch\n"
@@ -204,6 +205,11 @@ def test_package_imports_no_jax():
         "import dexiraft_tpu_torch.serve.locks\n"
         "import dexiraft_tpu_torch.serve.sessions\n"
         "import dexiraft_tpu_torch.serve.video\n"
+        "import dexiraft_tpu_torch.serve, dexiraft_tpu_torch.serve.scheduler\n"
+        "import dexiraft_tpu_torch.serve.server\n"
+        "import dexiraft_tpu_torch.serve.httputil\n"
+        "import dexiraft_tpu_torch.profiling, dexiraft_tpu_torch.serve_cli\n"
+        "import dexiraft_tpu_torch.__main__, dexiraft_tpu_torch.device\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'dexiraft_tpu'))\n"
         "print(bad)\n")
