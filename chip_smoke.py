@@ -7,8 +7,10 @@ Drives the port's paths on the card at full width with seeded random
 weights: RAFT v1 and the v5 dual-stream Dexi-RAFT with its embedded
 DexiNed through the bucketed InferenceEngine, v2, v3 and v4 through the
 eval step, v5's convergence-gated loop, a v5 VideoEngine stream over
-the encode/refine split, and the flow service (scheduler, sessions, HTTP
-server and its CLI) on v5's main path. It builds the
+the encode/refine split, the flow service (scheduler, sessions, HTTP
+server and its CLI) on v5's main path, and training (the train step at
+the chairs geometry, the exact-GT demo, the train CLI with --resume). It
+builds the
 hand-written CUDA kernels from the sources in this checkout, holds each
 kernel against its plain PyTorch version (and each of the two
 formulations against the other), shows from the launch counters that
@@ -84,6 +86,25 @@ Phases, one JSON line each:
               carry bytes, device memory
   serve_cli   the CLI in a child process (v1, --warmup 440x1024): 2
               requests, then SIGTERM, exit 0 within 60 s
+  train       the train step at the chairs preset's geometry (368x496,
+              12 iterations, fp32, seed-0 weights, a random batch): v1 on
+              allpairs and on B1 at batch 10, v5 on B1 at the largest
+              batch <= 10 that fits without remat; ms per step (median of
+              5 after 2, CUDA events), peak allocated memory, B1 launches
+              per step (12), every loss finite and state_finite, and one
+              profiled step with the share of B1's backward recompute
+              (fused_reference); each B1 step against the corr_impl=
+              "local" step on the same weights and batch: loss within
+              1e-4 relative, flattened gradient within 1e-3 relative L2
+  train_demo  RAFT-small v1 on B1, 192x256, batch 4, 12 iterations, 200
+              steps on exact-GT warped-texture pairs: mean EPE of the
+              last 25 steps <= 0.5x the first 25; 2400 B1 launches
+  train_cli   python -m dexiraft_tpu_torch train --stage chairs
+              --corr_impl flash --fused_update on a synthetic
+              FlyingChairs_release tree in a temporary directory: 6 steps,
+              a checkpoint every 3, then --resume from a copy of step 3:
+              the resumed run starts at step 3 and logs the full run's
+              losses within 1e-5 relative
   6 times     CUDA-event medians: v1 and v5 forward ms at 440x1024, B=1
               (TF32 off and PyTorch's default, and the main paths under
               the eval step's arithmetic), v5's DexiNed and prelude
@@ -94,13 +115,16 @@ Phases, one JSON line each:
               torch.profiler breakdowns of v1 fused, v5
               pallas fused, v5 pallas lookup and v5 flash fused (the main
               path, B1 on the model's coords)
-Then the {"kernels": [...]} line, the nvidia-smi line, and last
+Then the {"kernels": [...]} line (each entry with its launches on the
+slices' paths, the service's for B1, and the train phases' counted steps
+as train_launches), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed phase exits non-zero.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import statistics
@@ -1440,6 +1464,318 @@ def phase_serve_cli(torch) -> dict:
     return rec
 
 
+TRAIN_BATCH = 10            # STANDARD_STAGES chairs: batch 10, 368x496
+TRAIN_SIZE = (368, 496)
+TRAIN_WARMUP, TRAIN_TIMED = 2, 5
+TOL_TRAIN_LOSS_REL = 1e-4   # B1 step vs corr_impl="local" step
+TOL_TRAIN_GRAD_REL_L2 = 1e-3
+TOL_RESUME_REL = 1e-5       # resumed train_cli losses vs the full run's
+
+
+def train_batch(torch, dev, b, seed):
+    """A random chairs-geometry batch on the card: uniform frames, a
+    smooth-free random GT flow (N(0, 4) px), every pixel valid."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h, w = TRAIN_SIZE
+    return {"image1": torch.rand(b, h, w, 3, generator=g, device=dev) * 255,
+            "image2": torch.rand(b, h, w, 3, generator=g, device=dev) * 255,
+            "flow": torch.randn(b, h, w, 2, generator=g, device=dev) * 4,
+            "valid": torch.ones(b, h, w, device=dev)}
+
+
+def flat_grads(torch, model):
+    return torch.cat([(p.grad if p.grad is not None
+                       else torch.zeros_like(p)).reshape(-1)
+                      for p in model.parameters()])
+
+
+def profile_train_step(torch, step_fn, state, batch, range_name) -> dict:
+    """One train step under torch.profiler: the step's device time, and
+    the device time of the kernels launched inside ``range_name`` (the
+    fused steps' backward recompute through fused_reference)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e, total=False):
+        if total:
+            return getattr(e, "device_time_total",
+                           getattr(e, "cuda_time_total", 0.0))
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    # the range appears twice: as a host event whose total device time is
+    # that of the kernels launched inside it, and as a device-side
+    # annotation spanning them, which is not a kernel and is left out
+    averages = prof.key_averages()
+    device_ms = sum(dev_us(e) for e in averages
+                    if e.device_type == DeviceType.CUDA
+                    and e.key != range_name) / 1e3
+    recompute_ms = sum(dev_us(e, total=True) for e in averages
+                       if e.key == range_name
+                       and e.device_type == DeviceType.CPU) / 1e3
+    span_ms = sum(dev_us(e) for e in averages
+                  if e.key == range_name
+                  and e.device_type == DeviceType.CUDA) / 1e3
+    if device_ms == 0:
+        return {"device_time": "not measured (profiler saw no device time)",
+                "wall_ms": wall_ms}
+    out = {"wall_ms": wall_ms, "device_ms": device_ms,
+           "device_busy_share": device_ms / wall_ms}
+    if recompute_ms:
+        out.update(recompute_ms=recompute_ms,
+                   recompute_share=recompute_ms / device_ms,
+                   recompute_span_ms=span_ms)
+    else:
+        out["recompute_share"] = "not measured (no device time in range)"
+    return out
+
+
+def train_case(torch, ck, dev, name, cfg, tc, batch, card) -> dict:
+    """ms per step (median of TRAIN_TIMED after TRAIN_WARMUP, CUDA
+    events), peak allocated memory, B1 launches per step, every step's
+    loss finite and state_finite true, and one profiled step."""
+    from dexiraft_tpu_torch.models.raft import create_model
+    from dexiraft_tpu_torch.train.state import create_state
+    from dexiraft_tpu_torch.train.step import make_train_step
+
+    state = create_state(cfg, tc, device=dev,
+                         model=create_model(cfg, seed=0, device=dev))
+    step_fn = make_train_step(cfg, tc)
+    metrics = []
+    for _ in range(TRAIN_WARMUP):
+        metrics.append(step_fn(state, batch)[1])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ck.reset_launches()
+    times = []
+    for _ in range(TRAIN_TIMED):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        metrics.append(step_fn(state, batch)[1])
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+    launches = dict(ck.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [float(m["loss"]) for m in metrics]
+    finite = [bool(m["state_finite"]) for m in metrics]
+    if not all(np.isfinite(losses)) or not all(finite):
+        raise AssertionError(f"train {name}: losses {losses}, state_finite "
+                             f"{finite}")
+    per_step = {k: v / TRAIN_TIMED for k, v in launches.items() if v}
+    expect = tc.iters if cfg.corr_impl == "flash" and cfg.fused_update else 0
+    if per_step.get("flash_fused_step", 0) != expect or any(
+            k != "flash_fused_step" for k in per_step):
+        raise AssertionError(f"train {name}: launches per step {per_step}, "
+                             f"expected {expect} of flash_fused_step only")
+    prof = profile_train_step(torch, step_fn, state, batch,
+                              ck.RECOMPUTE_RANGE)
+    rec = {"phase": "train", "case": name, "card": card,
+           "batch": tc.batch_size, "size": list(TRAIN_SIZE),
+           "iters": tc.iters, "ms_per_step": statistics.median(times),
+           "ms_per_step_min_max": [min(times), max(times)],
+           "peak_allocated_gib": peak / 2 ** 30,
+           "launches_per_step": per_step, "losses": losses,
+           "state_finite": all(finite), "profile": prof}
+    emit(rec)
+    del state, step_fn
+    torch.cuda.empty_cache()
+    return {"rec": rec, "launches": launches}
+
+
+def hold_b1_step_against_local(torch, ck, dev, name, make, tc, batch):
+    """One step of B1's path and one of the plain lookup on the same seed-0
+    weights and batch: the loss within TOL_TRAIN_LOSS_REL, the flattened
+    gradient within TOL_TRAIN_GRAD_REL_L2 (relative L2); B1 launched
+    tc.iters times by the first and never by the second."""
+    from dexiraft_tpu_torch.models.raft import RAFT, create_model
+    from dexiraft_tpu_torch.train.state import create_state
+    from dexiraft_tpu_torch.train.step import make_train_step
+
+    out = {}
+    weights = create_model(make(corr_impl="local"), seed=0,
+                           device="cpu").state_dict()
+    for path, kw in (("flash_fused", dict(corr_impl="flash",
+                                          fused_update=True)),
+                     ("local", dict(corr_impl="local"))):
+        cfg = make(**kw)
+        model = RAFT(cfg)
+        model.load_state_dict(weights, strict=True)
+        state = create_state(cfg, tc, device=dev, model=model)
+        ck.reset_launches()
+        _, m = make_train_step(cfg, tc)(state, batch)
+        torch.cuda.synchronize()
+        b1 = ck.LAUNCHES["flash_fused_step"]
+        if b1 != (tc.iters if path == "flash_fused" else 0):
+            raise AssertionError(f"train {name} {path}: {b1} B1 launches")
+        out[path] = (float(m["loss"]), flat_grads(torch, state.model))
+        del state, model
+        torch.cuda.empty_cache()
+    (l_b1, g_b1), (l_ref, g_ref) = out["flash_fused"], out["local"]
+    loss_rel = abs(l_b1 - l_ref) / abs(l_ref)
+    grad_rel = float((g_b1 - g_ref).norm() / g_ref.norm())
+    rec = {"phase": "train", "case": name,
+           "check": "B1 step vs local step, same weights and batch",
+           "loss_b1": l_b1, "loss_local": l_ref, "loss_rel_diff": loss_rel,
+           "grad_rel_l2": grad_rel, "tol_loss_rel": TOL_TRAIN_LOSS_REL,
+           "tol_grad_rel_l2": TOL_TRAIN_GRAD_REL_L2}
+    emit(rec)
+    if not (loss_rel <= TOL_TRAIN_LOSS_REL
+            and grad_rel <= TOL_TRAIN_GRAD_REL_L2):
+        raise AssertionError(f"train {name}: B1 step differs from the "
+                             f"local step: {rec}")
+
+
+def phase_train(torch, ck, dev, card) -> dict:
+    """The train step at the chairs geometry: v1 on allpairs (the CLI
+    default) and on B1 at batch 10, v5 on B1 at the largest batch <= 10
+    that fits without remat; each B1 step held against the local step."""
+    import dataclasses
+
+    from dexiraft_tpu_torch.config import STANDARD_STAGES, raft_v1, raft_v5
+
+    tc = dataclasses.replace(STANDARD_STAGES[0], iters=12)
+    batch = train_batch(torch, dev, TRAIN_BATCH, seed=1)
+    launches = {k: 0 for k in ck.LAUNCHES}
+    records = {}
+
+    def add(res):
+        for k, v in res["launches"].items():
+            launches[k] += v
+        records[res["rec"]["case"]] = res["rec"]
+
+    add(train_case(torch, ck, dev, "v1_allpairs",
+                   raft_v1(corr_impl="allpairs"), tc, batch, card))
+    add(train_case(torch, ck, dev, "v1_flash_fused",
+                   raft_v1(corr_impl="flash", fused_update=True), tc, batch,
+                   card))
+    hold_b1_step_against_local(torch, ck, dev, "v1", raft_v1, tc, batch)
+    v5_cfg = raft_v5(corr_impl="flash", fused_update=True)
+    fitted = None
+    for b in (10, 8, 6, 4, 2):
+        tb = dataclasses.replace(tc, batch_size=b)
+        try:
+            add(train_case(torch, ck, dev, "v5_flash_fused", v5_cfg, tb,
+                           {k: v[:b] for k, v in batch.items()}, card))
+            fitted = b
+        except torch.cuda.OutOfMemoryError:
+            emit({"phase": "train", "case": "v5_flash_fused", "batch": b,
+                  "fits": False})
+        # outside the handler: the exception's frames hold the tensors
+        gc.collect()
+        torch.cuda.empty_cache()
+        if fitted is not None:
+            break
+    if fitted is None:
+        raise AssertionError("train v5: no batch <= 10 fits without remat")
+    emit({"phase": "train", "case": "v5_flash_fused",
+          "largest_batch_without_remat": fitted})
+    hold_b1_step_against_local(
+        torch, ck, dev, "v5", raft_v5, dataclasses.replace(tc, batch_size=2),
+        {k: v[:2] for k, v in batch.items()})
+    return {"launches": launches, "records": records, "v5_batch": fitted}
+
+
+def phase_train_demo(torch, ck, dev, card) -> dict:
+    """RAFT-small v1 on B1, 192x256, batch 4, 12 iterations, 200 steps on
+    exact-GT synthetic pairs: the mean EPE of the last 25 steps must be at
+    most half that of the first 25."""
+    from dexiraft_tpu_torch.train_demo import run_demo
+
+    ck.reset_launches()
+    out = run_demo(steps=200, batch=4, size=(192, 256), corr_impl="flash",
+                   fused_update=True, device=str(dev), log=lambda m: None)
+    torch.cuda.synchronize()
+    launches = dict(ck.LAUNCHES)
+    epe = out["epe"]
+    first, last = float(np.mean(epe[:25])), float(np.mean(epe[-25:]))
+    rec = {"phase": "train_demo", "card": card, "steps": len(epe),
+           "epe_first25": first, "epe_last25": last,
+           "epe_every_25": [float(np.mean(epe[i:i + 25]))
+                            for i in range(0, len(epe), 25)],
+           "steps_per_s": out["steps_per_s"],
+           "first_step_s": out["first_step_s"], "launches": launches}
+    emit(rec)
+    if launches["flash_fused_step"] != 200 * 12 or not last <= 0.5 * first:
+        raise AssertionError(f"train_demo: {rec}")
+    return {"launches": launches, "rec": rec}
+
+
+def phase_train_cli(torch, card) -> dict:
+    """python -m dexiraft_tpu_torch train --stage chairs --corr_impl flash
+    --fused_update on a synthetic FlyingChairs_release tree in a temporary
+    directory, 6 steps with a checkpoint every 3; then --resume from a copy
+    of the step-3 checkpoint: the resumed run starts at step 3 and its
+    losses match the full run's within TOL_RESUME_REL."""
+    import shutil
+    import tempfile
+
+    from dexiraft_tpu_torch.data.flow_io import write_flo, write_ppm
+
+    common = ["--stage", "chairs", "--corr_impl", "flash", "--fused_update",
+              "--num_steps", "6", "--val_freq", "3", "--sum_freq", "1",
+              "--num_workers", "4"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        data = os.path.join(tmp, "FlyingChairs_release", "data")
+        os.makedirs(data)
+        rng = np.random.default_rng(0)
+        n = 20
+        for i in range(n):
+            for k in (1, 2):
+                write_ppm(os.path.join(data, f"{i:05d}_img{k}.ppm"),
+                          rng.integers(0, 256, (384, 512, 3), np.uint8))
+            write_flo(os.path.join(data, f"{i:05d}_flow.flo"),
+                      rng.normal(0, 4, (384, 512, 2)).astype(np.float32))
+        with open(os.path.join(tmp, "FlyingChairs_release",
+                               "chairs_split.txt"), "w") as f:
+            f.write("\n".join(["1"] * n))
+        env = dict(os.environ, DEXIRAFT_DATA_DIR=tmp,
+                   PYTHONPATH=REPO + os.pathsep + os.environ.get(
+                       "PYTHONPATH", ""))
+
+        def run(name, extra):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "dexiraft_tpu_torch", "train",
+                 "--name", name, "--log_dir", "runs"] + common + extra,
+                cwd=tmp, env=env, capture_output=True, text=True,
+                timeout=420)
+            if proc.returncode != 0:
+                raise AssertionError(
+                    f"train_cli {name} exited {proc.returncode}: "
+                    f"{proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+            with open(os.path.join(tmp, "runs", name, "metrics.jsonl")) as f:
+                rows = [json.loads(line) for line in f]
+            return ({r["step"]: r["loss"] for r in rows if "loss" in r},
+                    proc.stdout, time.perf_counter() - t0)
+
+        full, out_full, s_full = run("full", [])
+        shutil.copytree(os.path.join(tmp, "checkpoints", "full", "3"),
+                        os.path.join(tmp, "checkpoints", "resumed", "3"))
+        resumed, out_res, s_res = run("resumed", ["--resume"])
+    rel = {s: abs(resumed[s] - full[s]) / abs(full[s]) for s in resumed}
+    rec = {"phase": "train_cli", "card": card, "full_losses": full,
+           "resumed_losses": resumed, "rel_diff": rel,
+           "resumed_from_step_3": "Resumed full state at step 3" in out_res,
+           "seconds": [s_full, s_res], "tol_rel": TOL_RESUME_REL}
+    emit(rec)
+    if (sorted(full) != [1, 2, 3, 4, 5, 6] or sorted(resumed) != [4, 5, 6]
+            or not rec["resumed_from_step_3"]
+            or not all(np.isfinite(list(full.values())))
+            or max(rel.values()) > TOL_RESUME_REL):
+        raise AssertionError(f"train_cli: {rec}")
+    return rec
+
+
 def profile_forward(torch, forward, kernel_key: str) -> dict:
     """One forward under torch.profiler: device time by kernel (the eight
     largest), the share of the correlation kernels whose name holds
@@ -1704,6 +2040,11 @@ def main(argv=None) -> int:
     # the flow service on the main path, in process and as the CLI
     serve = phase_serve(torch, ck, dev)
     phase_serve_cli(torch)
+    # training: the train step at the chairs geometry, the demo that
+    # learns, and the CLI with --resume, each through B1 where fused
+    train = phase_train(torch, ck, dev, smi)
+    demo = phase_train_demo(torch, ck, dev, smi)
+    phase_train_cli(torch, smi)
     times = phase_times(torch, ck, gen, dev, v1_models, v5_models, smi)
 
     pc = "dexiraft_tpu/ops/pallas_corr.py"
@@ -1723,8 +2064,12 @@ def main(argv=None) -> int:
                      worst["pallas_local_corr_level"], times, "v5_pallas",
                      False),
     ]
-    # B1's launches on this slice's path, the service
+    # B1's launches on the service's path, and each kernel's on the train
+    # phases' counted steps (the timed train steps and the demo)
     kernels[0]["serve_launches"] = serve["launches"]["flash_fused_step"]
+    for entry in kernels:
+        entry["train_launches"] = (train["launches"][entry["name"]]
+                                   + demo["launches"][entry["name"]])
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

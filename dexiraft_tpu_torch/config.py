@@ -19,14 +19,15 @@ from typing import Optional, Tuple
 # storage precisions for the fmap2 pyramid (ops/quant.py)
 CORR_DTYPES = ("fp32", "bf16", "int8")
 
-# correlation implementations, as in the JAX package. The port runs
-# "local" (plain PyTorch lookup), "flash" (the hand-written CUDA kernel of
+# correlation implementations, as in the JAX package. The port runs all
+# four: "allpairs" (the materialized volume, ops/corr.py), "local" (plain
+# PyTorch lookup), "flash" (the hand-written CUDA kernel of
 # csrc/flash_corr.cu) and "pallas" (the per-pixel CUDA kernel of
-# csrc/pallas_corr.cu); "allpairs" is refused by models/raft.py.
+# csrc/pallas_corr.cu).
 CORR_IMPLS = ("allpairs", "local", "pallas", "flash")
 
 # the corr implementations models/raft.py runs
-PORTED_CORR_IMPLS = ("local", "flash", "pallas")
+PORTED_CORR_IMPLS = ("allpairs", "local", "flash", "pallas")
 
 # the embedded DexiNed's transposed-conv forms, as in the JAX package: the
 # plain transposed conv and its sub-pixel rewrite compute the same map with
@@ -39,8 +40,9 @@ def resolve_corr_impl(impl: str, platform: str) -> Tuple[str, bool]:
 
     "auto" on CUDA is the production path: the flash kernel with the
     motion encoder's 1x1 corr conv fused in (``("flash", True)``). On any
-    other platform it resolves to the plain PyTorch lookup ("local"), the
-    only path that runs there. Explicit values pass through unfused.
+    other platform it resolves to the plain PyTorch lookup ("local"),
+    whose memory is bounded by its row chunk (the JAX package picks
+    "allpairs" there). Explicit values pass through unfused.
     """
     if impl == "auto":
         return ("flash", True) if platform == "cuda" else ("local", False)
@@ -216,3 +218,68 @@ VARIANTS = {
     "v4": raft_v4,
     "v5": raft_v5, "dual": raft_v5,
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """One training stage, as in the JAX package. Presets mirror the
+    reference's train_standard.sh / train_mixed.sh. ``prefetch_depth`` is
+    the number of batches copied to the device ahead of the step
+    (data/prefetch.py; 0 = off)."""
+
+    name: str = "raft"
+    stage: str = "chairs"  # chairs | things | sintel | kitti
+    lr: float = 4e-4
+    num_steps: int = 100_000
+    batch_size: int = 10
+    image_size: Tuple[int, int] = (368, 496)
+    wdecay: float = 1e-4
+    epsilon: float = 1e-8
+    clip: float = 1.0
+    gamma: float = 0.8
+    iters: int = 12
+    add_noise: bool = False
+    # "fp32"; "bf16" is refused by train/step.py (ROADMAP A2)
+    precision: str = "fp32"
+    # microbatches per step: the batch's leading dim is accum_steps * micro
+    accum_steps: int = 1
+    prefetch_depth: int = 2
+    # v1-lineage fusion: the same model on the image pair and on the edge
+    # pair, per-iteration flows summed before the loss
+    edge_sum_fusion: bool = False
+    # "none"; "per_iter" / "dots_saveable" are refused (ROADMAP A10)
+    remat: str = "none"
+    freeze_bn: bool = False  # true for every post-chairs stage
+    val_freq: int = 5000
+    sum_freq: int = 100
+    seed: int = 1234
+    validation: Tuple[str, ...] = ()
+
+
+# The 4-stage curriculum, standard recipe (train_standard.sh).
+STANDARD_STAGES = (
+    TrainConfig(name="raft-chairs", stage="chairs", validation=("chairs",), num_steps=100_000,
+                batch_size=10, lr=4e-4, image_size=(368, 496), wdecay=1e-4),
+    TrainConfig(name="raft-things", stage="things", validation=("sintel",), num_steps=100_000,
+                batch_size=6, lr=1.25e-4, image_size=(400, 720), wdecay=1e-4, freeze_bn=True),
+    TrainConfig(name="raft-sintel", stage="sintel", validation=("sintel",), num_steps=100_000,
+                batch_size=6, lr=1.25e-4, image_size=(368, 768), wdecay=1e-5, gamma=0.85,
+                freeze_bn=True),
+    TrainConfig(name="raft-kitti", stage="kitti", validation=("kitti",), num_steps=50_000,
+                batch_size=6, lr=1e-4, image_size=(288, 960), wdecay=1e-5, gamma=0.85,
+                freeze_bn=True),
+)
+
+# Mixed-precision single-chip recipe (train_mixed.sh).
+MIXED_STAGES = (
+    TrainConfig(name="raft-chairs", stage="chairs", validation=("chairs",), num_steps=120_000,
+                batch_size=8, lr=2.5e-4, image_size=(368, 496), wdecay=1e-4),
+    TrainConfig(name="raft-things", stage="things", validation=("sintel",), num_steps=120_000,
+                batch_size=5, lr=1e-4, image_size=(400, 720), wdecay=1e-4, freeze_bn=True),
+    TrainConfig(name="raft-sintel", stage="sintel", validation=("sintel",), num_steps=120_000,
+                batch_size=5, lr=1e-4, image_size=(368, 768), wdecay=1e-5, gamma=0.85,
+                freeze_bn=True),
+    TrainConfig(name="raft-kitti", stage="kitti", validation=("kitti",), num_steps=50_000,
+                batch_size=5, lr=1e-4, image_size=(288, 960), wdecay=1e-5, gamma=0.85,
+                freeze_bn=True),
+)

@@ -5,6 +5,10 @@ torch attribute names (``conv1``, ``norm1``, ``layer{L}.{j}.conv{N}``,
 ``downsample.0/1``, ``conv2``), so converted weights load strictly.
 Padding is ``k // 2`` on both sides, as flax's integer padding is.
 
+The output's channel dropout (training only) is
+:class:`~dexiraft_tpu_torch.models.layers.ChannelDropout`, broadcast over H
+and W like the JAX package's, with masks from the train state's generator.
+
 As in the reference, a strided block's last norm is registered twice:
 as ``normK`` and as ``downsample.1``. Both names reach the state dict and
 hold the same tensors.
@@ -18,7 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from dexiraft_tpu_torch.models.layers import make_norm
+from dexiraft_tpu_torch.models.layers import ChannelDropout, make_norm
 
 BASIC_STAGES: Tuple[Tuple[int, int], ...] = ((64, 1), (96, 2), (128, 2))
 SMALL_STAGES: Tuple[Tuple[int, int], ...] = ((32, 1), (64, 2), (96, 2))
@@ -103,7 +107,7 @@ class Encoder(nn.Module):
             setattr(self, f"layer{i}", layer)
             in_planes = planes
         self.conv2 = nn.Conv2d(in_planes, output_dim, 1)
-        self.dropout = nn.Dropout2d(p=dropout) if dropout > 0 else None
+        self.dropout = ChannelDropout(dropout) if dropout > 0 else None
 
     def forward(self, x: Union[torch.Tensor, Sequence[torch.Tensor]]):
         is_list = isinstance(x, (tuple, list))

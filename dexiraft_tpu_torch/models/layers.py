@@ -4,22 +4,68 @@ Counterpart of ``dexiraft_tpu/models/layers.py``. The reference's four norm
 modes with torch's own hyperparameters: eps 1e-5 everywhere, BatchNorm
 momentum 0.1 (running stats in eval mode), instance norm without affine,
 and "none" as an empty ``nn.Sequential`` (no parameters, as the reference
-registers it).
+registers it). In training mode BatchNorm updates its running stats by
+flax's rule (:class:`BatchNorm2d`).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose training-mode running variance follows
+    flax's ``nn.BatchNorm``: the EMA folds in the BIASED batch variance
+    (``torch.nn.BatchNorm2d`` folds the unbiased one, n/(n-1) larger).
+    Normalization and the eval mode are torch's, and so are the state
+    dict's keys."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
+
+
+class ChannelDropout(nn.Module):
+    """Channel dropout (``Dropout2d`` semantics: one draw per (sample,
+    channel), broadcast over H and W, kept values scaled by 1/(1-p)). The
+    masks come from ``generator`` when one is set (the train state's, on
+    the activations' device), else from the global RNG."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p <= 0.0:
+            return x
+        keep = 1.0 - self.p
+        u = torch.rand((x.shape[0], x.shape[1], 1, 1), device=x.device,
+                       generator=self.generator)
+        return x * ((u < keep).to(x.dtype) / keep)
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"
 
 
 def make_norm(norm_fn: str, num_groups: int, planes: int) -> nn.Module:
     if norm_fn == "group":
         return nn.GroupNorm(num_groups=num_groups, num_channels=planes, eps=1e-5)
     if norm_fn == "batch":
-        return nn.BatchNorm2d(planes, eps=1e-5, momentum=0.1)
+        return BatchNorm2d(planes, eps=1e-5, momentum=0.1)
     if norm_fn == "instance":
         return nn.InstanceNorm2d(planes, eps=1e-5, affine=False)
     if norm_fn == "none":

@@ -36,8 +36,15 @@ per-item convergence gate (``refine``'s docstring).
 
 Images and flows are NCHW, as in the reference torch model; the
 correlation lookup works on NHWC feature maps (one pixel's channels are
-contiguous for the kernel). Training mode is not ported yet and is
-refused.
+contiguous for the kernel).
+
+Training follows the reference torch API: ``forward(..., test_mode=False)``
+returns every iteration's upsampled flow, stacked (iters, B, 2, H, W), the
+sequence loss's input (JAX ``train=True``). The module's mode says whether
+BatchNorm uses batch statistics and dropout is on; :meth:`RAFT.freeze_bn`
+puts every BatchNorm in eval while dropout stays on (JAX ``freeze_bn``).
+The embedded DexiNed always runs in eval mode and without gradients, as
+JAX calls it with ``train=False`` under ``stop_gradient``.
 """
 
 from __future__ import annotations
@@ -52,9 +59,10 @@ from dexiraft_tpu_torch.config import PORTED_CORR_IMPLS, RAFTConfig
 from dexiraft_tpu_torch.device import resolve_device
 from dexiraft_tpu_torch.models.dexined import DexiNed, stack_edge_maps
 from dexiraft_tpu_torch.models.extractor import BasicEncoder, SmallEncoder
-from dexiraft_tpu_torch.models.layers import seeded_init_
+from dexiraft_tpu_torch.models.layers import ChannelDropout, seeded_init_
 from dexiraft_tpu_torch.models.update import (BasicUpdateBlock, RefineFlow,
                                               SmallUpdateBlock)
+from dexiraft_tpu_torch.ops.corr import build_corr_pyramid
 from dexiraft_tpu_torch.ops.grid import coords_grid, upflow8
 from dexiraft_tpu_torch.ops.local_corr import build_local_corr
 from dexiraft_tpu_torch.ops.upsample import upsample_flow_convex_nchw
@@ -94,8 +102,7 @@ class RAFT(nn.Module):
                 "variants (raft_v1 ... raft_v5 in config.py)")
         if cfg.corr_impl not in PORTED_CORR_IMPLS:
             raise ValueError(
-                f"corr_impl {cfg.corr_impl!r} is not ported to PyTorch yet "
-                "(the all-pairs path is ROADMAP A9); "
+                f"corr_impl {cfg.corr_impl!r} is not ported to PyTorch; "
                 f"expected one of {PORTED_CORR_IMPLS}")
         self.cfg = cfg
         encoder = SmallEncoder if cfg.small else BasicEncoder
@@ -117,6 +124,31 @@ class RAFT(nn.Module):
             self.refine_flow = RefineFlow()
         if cfg.embed_dexined:
             self.dexined = DexiNed()
+
+    # ---- modes -----------------------------------------------------------
+
+    def train(self, mode: bool = True) -> "RAFT":
+        """``nn.Module.train``, except that the embedded DexiNed stays in
+        eval mode (its BatchNorms keep their running stats)."""
+        super().train(mode)
+        if self.cfg.embed_dexined:
+            self.dexined.eval()
+        return self
+
+    def freeze_bn(self) -> "RAFT":
+        """Every BatchNorm in eval mode (running stats, no update) while
+        the rest keeps its mode: dropout stays on in training."""
+        for m in self.modules():
+            if isinstance(m, nn.BatchNorm2d):
+                m.eval()
+        return self
+
+    def set_dropout_generator(self, generator: Optional[torch.Generator]
+                              ) -> None:
+        """Draw every encoder's dropout masks from ``generator``."""
+        for m in self.modules():
+            if isinstance(m, ChannelDropout):
+                m.generator = generator
 
     # ---- encoder stage ---------------------------------------------------
 
@@ -228,7 +260,9 @@ class RAFT(nn.Module):
             return upflow8(flow.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
         return upsample_flow_convex_nchw(flow, mask)
 
-    def _outputs(self, coords1, coords0, mask, b):
+    def _predict(self, coords1, coords0, mask, b):
+        """(flow_low, flow_up) of the image stream after one iteration; in
+        v3 flow_up is the RefineFlow fusion of both streams' flows."""
         flow_low = (coords1[:b] - coords0).permute(0, 3, 1, 2)
         flow_up = self._upsample(flow_low, None if mask is None else mask[:b])
         if self.cfg.variant == "separate":
@@ -236,16 +270,21 @@ class RAFT(nn.Module):
             flow_up = self.refine_flow(
                 flow_up, self._upsample(eflow,
                                         None if mask is None else mask[b:]))
+        return flow_low, flow_up
+
+    def _outputs(self, coords1, coords0, mask, b):
+        flow_low, flow_up = self._predict(coords1, coords0, mask, b)
         return flow_low.contiguous(), flow_up.contiguous()
 
     def refine(self, features1: Features, features2: Features,
                iters: int = 12, flow_init: Optional[torch.Tensor] = None,
                adaptive: bool = False, iter_budget: Optional[int] = None,
-               exit_check_every: int = 1):
+               exit_check_every: int = 1, emit: bool = False):
         """Refinement from two feature dicts (JAX ``mode="step"``):
         ``features1`` is the earlier frame's (its ``ctx`` seeds the GRU).
         flow_init: (B, 2, H/8, W/8) or None. Returns (flow_low (B, 2, H/8,
-        W/8), flow_up (B, 2, H, W)).
+        W/8), flow_up (B, 2, H, W)); with ``emit=True`` every iteration's
+        flow_up instead, stacked (iters, B, 2, H, W).
 
         ``adaptive=True``: the same step runs under a per-item ``done``
         mask. After each update the item's image-stream 1/8-res flow delta
@@ -285,15 +324,25 @@ class RAFT(nn.Module):
         base = torch.cat([coords0, coords0], dim=0) if dual else coords0
 
         # the lookup's layout: NHWC, one pixel's channels contiguous
-        pyr = build_local_corr(
-            fmap1.permute(0, 2, 3, 1), fmap2.permute(0, 2, 3, 1),
-            cfg.corr_levels, cfg.radius, row_chunk=cfg.corr_row_chunk,
-            dtype=cfg.corr_dtype,
-            kernel="plain" if cfg.corr_impl == "local" else cfg.corr_impl)
+        f1, f2 = fmap1.permute(0, 2, 3, 1), fmap2.permute(0, 2, 3, 1)
+        if cfg.corr_impl == "allpairs":
+            pyr = build_corr_pyramid(f1, f2, cfg.corr_levels, cfg.radius,
+                                     dtype=cfg.corr_dtype)
+        else:
+            pyr = build_local_corr(
+                f1, f2, cfg.corr_levels, cfg.radius,
+                row_chunk=cfg.corr_row_chunk, dtype=cfg.corr_dtype,
+                kernel="plain" if cfg.corr_impl == "local" else cfg.corr_impl)
         # iters=0 (or a frozen item) keeps the JAX carry's zero mask
         mask = None if cfg.small else fmap1.new_zeros(
             (fmap1.shape[0], 64 * 9, h8, w8))
 
+        if emit:
+            preds = []
+            for _ in range(iters):
+                coords1, net, mask = self._step(pyr, inp, base, coords1, net, b)
+                preds.append(self._predict(coords1, coords0, mask, b)[1])
+            return torch.stack(preds, dim=0)
         if not adaptive:
             for _ in range(iters):
                 coords1, net, mask = self._step(pyr, inp, base, coords1, net, b)
@@ -347,7 +396,10 @@ class RAFT(nn.Module):
         ``mode="step"`` refines from ``features1``/``features2`` and
         ignores the images. Returns (flow_low (B, 2, H/8, W/8), flow_up (B,
         2, H, W)), and with ``adaptive=True`` also iters_used and
-        final_delta (``refine``).
+        final_delta (``refine``). ``test_mode=False`` returns every
+        iteration's flow_up, stacked (iters, B, 2, H, W), for the sequence
+        loss; in ``.train()`` mode BatchNorm uses batch statistics (unless
+        frozen) and dropout is on.
         """
         if adaptive and not test_mode:
             raise ValueError(
@@ -360,12 +412,12 @@ class RAFT(nn.Module):
             raise ValueError(
                 "iter_budget only has meaning with adaptive=True (the "
                 "fixed path compiles its iteration count statically)")
-        if not test_mode:
-            raise ValueError("training mode is not ported to PyTorch yet; "
-                             "call with test_mode=True")
-        if self.training:
-            raise ValueError("the port runs inference only; call .eval() "
-                             "first (BatchNorm uses its running stats)")
+        if self.training and self.cfg.corr_dtype == "int8":
+            raise ValueError(
+                "corr_dtype='int8' is an inference format: the round() in "
+                "quantization zeroes the fmap gradients, which would train "
+                "the feature encoder silently dead. Use 'bf16' (or 'fp32') "
+                "for training and 'int8' for eval/serve")
         if mode == "encode":
             return self.encode_frame(image1, edges1)
         if mode == "step":
@@ -387,7 +439,8 @@ class RAFT(nn.Module):
                              "'pair' | 'encode' | 'step'")
         return self.refine(features1, features2, iters, flow_init,
                            adaptive=adaptive, iter_budget=iter_budget,
-                           exit_check_every=exit_check_every)
+                           exit_check_every=exit_check_every,
+                           emit=not test_mode)
 
 
 def create_model(cfg: RAFTConfig, seed: int = 0,

@@ -33,7 +33,9 @@ B2/B4).
 
 Gradients: forward-only kernels in ``torch.autograd.Function``s whose
 backward recomputes through the plain version (the custom-VJP contract of
-the JAX package): coords get a zero gradient, int8 levels none.
+the JAX package): coords get a zero gradient, int8 levels none. The fused
+steps' recompute runs under the profiler range ``RECOMPUTE_RANGE``, so a
+trace can charge it.
 
 Each kernel wrapper counts its launches in ``LAUNCHES`` (the count moves
 only where a kernel is launched), so a run can show that its main path
@@ -69,6 +71,8 @@ LAUNCHES = {name: 0 for name in KERNEL_LIBRARY_OF}
 _LAUNCHES_LOCK = threading.Lock()
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _MAX_LEVELS = 8
+# the torch.profiler range of the fused steps' backward recompute
+RECOMPUTE_RANGE = "corr_kernels.fused_step_backward_recompute"
 
 
 def reset_launches() -> None:
@@ -285,7 +289,8 @@ class _FusedStep(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         fmap1, coords, weight, bias, *levels = ctx.saved_tensors
-        with torch.enable_grad():
+        with torch.enable_grad(), torch.profiler.record_function(
+                RECOMPUTE_RANGE):
             f1 = fmap1.detach().requires_grad_()
             w = weight.detach().requires_grad_()
             bb = bias.detach().requires_grad_()

@@ -1,4 +1,4 @@
-"""Coordinate grids and bilinear resizing.
+"""Coordinate grids, bilinear sampling and bilinear resizing.
 
 Counterpart of ``dexiraft_tpu/ops/grid.py``. The public functions keep the
 JAX package's NHWC layout, so the tests compare like with like; the model
@@ -17,6 +17,30 @@ def coords_grid(batch: int, ht: int, wd: int, device=None,
                           torch.arange(wd, dtype=dtype, device=device),
                           indexing="ij")
     return torch.stack([x, y], dim=-1)[None].expand(batch, ht, wd, 2)
+
+
+def bilinear_sampler(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Bilinearly sample img (N, H, W, C) at real-valued pixel coords
+    (N, h, w, 2), channels (x, y), (0, 0) the center of the top-left pixel
+    -> (N, h, w, C). Corners outside the image contribute zero: the
+    semantics of ``F.grid_sample(align_corners=True, padding_mode="zeros")``
+    in pixel units."""
+    n, hh, ww = img.shape[:3]
+    x, y = coords[..., 0], coords[..., 1]
+    x0f, y0f = torch.floor(x), torch.floor(y)
+    x0, y0 = x0f.to(torch.long), y0f.to(torch.long)
+    wx1 = (x - x0f).to(img.dtype)
+    wy1 = (y - y0f).to(img.dtype)
+    wx0, wy0 = 1.0 - wx1, 1.0 - wy1
+    bidx = torch.arange(n, device=img.device)[:, None, None]
+
+    def corner(yi, xi, w):
+        valid = (xi >= 0) & (xi < ww) & (yi >= 0) & (yi < hh)
+        vals = img[bidx, yi.clamp(0, hh - 1), xi.clamp(0, ww - 1)]
+        return vals * (w * valid.to(img.dtype))[..., None]
+
+    return (corner(y0, x0, wy0 * wx0) + corner(y0, x0 + 1, wy0 * wx1)
+            + corner(y0 + 1, x0, wy1 * wx0) + corner(y0 + 1, x0 + 1, wy1 * wx1))
 
 
 def _resize_matrix(n_in: int, n_out: int, device, dtype) -> torch.Tensor:

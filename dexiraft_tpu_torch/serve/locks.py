@@ -1,7 +1,7 @@
-"""Named, ranked locks for the serving tier.
+"""Named, ranked locks for the serving tier and the trainer.
 
 A copy of the part of ``dexiraft_tpu/analysis/locks.py`` that the port's
-serving tier uses: :class:`OrderedLock`, a ``threading.Lock`` (or, with
+serving tier and the trainer use: :class:`OrderedLock`, a ``threading.Lock`` (or, with
 ``reentrant=True``, an ``RLock``) with a name whose rank comes from
 :data:`LOCK_ORDER` (the JAX package's order, restricted to the locks the
 port takes, names kept). Taking a lock while holding one of a higher
@@ -37,6 +37,8 @@ LOCK_ORDER: Tuple[str, ...] = (
     "serve.video.stats",         # VideoEngine._stats_lock: chunk counters
     "serve.sessions.store",      # SessionStore._lock: flow-seed carry map
     "serve.sessions.device",     # DeviceSessionStore._lock: device carry map
+    "train.checkpoint.pending",  # checkpoint._LOCK: pending-flush registry
+    "data.loader.pool",          # _PoolManager._lock: decode-pool generation
 )
 
 _RANK = {name: i for i, name in enumerate(LOCK_ORDER)}

@@ -23,7 +23,8 @@ plain version.
 ``--model`` takes a torch state-dict file with the reference key names
 (the layout ``dexiraft_tpu/interop/torch_convert.export_raft_state_dict``
 writes and ``load_raft_pth`` reads; a ``module.`` prefix and a
-``state_dict`` wrapper are stripped), loaded with ``strict=True``.
+``state_dict`` wrapper are stripped), or a checkpoint directory of the
+port's trainer (its newest step's model), loaded with ``strict=True``.
 Refused, each naming its ROADMAP item: an orbax checkpoint directory
 (A10), ``--mixed_precision`` (A2), ``--data_parallel`` > 0 (A12) and
 ``--strict`` (A13). The JAX CLI's XLA flags (``--compile_cache_dir``,
@@ -203,14 +204,19 @@ def _device(args):
 
 def _read_state_dict(path: str):
     """A torch state dict with the reference key names, without a
-    ``state_dict`` wrapper or a ``module.`` prefix."""
+    ``state_dict`` wrapper or a ``module.`` prefix; a directory is read as
+    a checkpoint of the port's trainer."""
     import torch
 
     if os.path.isdir(path):
-        raise SystemExit(
-            f"serve: {path} is a directory (an orbax checkpoint?); the "
-            "PyTorch port reads torch state-dict files only — its "
-            "checkpoints come with training (ROADMAP A10)")
+        from dexiraft_tpu_torch.train import checkpoint as ckpt
+
+        if ckpt.latest_step(path) is None:
+            raise SystemExit(
+                f"serve: {path} holds no checkpoint of the port's trainer "
+                "(an orbax checkpoint?); the PyTorch port cannot read orbax "
+                "without JAX (ROADMAP A10): pass a state-dict file")
+        return ckpt.read_state_dict(path)
     if not os.path.isfile(path):
         raise SystemExit(f"serve: no such model file {path}")
     sd = torch.load(path, map_location="cpu", weights_only=True)
@@ -246,7 +252,7 @@ def _load(args, dev):
                   flush=True)
             return cfg, model
         model = RAFT(cfg)
-    except ValueError as e:  # a config the model refuses (allpairs)
+    except ValueError as e:  # a config the model refuses
         raise SystemExit(f"serve: {e}")
     sd = _read_state_dict(args.model)
     model.load_state_dict(sd, strict=True)

@@ -1,14 +1,17 @@
-"""The test-mode steps the inference engines drive.
+"""The train step and the test-mode steps the inference engines drive.
 
-Counterpart of ``make_eval_step``, ``make_encode_step`` and
-``make_refine_step`` in ``dexiraft_tpu/train/step.py`` (the training step
-is not ported yet). PyTorch runs eagerly, so there is nothing to compile:
-a step moves host arrays to the device, runs the model under
-``torch.inference_mode()`` and returns device tensors.
+Counterpart of ``make_train_step``, ``make_eval_step``, ``make_encode_step``
+and ``make_refine_step`` in ``dexiraft_tpu/train/step.py``, on one device.
+PyTorch runs eagerly, so there is nothing to compile: a test-mode step
+moves host arrays to the device, runs the model under
+``torch.inference_mode()`` and returns device tensors; the train step runs
+forward, sequence loss, backward and the optimizer update in place on a
+:class:`~dexiraft_tpu_torch.train.state.TrainState`.
 
 Each step states its own arithmetic rather than inheriting PyTorch's
 global flags: cuDNN's TF32 convolutions follow ``tf32`` (``EVAL_TF32``
-unless the caller says otherwise), matmuls run in full fp32, and cuDNN
+unless the caller says otherwise; the train step's are fp32,
+``TRAIN_TF32``), matmuls run in full fp32, and cuDNN
 picks each convolution's algorithm by timing its deterministic candidates
 at the first call of a shape (``benchmark``, ``deterministic``), while
 any call runs, on any thread; the global flags are restored when the
@@ -24,8 +27,11 @@ from typing import Callable, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from dexiraft_tpu_torch.config import RAFTConfig, TrainConfig
 from dexiraft_tpu_torch.device import resolve_device
 from dexiraft_tpu_torch.models.raft import RAFT
+from dexiraft_tpu_torch.ops.losses import sequence_loss
+from dexiraft_tpu_torch.train.state import TrainState
 
 # The eval step's convolutions: fp32 (TF32 off). On an H100 at 440x1024,
 # 32 iterations, seeded weights, TF32 convolutions moved v5's flow_low
@@ -33,6 +39,8 @@ from dexiraft_tpu_torch.models.raft import RAFT
 # next, across the 1e-2 px parity guard (v1: 5.1e-3; PERF.md). Re-measured
 # by chip_smoke.py's "tf32" phase.
 EVAL_TF32 = False
+# The train step's convolutions: fp32, the JAX package's fp32 train step.
+TRAIN_TF32 = False
 
 Features = Dict[str, torch.Tensor]
 
@@ -233,3 +241,158 @@ def make_refine_step(model: RAFT, iters: int = 24,
         return _nhwc(*out[:2]) + tuple(out[2:])
 
     return refine
+
+
+Batch = Dict[str, object]  # image1, image2, flow, valid [, edges1, edges2]
+
+
+def all_finite(tensors) -> torch.Tensor:
+    """0-d bool tensor: every floating element of every tensor is finite
+    (the checkpoint gate's verdict on the state AFTER the update, which
+    the loss, computed before it, cannot give)."""
+    flat = [t.detach().reshape(-1) for t in tensors
+            if t.is_floating_point() and t.numel()]
+    if not flat:
+        return torch.ones((), dtype=torch.bool)
+    by_dtype: Dict[torch.dtype, list] = {}
+    for t in flat:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    oks = [torch.isfinite(torch.cat(ts)).all() for ts in by_dtype.values()]
+    return torch.stack(oks).all()
+
+
+def _state_tensors(state: TrainState):
+    yield from state.model.parameters()
+    yield from state.model.buffers()
+    for st in state.optimizer.state.values():
+        yield from (v for v in st.values() if isinstance(v, torch.Tensor))
+
+
+def _add_noise(image: torch.Tensor, stdv: torch.Tensor,
+               generator: torch.Generator) -> torch.Tensor:
+    """Gaussian noise at ``stdv``, clipped to [0, 255]."""
+    noise = torch.randn(image.shape, device=image.device, generator=generator)
+    return (image + stdv * noise).clamp(0.0, 255.0)
+
+
+def make_train_step(cfg: RAFTConfig, tc: TrainConfig, mesh=None,
+                    compute_sharding: str = "fence"
+                    ) -> Callable[[TrainState, Batch],
+                                  Tuple[TrainState, Dict[str, object]]]:
+    """step(state, batch) -> (state, metrics), advancing ``state`` in place.
+
+    ``batch`` holds NHWC host arrays or tensors: image1/image2 (B, H, W,
+    3) in [0, 255], flow (B, H, W, 2), valid (B, H, W) [, edges1/edges2
+    (B, H, W, 3)]; they are moved to the model's device. The step: noise
+    (``add_noise``: one stdv ~ U(0, 5) shared by both frames), the
+    train-mode forward of every microbatch (``accum_steps``; BatchNorm's
+    running stats move through them in order, as JAX's scan carries
+    them) with its gradients summed and divided by ``accum_steps``, then
+    clip + AdamW at the schedule's lr for ``state.step``. metrics: loss,
+    epe, 1px, 3px, 5px (device tensors; means over the microbatches), lr
+    (the update's) and state_finite (a 0-d bool tensor over the updated
+    parameters, BatchNorm stats and Adam moments).
+
+    Dropout masks and noise are drawn from ``state.generator``.
+    ``edge_sum_fusion`` (v1): the model runs on the image pair and on the
+    edge pair, and the per-iteration flows are summed. ``freeze_bn``: every
+    BatchNorm runs on its running stats.
+
+    Refused, each with the ROADMAP item that ports it: ``precision="bf16"``
+    (A2), ``remat`` other than "none" (A10), a mesh or
+    ``compute_sharding="halo"`` (A12).
+    """
+    if tc.precision not in ("fp32", "bf16"):
+        raise ValueError(f"precision must be fp32|bf16, got {tc.precision!r}")
+    if tc.precision == "bf16":
+        raise ValueError("precision='bf16' is not ported to PyTorch yet "
+                         "(ROADMAP A2); train with precision='fp32'")
+    if tc.accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {tc.accum_steps}")
+    if compute_sharding not in ("fence", "halo"):
+        raise ValueError(f"compute_sharding must be fence|halo, "
+                         f"got {compute_sharding!r}")
+    if tc.remat not in ("none", "per_iter", "dots_saveable"):
+        raise ValueError(f"remat must be none|per_iter|dots_saveable, "
+                         f"got {tc.remat!r}")
+    if tc.remat != "none":
+        raise ValueError(f"remat={tc.remat!r} is not ported to PyTorch yet "
+                         "(ROADMAP A10); train with remat='none'")
+    if mesh is not None or compute_sharding == "halo":
+        raise ValueError("a device mesh and compute_sharding='halo' are not "
+                         "ported to PyTorch yet (ROADMAP A12); the port "
+                         "trains on one device")
+    if tc.edge_sum_fusion and (cfg.variant != "raft" or cfg.embed_dexined):
+        raise ValueError(
+            "edge_sum_fusion is the v1 (plain 'raft') training fusion — "
+            "the model itself consumes edges in the other variants")
+
+    def forward(model: RAFT, mb: Dict[str, torch.Tensor]) -> torch.Tensor:
+        if tc.edge_sum_fusion:
+            if "edges1" not in mb:
+                raise ValueError("edge_sum_fusion needs edge-pair data "
+                                 "(edge_root)")
+            return (model(mb["image1"], mb["image2"], iters=tc.iters,
+                          test_mode=False)
+                    + model(mb["edges1"], mb["edges2"], iters=tc.iters,
+                            test_mode=False))
+        return model(mb["image1"], mb["image2"], iters=tc.iters,
+                     test_mode=False, edges1=mb.get("edges1"),
+                     edges2=mb.get("edges2"))
+
+    def step(state: TrainState, batch: Batch):
+        model, opt, gen = state.model, state.optimizer, state.generator
+        if model.cfg != cfg:
+            raise ValueError("the state's model was built from another "
+                             "RAFTConfig than this step's")
+        dev = state.device
+        to_dev = _nchw(dev)
+        b = dict(batch)
+        for key in ("image1", "image2", "flow", "edges1", "edges2"):
+            if b.get(key) is not None:
+                b[key] = to_dev(b[key])
+        valid = b["valid"]
+        if not isinstance(valid, torch.Tensor):
+            valid = torch.from_numpy(np.ascontiguousarray(valid))
+        b["valid"] = valid.to(dev, torch.float32, non_blocking=True)
+        with eval_arithmetic(TRAIN_TF32):
+            if tc.add_noise:
+                stdv = torch.rand((), device=dev, generator=gen) * 5.0
+                b["image1"] = _add_noise(b["image1"], stdv, gen)
+                b["image2"] = _add_noise(b["image2"], stdv, gen)
+            model.train()
+            if tc.freeze_bn:
+                model.freeze_bn()
+            accum = tc.accum_steps
+            n = b["image1"].shape[0]
+            if n % accum:
+                raise ValueError(
+                    f"batch {n} not divisible by accum_steps {accum}")
+            micro = n // accum
+            opt.zero_grad(set_to_none=True)
+            losses, seq_metrics = [], []
+            for i in range(accum):
+                mb = {k: v[i * micro:(i + 1) * micro] for k, v in b.items()
+                      if v is not None}
+                with torch.enable_grad():
+                    preds = forward(model, mb)
+                    loss, metrics = sequence_loss(preds, mb["flow"],
+                                                  mb["valid"], tc.gamma)
+                    loss.backward()
+                losses.append(loss.detach())
+                seq_metrics.append({k: v.detach() for k, v in metrics.items()})
+            if accum > 1:
+                for p in model.parameters():
+                    if p.grad is not None:
+                        p.grad.div_(accum)
+            lr = opt.current_lr()
+            opt.step()
+            state.step += 1
+            out = {k: torch.stack([m[k] for m in seq_metrics]).mean()
+                   for k in seq_metrics[0]}
+            out["loss"] = torch.stack(losses).mean()
+            out["lr"] = lr
+            out["state_finite"] = all_finite(_state_tensors(state))
+        return state, out
+
+    return step

@@ -156,18 +156,18 @@ def test_fused_and_unfused_paths_share_weights(variables):
 
 
 def test_refusals():
-    with pytest.raises(ValueError, match="not ported"):
-        RAFT(raft_v1(corr_impl="allpairs"))
     from dexiraft_tpu_torch.config import (RAFTConfig, raft_v2, raft_v3,
                                            raft_v4, raft_v5)
+    # the all-pairs path is ported: every variant builds on it
+    for variant in (raft_v1, raft_v5):
+        with torch.device("meta"):
+            RAFT(variant(corr_impl="allpairs"))
     # v2-v4 are ported; what JAX refuses stays refused
     for variant in (raft_v2, raft_v3, raft_v4):
         with torch.device("meta"):
             RAFT(variant(corr_impl="flash"))
     with pytest.raises(ValueError, match="requires embed_dexined=True"):
         RAFT(RAFTConfig(variant="dual", corr_impl="flash"))
-    with pytest.raises(ValueError, match="not ported"):
-        RAFT(raft_v5(corr_impl="allpairs"))
     with torch.device("meta"):
         v5 = RAFT(raft_v5(corr_impl="pallas", fused_update=True))
     assert hasattr(v5, "dexined") and hasattr(v5, "efnet")
@@ -175,9 +175,11 @@ def test_refusals():
         raft_v1(remat=True)
     with pytest.raises(ValueError, match="fused_update=True requires"):
         raft_v1(corr_impl="local", fused_update=True)
-    m = create_model(raft_v1(small=True, corr_impl="local"), device="cpu")
+    # training mode is ported; int8 storage stays refused there, as in JAX
+    m = create_model(raft_v1(small=True, corr_impl="local",
+                             corr_dtype="int8"), device="cpu").train()
     x = torch.zeros(1, 3, 32, 32)
-    with pytest.raises(ValueError, match="training mode"):
+    with pytest.raises(ValueError, match="inference format"):
         m(x, x, test_mode=False)
 
 
@@ -190,9 +192,9 @@ def test_resolve_corr_impl():
 
 def test_package_imports_no_jax():
     """The port's package, model, engine, kernel, bridge, splat, session,
-    video, scheduler, server and CLI modules load neither jax/flax nor any
-    dexiraft_tpu module (a subprocess: this test process has jax loaded by
-    conftest)."""
+    video, scheduler, server, trainer, data and CLI modules load neither
+    jax/flax/optax/orbax nor any dexiraft_tpu module (a subprocess: this
+    test process has jax loaded by conftest)."""
     code = (
         "import sys\n"
         "import dexiraft_tpu_torch\n"
@@ -210,8 +212,21 @@ def test_package_imports_no_jax():
         "import dexiraft_tpu_torch.serve.httputil\n"
         "import dexiraft_tpu_torch.profiling, dexiraft_tpu_torch.serve_cli\n"
         "import dexiraft_tpu_torch.__main__, dexiraft_tpu_torch.device\n"
+        "import dexiraft_tpu_torch.ops.corr, dexiraft_tpu_torch.ops.losses\n"
+        "import dexiraft_tpu_torch.train.optimizer\n"
+        "import dexiraft_tpu_torch.train.state\n"
+        "import dexiraft_tpu_torch.train.checkpoint\n"
+        "import dexiraft_tpu_torch.train.guard\n"
+        "import dexiraft_tpu_torch.train.logger\n"
+        "import dexiraft_tpu_torch.data.flow_io\n"
+        "import dexiraft_tpu_torch.data.augment\n"
+        "import dexiraft_tpu_torch.data.datasets\n"
+        "import dexiraft_tpu_torch.data.loader\n"
+        "import dexiraft_tpu_torch.data.prefetch\n"
+        "import dexiraft_tpu_torch.train_cli\n"
+        "import dexiraft_tpu_torch.train_demo\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'dexiraft_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'dexiraft_tpu'))\n"
         "print(bad)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)

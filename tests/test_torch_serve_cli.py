@@ -176,7 +176,7 @@ def test_no_cpu_flag_without_a_card_exits_naming_cuda():
     (["--data_parallel", "2"], "ROADMAP A12"),
     (["--strict"], "ROADMAP A13"),
     (["--fused_update", "--corr_impl", "local"], "requires --corr_impl"),
-    (["--corr_impl", "allpairs"], "ROADMAP A9"),
+    (["--workers", "0"], "--workers must be >= 1"),
     ([], "exactly one of --model or --synthetic_init"),
 ])
 def test_refused_flags_exit_with_their_item(flags, message):

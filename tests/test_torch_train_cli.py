@@ -1,0 +1,215 @@
+"""The port's trainer end to end on the CPU: ``train_cli`` on a synthetic
+FlyingChairs tree, checkpoints, ``--resume``, ``--restore_ckpt``, the
+device prefetch and every refused flag.
+
+The tree is written with the port's own codecs (binary PPM frames and .flo
+flows, as tests/test_data.py's chairs tree), v1 small at 64x96, 2
+iterations, so each CLI run takes seconds.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from dexiraft_tpu_torch import train_cli
+from dexiraft_tpu_torch.config import TrainConfig, raft_v1
+from dexiraft_tpu_torch.data.flow_io import read_flo, read_image, write_flo, \
+    write_ppm
+from dexiraft_tpu_torch.train import checkpoint as ckpt
+from dexiraft_tpu_torch.train.state import create_state
+from dexiraft_tpu_torch.train.step import make_train_step
+from test_torch_train_ops import few_torch_threads  # noqa: F401
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BASE = ["--stage", "chairs", "--variant", "v1", "--small", "--iters", "2",
+        "--image_size", "64", "96", "--batch_size", "2", "--num_workers", "1",
+        "--sum_freq", "1", "--device", "cpu"]
+
+
+def write_chairs_tree(root, n=6, h=96, w=128, seed=0):
+    """A FlyingChairs_release tree under ``root`` with ``n`` training
+    pairs."""
+    data = os.path.join(root, "FlyingChairs_release", "data")
+    os.makedirs(data, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        for k in (1, 2):
+            write_ppm(os.path.join(data, f"{i:05d}_img{k}.ppm"),
+                      rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+        write_flo(os.path.join(data, f"{i:05d}_flow.flo"),
+                  rng.normal(size=(h, w, 2)).astype(np.float32))
+    with open(os.path.join(root, "FlyingChairs_release",
+                           "chairs_split.txt"), "w") as f:
+        f.write("\n".join(["1"] * n))
+    return data
+
+
+@pytest.fixture()
+def chairs_env(tmp_path, monkeypatch):
+    write_chairs_tree(str(tmp_path))
+    monkeypatch.setenv("DEXIRAFT_DATA_DIR", str(tmp_path))
+    monkeypatch.chdir(tmp_path)
+    return tmp_path
+
+
+def _losses(log_dir, name):
+    with open(os.path.join(log_dir, name, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    return {r["step"]: r["loss"] for r in rows if "loss" in r}
+
+
+def test_codecs_round_trip(tmp_path):
+    rng = np.random.default_rng(1)
+    img = rng.integers(0, 256, (5, 7, 3), dtype=np.uint8)
+    write_ppm(tmp_path / "a.ppm", img)
+    np.testing.assert_array_equal(read_image(tmp_path / "a.ppm"), img)
+    flow = rng.normal(size=(5, 7, 2)).astype(np.float32)
+    write_flo(tmp_path / "a.flo", flow)
+    np.testing.assert_array_equal(read_flo(tmp_path / "a.flo"), flow)
+
+
+def test_cli_trains_saves_and_resumes_exactly(chairs_env):
+    """An uninterrupted 4-step run, then --resume from a copy of its
+    middle checkpoint: the resumed run starts at the saved step and logs
+    the same losses (the same schedule, data position and generator)."""
+    import shutil
+    train_cli.main(BASE + ["--name", "full", "--num_steps", "4",
+                           "--val_freq", "2", "--log_dir", "runs_a"])
+    assert ckpt.all_steps("checkpoints/full") == [2, 4]
+    full = _losses("runs_a", "full")
+    assert sorted(full) == [1, 2, 3, 4]
+    assert all(np.isfinite(v) for v in full.values())
+    shutil.copytree("checkpoints/full/2", "checkpoints/resumed/2")
+    train_cli.main(BASE + ["--name", "resumed", "--num_steps", "4",
+                           "--val_freq", "2", "--log_dir", "runs_b",
+                           "--resume"])
+    resumed = _losses("runs_b", "resumed")
+    assert sorted(resumed) == [3, 4]
+    for s in (3, 4):
+        assert resumed[s] == pytest.approx(full[s], rel=1e-6)
+    payload = ckpt.load_payload("checkpoints/resumed")
+    # 6 pairs at batch 2: 3 batches an epoch, so step 4 ends at (1, 1)
+    assert payload["step"] == 4 and tuple(payload["extra"]["stream"]) == (1, 1)
+    assert payload["configs"]["train"]["num_steps"] == 4
+
+
+def test_cli_restore_ckpt_from_checkpoint_and_state_dict(chairs_env, capsys):
+    train_cli.main(BASE + ["--name", "a", "--num_steps", "1",
+                           "--val_freq", "1"])
+    sd = ckpt.read_state_dict("checkpoints/a")
+    torch.save(sd, "weights.pth")
+    # the service's --model reads the trainer's checkpoint directory too
+    from dexiraft_tpu_torch import serve_cli
+    served = serve_cli._read_state_dict("checkpoints/a")
+    assert served.keys() == sd.keys()
+    for src in ("checkpoints/a", "weights.pth"):
+        train_cli.main(BASE + ["--name", "b", "--num_steps", "1",
+                               "--restore_ckpt", src, "--no_guard"])
+        assert "Partial restore from" in capsys.readouterr().out
+    os.makedirs("orbax_run/100", exist_ok=True)
+    with pytest.raises(SystemExit, match="ROADMAP A10"):
+        train_cli.main(BASE + ["--name", "c", "--restore_ckpt", "orbax_run"])
+
+
+@pytest.mark.parametrize("flags, item", [
+    (["--mixed_precision"], "A2"),
+    (["--precision", "bf16"], "A2"),
+    (["--remat"], "A10"),
+    (["--remat_lookup"], "A10"),
+    (["--fsdp", "2"], "A12"),
+    (["--elastic"], "A12"),
+    (["--join", "host1"], "A12"),
+    (["--stall_timeout", "30"], "A12"),
+    (["--chaos", "sigterm@3"], "A12"),
+    (["--strict"], "A13"),
+    (["--records_dir", "packs"], "A6"),
+    (["--validation", "chairs"], "A7"),
+    (["--keep_best"], "A7"),
+])
+def test_refused_flags_name_their_item(flags, item):
+    with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
+        train_cli.main(BASE + flags)
+
+
+def test_preset_resolution_and_dropped_validation(chairs_env, capsys):
+    args = train_cli.build_parser().parse_args(
+        ["--stage", "things", "--preset", "standard", "--lr", "1e-5"])
+    cfg, tc = train_cli.resolve_configs(args)
+    assert (tc.name, tc.batch_size, tc.image_size, tc.freeze_bn, tc.lr) == (
+        "raft-things", 6, (400, 720), True, 1e-5)
+    assert cfg.corr_impl == "allpairs" and tc.validation == ("sintel",)
+    train_cli.main(BASE + ["--preset", "standard", "--name", "p",
+                           "--num_steps", "1", "--corr_impl", "flash",
+                           "--fused_update"])
+    out = capsys.readouterr().out
+    assert out.count("ROADMAP A7") == 1 and "Done: 1 steps" in out
+    with pytest.raises(SystemExit, match="requires --corr_impl"):
+        train_cli.main(BASE + ["--fused_update", "--corr_impl", "local"])
+
+
+def test_cli_without_a_card_exits_naming_cuda(chairs_env):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-m", "dexiraft_tpu_torch", "train", "--stage",
+         "chairs", "--num_steps", "1"], cwd=str(chairs_env), env=env,
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and "'cuda'" in proc.stderr
+
+
+def test_checkpoint_round_trip_and_async_flush(tmp_path):
+    cfg = raft_v1(small=True, corr_impl="local", dropout=0.2)
+    tc = TrainConfig(iters=2, batch_size=2, num_steps=20)
+    rng = np.random.default_rng(2)
+    batch = dict(image1=rng.uniform(0, 255, (2, 32, 48, 3)).astype(np.float32),
+                 image2=rng.uniform(0, 255, (2, 32, 48, 3)).astype(np.float32),
+                 flow=rng.normal(size=(2, 32, 48, 2)).astype(np.float32),
+                 valid=np.ones((2, 32, 48), np.float32))
+    step = make_train_step(cfg, tc)
+    a = create_state(cfg, tc, device="cpu", seed=5)
+    a, _ = step(a, batch)
+    ckpt.save_checkpoint(str(tmp_path), a, block=False,
+                         extra={"stream": (0, 1)})
+    a, ma = step(a, batch)  # the flush holds the copy made before this
+    info = ckpt.wait_pending(str(tmp_path))
+    assert info["step"] == 1 and info["error"] is None
+    assert ckpt.all_steps(str(tmp_path)) == [1]
+    b = create_state(cfg, tc, device="cpu", seed=99)
+    b, extra = ckpt.restore_checkpoint(str(tmp_path), b)
+    assert b.step == 1 and tuple(extra["stream"]) == (0, 1)
+    b, mb = step(b, batch)  # same dropout masks from the restored generator
+    assert float(mb["loss"]) == float(ma["loss"])
+    for (k, va), vb in zip(a.model.state_dict().items(),
+                           b.model.state_dict().values()):
+        torch.testing.assert_close(va, vb, rtol=0, atol=0, msg=k)
+    ckpt.delete_step(str(tmp_path), 1)
+    assert ckpt.latest_step(str(tmp_path)) is None
+    # partial restore: keys of another shape stay fresh
+    other = create_state(raft_v1(corr_impl="local"), tc, device="cpu")
+    skipped = ckpt.restore_params_into(other.model, a.model.state_dict())
+    assert skipped and "fnet.conv1.weight" in skipped
+
+
+def test_prefetch_yields_the_host_batches_in_order():
+    from dexiraft_tpu_torch.data.prefetch import DevicePrefetcher
+    host = [{"x": np.full((2, 3), i, np.float32)} for i in range(5)]
+    for depth in (0, 2):
+        pf = DevicePrefetcher(iter(host), "cpu", depth=depth)
+        got = [int(b["x"][0, 0]) for b in pf]
+        assert got == list(range(5)) and pf.stats.batches == 5
+        assert "5 batches" in pf.summary()
+    with pytest.raises(ValueError):
+        DevicePrefetcher(iter(host), "cpu", depth=-1)
+
+
+def test_trainer_locks_are_ranked():
+    from dexiraft_tpu_torch.serve.locks import LOCK_ORDER
+    assert LOCK_ORDER.index("train.checkpoint.pending") < LOCK_ORDER.index(
+        "data.loader.pool")
+    assert LOCK_ORDER[-2:] == ("train.checkpoint.pending", "data.loader.pool")
