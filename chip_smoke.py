@@ -8,10 +8,11 @@ weights: RAFT v1 and the v5 dual-stream Dexi-RAFT with its embedded
 DexiNed through the bucketed InferenceEngine, v2, v3 and v4 through the
 eval step, v5's convergence-gated loop, a v5 VideoEngine stream over
 the encode/refine split, the flow service (scheduler, sessions, HTTP
-server and its CLI) on v5's main path, and training (the train step at
-the chairs geometry, the exact-GT demo, the train CLI with --resume). It
-builds the
-hand-written CUDA kernels from the sources in this checkout, holds each
+server and its CLI) on v5's main path, evaluation on the same path (the
+validators and the Sintel submission over synthetic dataset trees, the
+eval and viz CLIs), and training (the train step at the chairs
+geometry, the exact-GT demo, the train CLI with validation, --keep_best
+and --resume). It builds the hand-written CUDA kernels from the sources in this checkout, holds each
 kernel against its plain PyTorch version (and each of the two
 formulations against the other), shows from the launch counters that
 each path went through its kernels, and times them. Imports nothing of
@@ -86,6 +87,24 @@ Phases, one JSON line each:
               carry bytes, device memory
   serve_cli   the CLI in a child process (v1, --warmup 440x1024): 2
               requests, then SIGTERM, exit 0 within 60 s
+  eval        v5 on B1, seed-0 weights, over synthetic trees written by
+              the port's codecs (Sintel training 2 scenes x 3 frames of
+              436x1024, clean and final, PNG rows in all five filters;
+              Sintel test 2 x 3; KITTI training 3 frames of 375x1242,
+              ~30% valid, one empty): validate_sintel and validate_kitti
+              per image and through the engine at batch 2 (EPE within
+              1e-3 px, fractions within 2 pixels' share; the plain-lookup
+              model within 1e-2 px; B1 launched 32 x Sintel forwards + 24
+              x KITTI forwards per path, nothing else; KITTI's empty-mask
+              note); the warm-start Sintel submission per image and 2
+              sequences abreast (the same files, flows within 1e-2 px,
+              every splat on the card, B1 32 x forwards); ms per frame of
+              each, the host PNG decode ms of one frame
+  eval_cli    python -m dexiraft_tpu_torch eval --variant v5 --model <the
+              eval phase's weights> --dataset sintel --submission sintel
+              --warm_start in a child: its EPEs equal the in-process
+              per-image run's within 1e-3 px; then viz over that
+              submission: each PNG decodes to flow_to_image of its .flo
   train       the train step at the chairs preset's geometry (368x496,
               12 iterations, fp32, seed-0 weights, a random batch): v1 on
               allpairs and on B1 at batch 10, v5 on B1 at the largest
@@ -101,9 +120,12 @@ Phases, one JSON line each:
               last 25 steps <= 0.5x the first 25; 2400 B1 launches
   train_cli   python -m dexiraft_tpu_torch train --stage chairs
               --corr_impl flash --fused_update on a synthetic
-              FlyingChairs_release tree in a temporary directory: 6 steps,
-              a checkpoint every 3, then --resume from a copy of step 3:
-              the resumed run starts at step 3 and logs the full run's
+              FlyingChairs_release tree (20 training, 4 validation pairs)
+              in a temporary directory: 6 steps, a checkpoint every 3
+              with --validation chairs --keep_best --keep 1 (a chairs EPE
+              logged at 3 and 6, retention.json with both, the best step
+              kept beside the newest), then --resume from a copy of step
+              3: the resumed run starts at step 3 and logs the full run's
               losses within 1e-5 relative
   6 times     CUDA-event medians: v1 and v5 forward ms at 440x1024, B=1
               (TF32 off and PyTorch's default, and the main paths under
@@ -116,8 +138,9 @@ Phases, one JSON line each:
               pallas fused, v5 pallas lookup and v5 flash fused (the main
               path, B1 on the model's coords)
 Then the {"kernels": [...]} line (each entry with its launches on the
-slices' paths, the service's for B1, and the train phases' counted steps
-as train_launches), the nvidia-smi line, and last
+slices' paths, the service's and the eval phase's for B1 as
+serve_launches and eval_launches, and the train phases' counted steps as
+train_launches), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed phase exits non-zero.
 """
 
@@ -1712,32 +1735,25 @@ def phase_train_demo(torch, ck, dev, card) -> dict:
 
 def phase_train_cli(torch, card) -> dict:
     """python -m dexiraft_tpu_torch train --stage chairs --corr_impl flash
-    --fused_update on a synthetic FlyingChairs_release tree in a temporary
-    directory, 6 steps with a checkpoint every 3; then --resume from a copy
-    of the step-3 checkpoint: the resumed run starts at step 3 and its
-    losses match the full run's within TOL_RESUME_REL."""
+    --fused_update on a synthetic FlyingChairs_release tree (20 training
+    and 4 validation pairs) in a temporary directory, 6 steps with a
+    checkpoint every 3, validating chairs at each (--validation chairs
+    --keep_best --keep 1): each checkpoint logs a chairs EPE,
+    retention.json holds the scores of steps 3 and 6, and the best step
+    survives GC beside the newest. Then --resume from a copy of the step-3
+    checkpoint, without validation: the resumed run starts at step 3 and
+    its losses match the full run's within TOL_RESUME_REL."""
     import shutil
     import tempfile
 
-    from dexiraft_tpu_torch.data.flow_io import write_flo, write_ppm
+    from dexiraft_tpu_torch.data.synthetic import write_chairs_tree
+    from dexiraft_tpu_torch.train import checkpoint as ckpt
 
     common = ["--stage", "chairs", "--corr_impl", "flash", "--fused_update",
               "--num_steps", "6", "--val_freq", "3", "--sum_freq", "1",
               "--num_workers", "4"]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
-        data = os.path.join(tmp, "FlyingChairs_release", "data")
-        os.makedirs(data)
-        rng = np.random.default_rng(0)
-        n = 20
-        for i in range(n):
-            for k in (1, 2):
-                write_ppm(os.path.join(data, f"{i:05d}_img{k}.ppm"),
-                          rng.integers(0, 256, (384, 512, 3), np.uint8))
-            write_flo(os.path.join(data, f"{i:05d}_flow.flo"),
-                      rng.normal(0, 4, (384, 512, 2)).astype(np.float32))
-        with open(os.path.join(tmp, "FlyingChairs_release",
-                               "chairs_split.txt"), "w") as f:
-            f.write("\n".join(["1"] * n))
+        write_chairs_tree(tmp, n_train=20, n_val=4, hw=(384, 512), seed=0)
         env = dict(os.environ, DEXIRAFT_DATA_DIR=tmp,
                    PYTHONPATH=REPO + os.pathsep + os.environ.get(
                        "PYTHONPATH", ""))
@@ -1756,23 +1772,341 @@ def phase_train_cli(torch, card) -> dict:
             with open(os.path.join(tmp, "runs", name, "metrics.jsonl")) as f:
                 rows = [json.loads(line) for line in f]
             return ({r["step"]: r["loss"] for r in rows if "loss" in r},
+                    {r["step"]: r["chairs"] for r in rows if "chairs" in r},
                     proc.stdout, time.perf_counter() - t0)
 
-        full, out_full, s_full = run("full", [])
-        shutil.copytree(os.path.join(tmp, "checkpoints", "full", "3"),
+        full, epe, out_full, s_full = run(
+            "full", ["--validation", "chairs", "--keep_best", "--keep", "1"])
+        full_dir = os.path.join(tmp, "checkpoints", "full")
+        with open(os.path.join(full_dir, "retention.json")) as f:
+            scores = {int(k): v for k, v in json.load(f).items()}
+        kept = ckpt.all_steps(full_dir)
+        shutil.copytree(os.path.join(full_dir, "3"),
                         os.path.join(tmp, "checkpoints", "resumed", "3"))
-        resumed, out_res, s_res = run("resumed", ["--resume"])
+        resumed, _, out_res, s_res = run("resumed", ["--resume"])
     rel = {s: abs(resumed[s] - full[s]) / abs(full[s]) for s in resumed}
+    best = min(epe, key=epe.get) if epe else None
     rec = {"phase": "train_cli", "card": card, "full_losses": full,
            "resumed_losses": resumed, "rel_diff": rel,
            "resumed_from_step_3": "Resumed full state at step 3" in out_res,
+           "chairs_epe": epe, "retention_scores": scores,
+           "kept_steps": kept, "best_step": best,
            "seconds": [s_full, s_res], "tol_rel": TOL_RESUME_REL}
     emit(rec)
     if (sorted(full) != [1, 2, 3, 4, 5, 6] or sorted(resumed) != [4, 5, 6]
             or not rec["resumed_from_step_3"]
             or not all(np.isfinite(list(full.values())))
-            or max(rel.values()) > TOL_RESUME_REL):
+            or max(rel.values()) > TOL_RESUME_REL
+            or sorted(epe) != [3, 6]
+            or not all(np.isfinite(list(epe.values())))
+            or sorted(scores) != [3, 6] or best not in kept
+            or 6 not in kept):
         raise AssertionError(f"train_cli: {rec}")
+    return rec
+
+
+# ---- eval: validators, submissions and the eval CLI on v5's main path ----
+
+EVAL_SINTEL_HW = (436, 1024)
+EVAL_KITTI_HW = (375, 1242)
+TOL_EVAL_PATHS_PX = 1e-3   # EPE, per image vs the engine at batch 2
+TOL_EVAL_LOCAL_PX = 1e-2   # EPE, B1 vs the plain-lookup model
+TOL_SUBMISSION_PX = 1e-2   # written flows, per image vs sequences abreast
+
+
+def write_eval_trees(root: str) -> None:
+    """The eval phases' datasets, in their own layouts and formats: Sintel
+    training (2 scenes x 3 frames, clean and final, .flo ground truth)
+    with frames whose PNG rows cycle through all five row filters (the
+    decoder's slowest case), Sintel test (2 scenes x 3 frames), KITTI
+    training (3 frames, flow_occ 16-bit ~30% valid, frame 1 empty)."""
+    from dexiraft_tpu_torch.data.synthetic import write_kitti_tree, \
+        write_sintel_tree
+
+    h = EVAL_SINTEL_HW[0]
+    write_sintel_tree(root, "training", scenes=2, n_frames=3,
+                      hw=EVAL_SINTEL_HW, seed=0, filters=np.arange(h) % 5)
+    write_sintel_tree(root, "test", scenes=2, n_frames=3,
+                      hw=EVAL_SINTEL_HW, seed=1)
+    write_kitti_tree(root, "training", n=3, hw=EVAL_KITTI_HW, empty=1,
+                     seed=2)
+
+
+def png_decode_ms(root: str = None, reps: int = 5) -> dict:
+    """Host ms to decode one 436x1024 RGB frame with the port's PNG codec
+    (median of ``reps``): a seeded synthetic frame written by the port with
+    its rows cycling through all five filters, and the same frame written
+    by PIL (adaptive filters) where PIL is installed.
+
+        python3 -c "import chip_smoke; print(chip_smoke.png_decode_ms())"
+    """
+    import tempfile
+
+    sys.path.insert(0, REPO)
+    from dexiraft_tpu_torch.data.png import read_png, write_png
+    from dexiraft_tpu_torch.data.synthetic import frames
+
+    img = frames(np.random.default_rng(0), 1, EVAL_SINTEL_HW)[0]
+    out = {"hw": list(EVAL_SINTEL_HW)}
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        files = {"port_all_filters": os.path.join(tmp, "port.png")}
+        write_png(files["port_all_filters"], img,
+                  filters=np.arange(img.shape[0]) % 5)
+        try:
+            from PIL import Image
+        except ImportError:
+            out["pil_adaptive_ms"] = "not measured (no PIL here)"
+        else:
+            files["pil_adaptive"] = os.path.join(tmp, "pil.png")
+            Image.fromarray(img).save(files["pil_adaptive"])
+        for name, path in files.items():
+            times = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                got = read_png(path)
+                times.append((time.perf_counter() - t0) * 1e3)
+            if not np.array_equal(got, img):
+                raise AssertionError(f"png decode of {name} is wrong")
+            out[f"{name}_ms"] = statistics.median(times)
+    return out
+
+
+def _quiet(fn, *a, **kw):
+    """fn(*a, **kw) with its printed lines captured: (result, text)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*a, **kw)
+    return out, buf.getvalue()
+
+
+def phase_eval(torch, ck, dev, card, root) -> dict:
+    """The evaluation layer on v5's main path (flash fused, B1), seed-0
+    weights, under the eval step's arithmetic, over the trees of
+    write_eval_trees under ``root``: validate_sintel (32 iterations) and
+    validate_kitti (24) per image and through the engine at batch 2, with
+    B1's count set to 0 before each path and read after it (32 x Sintel
+    forwards + 24 x KITTI forwards, no other kernel); the two paths'
+    metrics agree (EPE <= TOL_EVAL_PATHS_PX, px1/3/5 and F1 within two
+    pixels' share); the plain-lookup model on the same weights gives EPEs
+    within TOL_EVAL_LOCAL_PX; KITTI notes its empty-mask frame. Then the
+    Sintel test split's warm-start submission per image and with 2
+    sequences abreast: the same .flo files, flows within
+    TOL_SUBMISSION_PX, every forward_interpolate on the card, B1 launched
+    32 x forwards. Measured: ms per frame of each dataset and path (host
+    wall time, data decoding included), the host PNG decode ms of one
+    Sintel frame."""
+    from dexiraft_tpu_torch.config import raft_v5
+    from dexiraft_tpu_torch.data.flow_io import read_flo
+    from dexiraft_tpu_torch.eval import submission, validate
+    from dexiraft_tpu_torch.models.raft import RAFT, create_model
+    from dexiraft_tpu_torch.serve.engine import InferenceEngine, ServeConfig
+    from dexiraft_tpu_torch.train.step import make_eval_step
+
+    t0 = time.perf_counter()
+    write_eval_trees(root)
+    os.environ["DEXIRAFT_DATA_DIR"] = root
+    rec = {"phase": "eval", "card": card, "model": "v5",
+           "path": "flash_fused", "tf32": False,
+           "trees_s": time.perf_counter() - t0,
+           "png_decode": png_decode_ms(root)}
+    model = create_model(raft_v5(corr_impl="flash", fused_update=True),
+                         seed=0, device=dev)
+    plain = RAFT(raft_v5(corr_impl="local"))
+    plain.load_state_dict(model.state_dict(), strict=True)
+    plain = plain.to(dev).eval()
+    steps = {n: make_eval_step(model, iters, dev)
+             for n, iters in (("sintel", 32), ("kitti", 24))}
+    n_pairs = {"sintel": 8, "kitti": 3}  # clean + final: 2 x 2 x 2
+
+    def run(path, name):
+        engine = None
+        if path == "engine":
+            engine = InferenceEngine(
+                steps[name], ServeConfig(batch_size=2, mode=(
+                    "kitti" if name == "kitti" else "sintel")), device=dev)
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        res, text = _quiet(validate.run_validation, name, steps[name],
+                           engine=engine)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        forwards = engine.stats.batches if engine else n_pairs[name]
+        return {"metrics": res, "printed": text.strip().splitlines(),
+                "launches": dict(ck.LAUNCHES), "forwards": forwards,
+                "ms_per_frame": wall * 1e3 / n_pairs[name]}
+
+    # each path runs twice: the first pass searches cuDNN's algorithms
+    # for its shapes, the second is the one checked and measured
+    results = {}
+    for path in ("per_image", "engine"):
+        for _ in range(2):
+            results[path] = {n: run(path, n) for n in steps}
+    launches = 0
+    for path, per in results.items():
+        b1 = sum(r["launches"]["flash_fused_step"] for r in per.values())
+        want = 32 * per["sintel"]["forwards"] + 24 * per["kitti"]["forwards"]
+        stray = {k: v for r in per.values() for k, v in r["launches"].items()
+                 if k != "flash_fused_step" and v}
+        rec[f"{path}_b1_launches"] = b1
+        rec[f"{path}_b1_expected"] = want
+        if b1 != want or stray:
+            raise AssertionError(f"eval {path}: B1 launched {b1} times, "
+                                 f"expected {want}; others {stray}")
+        launches += b1
+    share = {"sintel": 2.0 / (4 * EVAL_SINTEL_HW[0] * EVAL_SINTEL_HW[1]),
+             "kitti": 100.0 * 2 / (0.8 * 2 * 0.3 * EVAL_KITTI_HW[0]
+                                   * EVAL_KITTI_HW[1])}
+    local = {n: _quiet(validate.run_validation, n,
+                       make_eval_step(plain, 32 if n == "sintel" else 24,
+                                      dev))[0] for n in steps}
+    worst = {"paths": 0.0, "local": 0.0}
+    for name in steps:
+        a = results["per_image"][name]["metrics"]
+        b = results["engine"][name]["metrics"]
+        for k, v in a.items():
+            if not np.isfinite(v):
+                raise AssertionError(f"eval {name}: {k} = {v}")
+            d = abs(b[k] - v)
+            epe_like = "px" not in k and not k.endswith("-f1")
+            if epe_like:
+                worst["paths"] = max(worst["paths"], d)
+                worst["local"] = max(worst["local"], abs(local[name][k] - v))
+            if d > (TOL_EVAL_PATHS_PX if epe_like else share[name]):
+                raise AssertionError(f"eval {name} {k}: per image {v}, "
+                                     f"engine {b[k]}")
+    rec.update({
+        "metrics": {p: {n: r["metrics"] for n, r in per.items()}
+                    for p, per in results.items()},
+        "local_metrics": local,
+        "printed": {p: {n: r["printed"] for n, r in per.items()}
+                    for p, per in results.items()},
+        "ms_per_frame": {p: {n: r["ms_per_frame"] for n, r in per.items()}
+                         for p, per in results.items()},
+        "forwards": {p: {n: r["forwards"] for n, r in per.items()}
+                     for p, per in results.items()},
+        "epe_paths_max_diff_px": worst["paths"],
+        "epe_local_max_diff_px": worst["local"]})
+    if worst["local"] > TOL_EVAL_LOCAL_PX:
+        raise AssertionError(f"eval: B1 vs plain lookup EPE {worst['local']}")
+    if not all("(1 empty-mask frames skipped)" in results[p]["kitti"][
+            "printed"][-1] for p in results):
+        raise AssertionError(f"eval: no empty-mask note: {rec['printed']}")
+
+    # the warm-start submission, per image and 2 sequences abreast
+    splats = []
+    real_splat = submission.forward_interpolate
+
+    def splat(flow):
+        out = real_splat(flow)
+        splats.append((flow.device.type, out.device.type))
+        return out
+
+    submission.forward_interpolate = splat
+    sub = {}
+    try:
+        for path, batch in (("per_image", 1), ("abreast", 2)):
+            out_dir = os.path.join(root, f"submission_{path}")
+            splats.clear()
+            ck.reset_launches()
+            t0 = time.perf_counter()
+            _quiet(submission.create_sintel_submission, steps["sintel"],
+                   out_dir, warm_start=True, batch_size=batch, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            sub[path] = {"dir": out_dir, "splats": list(splats),
+                         "b1_launches": ck.LAUNCHES["flash_fused_step"],
+                         "ms_per_frame": wall * 1e3 / 8}
+    finally:
+        submission.forward_interpolate = real_splat
+    files = {p: sorted(os.path.relpath(os.path.join(d, f), s["dir"])
+                       for d, _, fs in os.walk(s["dir"]) for f in fs)
+             for p, s in sub.items()}
+    diff = max(float(np.abs(
+        read_flo(os.path.join(sub["per_image"]["dir"], f))
+        - read_flo(os.path.join(sub["abreast"]["dir"], f))).max())
+        for f in files["per_image"])
+    rec["submission"] = {
+        "files": len(files["per_image"]), "flow_max_diff_px": diff,
+        "splat_devices": sorted({d for s in sub.values()
+                                 for pair in s["splats"] for d in pair}),
+        "splats": {p: len(s["splats"]) for p, s in sub.items()},
+        "b1_launches": {p: s["b1_launches"] for p, s in sub.items()},
+        "ms_per_frame": {p: s["ms_per_frame"] for p, s in sub.items()}}
+    launches += sum(s["b1_launches"] for s in sub.values())
+    rec["b1_launches_total"] = launches
+    emit(rec)
+    s = rec["submission"]
+    # per image: one forward per frame; abreast: 2 positions x 2 passes
+    if (files["per_image"] != files["abreast"] or s["files"] != 8
+            or diff > TOL_SUBMISSION_PX or s["splat_devices"] != [dev.type]
+            or s["splats"] != {"per_image": 8, "abreast": 8}
+            or s["b1_launches"] != {"per_image": 8 * 32, "abreast": 4 * 32}):
+        raise AssertionError(f"eval submission: {s}")
+    rec["weights"] = model.state_dict()
+    return rec
+
+
+def _child(args, env, timeout=420):
+    proc = subprocess.run([sys.executable, "-m", "dexiraft_tpu_torch"] + args,
+                          env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"{args[0]} exited {proc.returncode}: "
+                             f"{proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def phase_eval_cli(torch, card, root, ev) -> dict:
+    """python -m dexiraft_tpu_torch eval --variant v5 --model <phase
+    eval's seed-0 weights as a state-dict file> --dataset sintel
+    --submission sintel --warm_start in a child process (corr_impl auto:
+    B1 on the card): exit 0, its clean and final EPEs equal phase eval's
+    per-image run within TOL_EVAL_PATHS_PX (and the printed rounding);
+    then python -m dexiraft_tpu_torch viz over that submission: one PNG
+    per .flo, each decoding (read_png) to flow_to_image of its .flo."""
+    import re
+
+    from dexiraft_tpu_torch.data.flow_io import read_flo
+    from dexiraft_tpu_torch.data.png import read_png
+    from dexiraft_tpu_torch.eval.flow_viz import flow_to_image
+
+    weights = os.path.join(root, "v5_seed0.pth")
+    torch.save({k: v.cpu() for k, v in ev.pop("weights").items()}, weights)
+    out_dir = os.path.join(root, "cli_submission")
+    env = dict(os.environ, DEXIRAFT_DATA_DIR=root,
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    t0 = time.perf_counter()
+    out = _child(["eval", "--variant", "v5", "--model", weights,
+                  "--dataset", "sintel", "--submission", "sintel",
+                  "--warm_start", "--output", out_dir], env)
+    eval_s = time.perf_counter() - t0
+    printed = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"Validation \((\w+)\) EPE: ([\d.]+)", out)}
+    want = ev["metrics"]["per_image"]["sintel"]
+    diff = {k: abs(printed.get(k, np.inf) - want[k])
+            for k in ("clean", "final")}
+    t0 = time.perf_counter()
+    viz_out = _child(["viz", "--input", out_dir], env)
+    viz_s = time.perf_counter() - t0
+    flos = sorted(os.path.join(d, f) for d, _, fs in os.walk(out_dir)
+                  for f in fs if f.endswith(".flo"))
+    pngs_equal = [np.array_equal(read_png(f[:-4] + ".png"),
+                                 flow_to_image(read_flo(f))) for f in flos]
+    rec = {"phase": "eval_cli", "card": card, "printed_epe": printed,
+           "in_process_epe": {k: want[k] for k in ("clean", "final")},
+           "epe_diff_px": diff, "auto_resolved": "[eval] corr_impl auto -> "
+           "flash + fused_update" in out,
+           "flo_files": len(flos), "pngs_equal": sum(pngs_equal),
+           "viz_lines": viz_out.count(" -> "), "seconds": [eval_s, viz_s]}
+    emit(rec)
+    # the printed EPE is rounded to 3 decimals
+    if (max(diff.values()) > TOL_EVAL_PATHS_PX + 5e-4 or len(flos) != 8
+            or not all(pngs_equal) or not rec["auto_resolved"]):
+        raise AssertionError(f"eval_cli: {rec}")
     return rec
 
 
@@ -2040,6 +2374,19 @@ def main(argv=None) -> int:
     # the flow service on the main path, in process and as the CLI
     serve = phase_serve(torch, ck, dev)
     phase_serve_cli(torch)
+    # evaluation on the main path: validators, submissions, the CLIs
+    import tempfile
+
+    data_dir = os.environ.get("DEXIRAFT_DATA_DIR")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as root:
+        try:
+            ev = phase_eval(torch, ck, dev, smi, root)
+            phase_eval_cli(torch, smi, root, ev)
+        finally:
+            if data_dir is None:
+                os.environ.pop("DEXIRAFT_DATA_DIR", None)
+            else:
+                os.environ["DEXIRAFT_DATA_DIR"] = data_dir
     # training: the train step at the chairs geometry, the demo that
     # learns, and the CLI with --resume, each through B1 where fused
     train = phase_train(torch, ck, dev, smi)
@@ -2067,6 +2414,8 @@ def main(argv=None) -> int:
     # B1's launches on the service's path, and each kernel's on the train
     # phases' counted steps (the timed train steps and the demo)
     kernels[0]["serve_launches"] = serve["launches"]["flash_fused_step"]
+    # and on the eval phase's validators and submissions
+    kernels[0]["eval_launches"] = ev["b1_launches_total"]
     for entry in kernels:
         entry["train_launches"] = (train["launches"][entry["name"]]
                                    + demo["launches"][entry["name"]])

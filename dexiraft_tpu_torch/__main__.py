@@ -1,23 +1,27 @@
-"""Package dispatcher: python -m dexiraft_tpu_torch {serve,train} [args...]
+"""Package dispatcher: python -m dexiraft_tpu_torch {serve,train,eval,viz}
+[args...]
 
 The port's counterpart of ``python -m dexiraft_tpu``; the other commands
-(eval, router, dexined, viz) come with their ROADMAP items.
+(router, dexined) come with their ROADMAP items (A8, A11).
 """
 
+import importlib
 import sys
+
+_COMMANDS = {
+    "serve": "dexiraft_tpu_torch.serve_cli",
+    "train": "dexiraft_tpu_torch.train_cli",
+    "eval": "dexiraft_tpu_torch.eval_cli",
+    "viz": "dexiraft_tpu_torch.viz_cli",
+}
 
 
 def main() -> None:
-    cmds = ("serve", "train")
-    if len(sys.argv) < 2 or sys.argv[1] not in cmds:
-        print(f"usage: python -m dexiraft_tpu_torch {{{','.join(cmds)}}} "
-              "[args...]", file=sys.stderr)
+    if len(sys.argv) < 2 or sys.argv[1] not in _COMMANDS:
+        print(f"usage: python -m dexiraft_tpu_torch "
+              f"{{{','.join(_COMMANDS)}}} [args...]", file=sys.stderr)
         raise SystemExit(2)
-    if sys.argv[1] == "serve":
-        from dexiraft_tpu_torch.serve_cli import main as run
-    else:
-        from dexiraft_tpu_torch.train_cli import main as run
-    run(sys.argv[2:])
+    importlib.import_module(_COMMANDS[sys.argv[1]]).main(sys.argv[2:])
 
 
 if __name__ == "__main__":

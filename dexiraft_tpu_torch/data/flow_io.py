@@ -8,8 +8,10 @@ plus an extension-dispatch reader.
 
 A copy of ``dexiraft_tpu/data/flow_io.py`` with its pure-Python codecs
 only: the native decode bridge stays in the JAX package (ROADMAP A6).
-Binary PPMs (the FlyingChairs format) are decoded here with numpy, other
-images through PIL, KITTI 16-bit PNGs through cv2.
+Binary PPMs (the FlyingChairs format) are decoded here with numpy; PNG
+frames and KITTI's 16-bit flow and disparity PNGs go through the port's
+own codec (data/png.py) on every machine, in the layout cv2 gives the
+JAX package; only other image formats (JPEG) need PIL.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import re
 from typing import Optional, Tuple, Union
 
 import numpy as np
+
+from dexiraft_tpu_torch.data.png import read_png, write_png
 
 FLO_MAGIC = 202021.25  # 'PIEH' interpreted as float32
 
@@ -91,13 +95,13 @@ def read_flow_kitti(path: Union[str, os.PathLike]) -> Tuple[np.ndarray, np.ndarr
 
     Encoding (KITTI devkit, core/utils/frame_utils.py:102-107):
     uint16 channels R=u, G=v with value = flow*64 + 2^15; B = valid mask.
+    (cv2 reads the file as B, G, R; the JAX package flips it back.)
     """
-    import cv2
-
-    raw = cv2.imread(os.fspath(path), cv2.IMREAD_ANYDEPTH | cv2.IMREAD_COLOR)
-    if raw is None:
-        raise FileNotFoundError(path)
-    raw = raw[:, :, ::-1].astype(np.float32)  # BGR -> RGB
+    raw = read_png(path)
+    if raw.ndim != 3 or raw.shape[2] < 3:
+        raise ValueError(f"{path}: a KITTI flow PNG has 3 channels, got "
+                         f"shape {raw.shape}")
+    raw = raw[:, :, :3].astype(np.float32)
     flow = (raw[:, :, :2] - 2**15) / 64.0
     valid = raw[:, :, 2]
     return flow, valid
@@ -107,8 +111,6 @@ def write_flow_kitti(path: Union[str, os.PathLike], flow: np.ndarray,
                      valid: Optional[np.ndarray] = None) -> None:
     """(H, W, 2) flow -> KITTI 16-bit PNG; ``valid`` (H, W) marks the
     measured pixels (KITTI GT is sparse), default all-valid."""
-    import cv2
-
     flow = np.asarray(flow, np.float32)
     enc = 64.0 * flow + 2**15
     if valid is None:
@@ -116,16 +118,15 @@ def write_flow_kitti(path: Union[str, os.PathLike], flow: np.ndarray,
     out = np.concatenate(
         [enc, np.asarray(valid, np.float32)[..., None]],
         axis=-1).astype(np.uint16)
-    cv2.imwrite(os.fspath(path), out[:, :, ::-1])
+    write_png(path, out)
 
 
 def read_disp_kitti(path: Union[str, os.PathLike]) -> Tuple[np.ndarray, np.ndarray]:
     """KITTI 16-bit disparity PNG -> ((H,W,2) flow [-disp, 0], valid)."""
-    import cv2
-
-    disp = cv2.imread(os.fspath(path), cv2.IMREAD_ANYDEPTH)
-    if disp is None:
-        raise FileNotFoundError(path)
+    disp = read_png(path)
+    if disp.ndim != 2:
+        raise ValueError(f"{path}: a KITTI disparity PNG is single-channel, "
+                         f"got shape {disp.shape}")
     disp = disp.astype(np.float32) / 256.0
     valid = (disp > 0.0).astype(np.float32)
     flow = np.stack([-disp, np.zeros_like(disp)], axis=-1)
@@ -175,13 +176,21 @@ def write_ppm(path: Union[str, os.PathLike], img: np.ndarray) -> None:
 
 
 def read_image(path: Union[str, os.PathLike]) -> np.ndarray:
-    """8-bit image -> (H, W, 3) uint8 (grayscale promoted, alpha dropped)."""
-    if os.fspath(path).lower().endswith(".ppm"):
+    """8-bit image -> (H, W, 3) uint8 (grayscale promoted, alpha dropped).
+    PPM and PNG are decoded by the port's own codecs; other formats
+    through PIL."""
+    name = os.fspath(path).lower()
+    if name.endswith(".ppm"):
         return read_ppm(path)
-    from PIL import Image
+    if name.endswith(".png"):
+        img = read_png(path)
+        if img.ndim == 3 and img.shape[2] == 2:  # gray + alpha
+            img = img[..., 0]
+    else:
+        from PIL import Image
 
-    with Image.open(os.fspath(path)) as im:
-        img = np.asarray(im)
+        with Image.open(os.fspath(path)) as im:
+            img = np.asarray(im)
     if img.ndim == 2:
         img = np.tile(img[..., None], (1, 1, 3))
     return np.ascontiguousarray(img[..., :3]).astype(np.uint8)

@@ -202,30 +202,6 @@ def _device(args):
         raise SystemExit(f"serve: {e}")
 
 
-def _read_state_dict(path: str):
-    """A torch state dict with the reference key names, without a
-    ``state_dict`` wrapper or a ``module.`` prefix; a directory is read as
-    a checkpoint of the port's trainer."""
-    import torch
-
-    if os.path.isdir(path):
-        from dexiraft_tpu_torch.train import checkpoint as ckpt
-
-        if ckpt.latest_step(path) is None:
-            raise SystemExit(
-                f"serve: {path} holds no checkpoint of the port's trainer "
-                "(an orbax checkpoint?); the PyTorch port cannot read orbax "
-                "without JAX (ROADMAP A10): pass a state-dict file")
-        return ckpt.read_state_dict(path)
-    if not os.path.isfile(path):
-        raise SystemExit(f"serve: no such model file {path}")
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(sd, dict) and "state_dict" in sd:
-        sd = sd["state_dict"]
-    return {k.removeprefix("module."): torch.as_tensor(v)
-            for k, v in sd.items()}
-
-
 def _load(args, dev):
     """(cfg, model) on ``dev``: the weights of --model (strict=True) or
     the seeded init of --synthetic_init."""
@@ -254,7 +230,12 @@ def _load(args, dev):
         model = RAFT(cfg)
     except ValueError as e:  # a config the model refuses
         raise SystemExit(f"serve: {e}")
-    sd = _read_state_dict(args.model)
+    from dexiraft_tpu_torch.train.checkpoint import read_model_weights
+
+    try:
+        sd = read_model_weights(args.model)
+    except (ValueError, FileNotFoundError) as e:
+        raise SystemExit(f"serve: {e}")
     model.load_state_dict(sd, strict=True)
     print(f"[serve] loaded {len(sd)} tensors from {args.model}", flush=True)
     return cfg, model.to(dev).eval()

@@ -11,6 +11,9 @@ adds (the data stream's position). It is written by ``torch.save`` into
 ``<dir>/<step>.tmp-*`` and renamed into place, so a crash mid-flush leaves
 the previous step the newest one.
 
+``read_model_weights`` reads the weights of a checkpoint or of a bare
+state-dict file for every CLI's ``--model`` and ``--restore_ckpt``.
+
 ``save_checkpoint(block=False)`` copies the state to host memory at once
 (the only part the step loop waits for: the next step updates the tensors
 in place) and writes it on one background thread. ``wait_pending`` is the
@@ -220,12 +223,32 @@ def restore_params_into(model: torch.nn.Module,
     return skipped
 
 
-def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
-    """The model weights of ``path``: a checkpoint of this module (its
-    newest step) or a bare state-dict file (the bridge's
-    ``export_raft_state_dict`` layout)."""
-    if os.path.isfile(path):
-        obj = torch.load(path, map_location="cpu", weights_only=True)
-        return obj["model"] if isinstance(obj, dict) and "model" in obj \
-            and "optimizer" in obj else obj
-    return load_payload(path)["model"]
+def read_model_weights(path: str) -> Dict[str, torch.Tensor]:
+    """The model weights of ``path``, with the reference key names, for a
+    strict load: a checkpoint directory of this module (its newest step),
+    one step directory or ``state.pt``, or a bare state-dict file (the
+    bridge's ``export_raft_state_dict`` layout; a ``state_dict`` wrapper
+    and a ``module.`` prefix are taken off). The one reader of every
+    CLI's ``--model`` / ``--restore_ckpt``.
+
+    Raises FileNotFoundError for a missing path and ValueError, naming
+    ROADMAP A10, for a directory that holds no checkpoint of this module
+    (an orbax checkpoint of the JAX package)."""
+    if os.path.isdir(path):
+        if (latest_step(path) is None
+                and not os.path.isfile(os.path.join(path, STATE_FILE))):
+            raise ValueError(
+                f"{path} holds no checkpoint of the port's trainer (an "
+                "orbax checkpoint?); the PyTorch port cannot read orbax "
+                "without JAX (ROADMAP A10): export its weights with "
+                "interop.torch_convert and pass the state-dict file")
+        return load_payload(path)["model"]
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"no such model file {path}")
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(obj, dict) and "model" in obj and "optimizer" in obj:
+        return obj["model"]
+    if isinstance(obj, dict) and "state_dict" in obj:
+        obj = obj["state_dict"]
+    return {k.removeprefix("module."): torch.as_tensor(v)
+            for k, v in obj.items()}

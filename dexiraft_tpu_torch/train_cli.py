@@ -8,20 +8,29 @@
 Counterpart of ``dexiraft_tpu/train_cli.py``: the same flags, defaults and
 preset resolution (``resolve_configs``), and its loop on one device:
 fetch_dataset -> Loader -> prefetch to the device -> create_state -> train
-step -> Logger -> DivergenceGuard -> a checkpoint every ``--val_freq``
-steps and at the end. Every checkpoint carries the data stream's position,
-so ``--resume`` continues the exact sample sequence from the latest step.
+step -> Logger -> DivergenceGuard -> every ``--val_freq`` steps a
+checkpoint, retention's GC (``--keep``, ``--keep_best``) and the
+validation sets (the preset's, or ``--validation``), then a checkpoint at
+the end. Every checkpoint carries the data stream's position, so
+``--resume`` continues the exact sample sequence from the latest step.
 The device is ``cuda`` unless ``--device cpu`` is given.
+
+Validation runs each set's validator (eval/validate.py) through the eval
+step over the live model at the reference iteration counts
+(``_VAL_ITERS``), after the checkpoint flush barrier, and logs the
+metrics at that step; the first EPE-like scalar of the first set ranks
+the checkpoint for ``--keep_best`` (resilience/retention.py, scores in
+``<output>/<name>/retention.json``). The eval step puts the model in
+eval mode and the train step puts it back in train mode; validation
+draws nothing from the train state's generator.
 
 Refused, each naming the ROADMAP item that ports it: ``--mixed_precision``
 and ``--precision bf16`` (A2); ``--remat`` and ``--remat_lookup`` (A10);
 ``--fsdp``, ``--elastic``, ``--join``, a nonzero ``--stall_timeout`` and
-``--chaos`` (A12); ``--strict`` (A13); ``--records_dir`` (A6); named
-``--validation`` sets and ``--keep_best`` (A7). A preset's own validation
-sets are dropped with one printed line naming A7. ``--restore_ckpt``
-takes a checkpoint of this trainer or a state-dict file (the bridge's
-layout); an orbax directory is refused (A10). PyTorch runs eagerly, so
-``--compile_cache`` has nothing to cache and only says so.
+``--chaos`` (A12); ``--strict`` (A13); ``--records_dir`` (A6).
+``--restore_ckpt`` takes a checkpoint of this trainer or a state-dict file
+(the bridge's layout); an orbax directory is refused (A10). PyTorch runs
+eagerly, so ``--compile_cache`` has nothing to cache and only says so.
 """
 
 from __future__ import annotations
@@ -39,8 +48,8 @@ import numpy as np
 from dexiraft_tpu_torch import config as cfglib
 from dexiraft_tpu_torch.config import VARIANTS, RAFTConfig, TrainConfig
 
-# the in-training validation sets of the JAX trainer (their port is A7)
-_VAL_SETS = ("chairs", "hd1k", "kitti", "sintel")
+# reference in-training validation iteration counts (evaluate.py:81-210)
+_VAL_ITERS = {"chairs": 24, "sintel": 32, "kitti": 24, "hd1k": 24}
 
 
 def fsdp_arg(value: str):
@@ -107,9 +116,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compile_cache", action="store_true")
     p.add_argument("--compile_cache_dir", default=None)
     p.add_argument("--validation", nargs="*", default=None,
-                   choices=sorted(_VAL_SETS),
-                   help="named sets are refused (ROADMAP A7); an empty "
-                        "list turns the preset's off")
+                   choices=sorted(_VAL_ITERS),
+                   help="sets validated at every checkpoint (default: the "
+                        "preset's; an empty list turns them off)")
     p.add_argument("--records_dir", default=None, help="refused: ROADMAP A6")
     p.add_argument("--edge_root", default=None,
                    help="parallel tree of precomputed edge-map PNGs for the "
@@ -146,7 +155,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="keep only the newest N checkpoints (0 = all); the "
                         "rollback target is never deleted")
     p.add_argument("--keep_best", action="store_true",
-                   help="refused: needs validation (ROADMAP A7)")
+                   help="retention also keeps the checkpoint with the best "
+                        "validation EPE (the first set's) even once it ages "
+                        "out of the --keep window")
     p.add_argument("--on_preempt", choices=["save", "abort"], default="save",
                    help="SIGTERM/SIGINT: 'save' finishes the step and writes "
                         "one checkpoint; 'abort' stops without saving")
@@ -183,8 +194,6 @@ def refuse_unported(args) -> None:
         (args.chaos is not None, "--chaos", "A12"),
         (args.strict, "--strict", "A13"),
         (args.records_dir is not None, "--records_dir", "A6"),
-        (bool(args.validation), "--validation with named sets", "A7"),
-        (args.keep_best, "--keep_best", "A7"),
     )
     for bad, flag, item in refused:
         if bad:
@@ -276,6 +285,21 @@ class _Preemption:
         return False
 
 
+def _make_validators(model_fn, dev):
+    """run(name) -> that set's metric dict, from its validator over the
+    CURRENT model (``model_fn()``) at ``_VAL_ITERS[name]`` iterations.
+    The eval step is built per call: building it puts the model in eval
+    mode, and the next train step puts it back in train mode."""
+    from dexiraft_tpu_torch.eval.validate import VALIDATORS
+    from dexiraft_tpu_torch.train.step import make_eval_step
+
+    def run(name: str) -> Dict[str, float]:
+        step = make_eval_step(model_fn(), iters=_VAL_ITERS[name], device=dev)
+        return VALIDATORS[name](step)
+
+    return run
+
+
 def _stream_position(epoch: int, offset: int, per_epoch: int):
     """The position after consuming the batch at (epoch, offset)."""
     absolute = epoch * per_epoch + offset + 1
@@ -290,6 +314,7 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args) -> None:
     from dexiraft_tpu_torch.data.loader import Loader
     from dexiraft_tpu_torch.data.prefetch import DevicePrefetcher
     from dexiraft_tpu_torch.device import resolve_device
+    from dexiraft_tpu_torch.resilience.retention import RetentionPolicy
     from dexiraft_tpu_torch.train import checkpoint as ckpt
     from dexiraft_tpu_torch.train.guard import DivergenceGuard
     from dexiraft_tpu_torch.train.logger import Logger
@@ -301,12 +326,6 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args) -> None:
     ckpt_dir = osp.join(args.output, tc.name)
     if args.compile_cache or args.compile_cache_dir:
         print("[cache] nothing to cache: the PyTorch port runs eagerly")
-    if tc.validation:
-        print(f"[validation] the preset's sets {list(tc.validation)} are "
-              "dropped: in-training validation is not ported yet "
-              "(ROADMAP A7)")
-        tc = dataclasses.replace(tc, validation=())
-
     state = create_state(cfg, tc, device=dev)
     print(f"Parameter Count: {param_count(state.model)}")
     stream = (0, 0)
@@ -319,7 +338,7 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args) -> None:
               f"epoch {stream[0]}, batch {stream[1]})")
     elif args.restore_ckpt:
         try:
-            restored = ckpt.read_state_dict(args.restore_ckpt)
+            restored = ckpt.read_model_weights(args.restore_ckpt)
         except (ValueError, FileNotFoundError) as e:
             raise SystemExit(f"train: --restore_ckpt: {e}")
         skipped = ckpt.restore_params_into(state.model, restored,
@@ -340,16 +359,17 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args) -> None:
     logger.rewind(total_steps)
     guard = DivergenceGuard(args.guard_threshold, args.max_rollbacks)
     configs = {"raft": cfg, "train": tc}
+    # bound to ckpt_dir: --keep_best scores persist in
+    # <ckpt_dir>/retention.json, so a resumed run still knows the best step
+    retention = RetentionPolicy(args.keep, args.keep_best, directory=ckpt_dir)
+    validate = _make_validators(lambda: state.model, dev)
 
     def save(step: int, block: bool = False) -> None:
         nonlocal last_saved
         info = ckpt.wait_pending(ckpt_dir)
         _note_flush(info)
-        if args.keep > 0:
-            steps = ckpt.all_steps(ckpt_dir)
-            for old in steps[:max(len(steps) - args.keep + 1, 0)]:
-                if old != last_saved:
-                    ckpt.delete_step(ckpt_dir, old)
+        # GC before the new flush is handed off; the rollback target stays
+        retention.apply(ckpt_dir, protect=(last_saved,))
         ckpt.save_checkpoint(ckpt_dir, state, step=step, block=False,
                              extra={"stream": stream}, configs=configs)
         if block:
@@ -427,6 +447,21 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args) -> None:
                     break
                 if total_steps % tc.val_freq == 0:
                     save(total_steps)
+                    if tc.validation:
+                        # barrier before validation: --keep_best must not
+                        # rank a step whose flush then fails
+                        _note_flush(ckpt.wait_pending(ckpt_dir))
+                    for vname in tc.validation:
+                        results = validate(vname)
+                        logger.write_dict(results, step=total_steps)
+                        # the first EPE-like scalar of the first set ranks
+                        # this checkpoint for --keep_best (lower = better)
+                        if vname == tc.validation[0] and results:
+                            epe_keys = [k for k in results
+                                        if "epe" in k or k == vname]
+                            if epe_keys:
+                                retention.note_score(total_steps,
+                                                     results[epe_keys[0]])
                 if total_steps >= tc.num_steps:
                     break
     finally:

@@ -192,8 +192,10 @@ def test_resolve_corr_impl():
 
 def test_package_imports_no_jax():
     """The port's package, model, engine, kernel, bridge, splat, session,
-    video, scheduler, server, trainer, data and CLI modules load neither
-    jax/flax/optax/orbax nor any dexiraft_tpu module (a subprocess: this
+    video, scheduler, server, trainer, data, eval, retention and CLI
+    modules load neither
+    jax/flax/optax/orbax nor any dexiraft_tpu module, nor an image library
+    (PIL, cv2, imageio: the port decodes PNG itself) (a subprocess: this
     test process has jax loaded by conftest)."""
     code = (
         "import sys\n"
@@ -225,8 +227,15 @@ def test_package_imports_no_jax():
         "import dexiraft_tpu_torch.data.prefetch\n"
         "import dexiraft_tpu_torch.train_cli\n"
         "import dexiraft_tpu_torch.train_demo\n"
+        "import dexiraft_tpu_torch.eval, dexiraft_tpu_torch.eval.validate\n"
+        "import dexiraft_tpu_torch.eval.submission\n"
+        "import dexiraft_tpu_torch.eval.flow_viz\n"
+        "import dexiraft_tpu_torch.eval_cli, dexiraft_tpu_torch.viz_cli\n"
+        "import dexiraft_tpu_torch.data.png, dexiraft_tpu_torch.data.synthetic\n"
+        "import dexiraft_tpu_torch.resilience.retention\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'dexiraft_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'dexiraft_tpu', "
+        "'PIL', 'cv2', 'imageio'))\n"
         "print(bad)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)

@@ -1,6 +1,7 @@
 """The port's trainer end to end on the CPU: ``train_cli`` on a synthetic
-FlyingChairs tree, checkpoints, ``--resume``, ``--restore_ckpt``, the
-device prefetch and every refused flag.
+FlyingChairs tree, checkpoints, ``--resume``, ``--restore_ckpt``,
+in-training validation with ``--keep_best``, the device prefetch and
+every refused flag.
 
 The tree is written with the port's own codecs (binary PPM frames and .flo
 flows, as tests/test_data.py's chairs tree), v1 small at 64x96, 2
@@ -31,13 +32,13 @@ BASE = ["--stage", "chairs", "--variant", "v1", "--small", "--iters", "2",
         "--sum_freq", "1", "--device", "cpu"]
 
 
-def write_chairs_tree(root, n=6, h=96, w=128, seed=0):
+def write_chairs_tree(root, n=6, h=96, w=128, seed=0, n_val=0):
     """A FlyingChairs_release tree under ``root`` with ``n`` training
-    pairs."""
+    pairs, then ``n_val`` validation pairs."""
     data = os.path.join(root, "FlyingChairs_release", "data")
     os.makedirs(data, exist_ok=True)
     rng = np.random.default_rng(seed)
-    for i in range(n):
+    for i in range(n + n_val):
         for k in (1, 2):
             write_ppm(os.path.join(data, f"{i:05d}_img{k}.ppm"),
                       rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
@@ -45,7 +46,7 @@ def write_chairs_tree(root, n=6, h=96, w=128, seed=0):
                   rng.normal(size=(h, w, 2)).astype(np.float32))
     with open(os.path.join(root, "FlyingChairs_release",
                            "chairs_split.txt"), "w") as f:
-        f.write("\n".join(["1"] * n))
+        f.write("\n".join(["1"] * n + ["2"] * n_val))
     return data
 
 
@@ -101,12 +102,11 @@ def test_cli_trains_saves_and_resumes_exactly(chairs_env):
 def test_cli_restore_ckpt_from_checkpoint_and_state_dict(chairs_env, capsys):
     train_cli.main(BASE + ["--name", "a", "--num_steps", "1",
                            "--val_freq", "1"])
-    sd = ckpt.read_state_dict("checkpoints/a")
+    sd = ckpt.read_model_weights("checkpoints/a")
     torch.save(sd, "weights.pth")
-    # the service's --model reads the trainer's checkpoint directory too
-    from dexiraft_tpu_torch import serve_cli
-    served = serve_cli._read_state_dict("checkpoints/a")
-    assert served.keys() == sd.keys()
+    # one reader for every CLI: the step directory and its state.pt too
+    for path in ("checkpoints/a/1", "checkpoints/a/1/state.pt"):
+        assert ckpt.read_model_weights(path).keys() == sd.keys()
     for src in ("checkpoints/a", "weights.pth"):
         train_cli.main(BASE + ["--name", "b", "--num_steps", "1",
                                "--restore_ckpt", src, "--no_guard"])
@@ -128,8 +128,6 @@ def test_cli_restore_ckpt_from_checkpoint_and_state_dict(chairs_env, capsys):
     (["--chaos", "sigterm@3"], "A12"),
     (["--strict"], "A13"),
     (["--records_dir", "packs"], "A6"),
-    (["--validation", "chairs"], "A7"),
-    (["--keep_best"], "A7"),
 ])
 def test_refused_flags_name_their_item(flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
@@ -137,19 +135,76 @@ def test_refused_flags_name_their_item(flags, item):
 
 
 def test_preset_resolution_and_dropped_validation(chairs_env, capsys):
+    """A preset's validation sets are kept, and ``--validation`` with no
+    names drops them (this tree has no validation pairs)."""
     args = train_cli.build_parser().parse_args(
         ["--stage", "things", "--preset", "standard", "--lr", "1e-5"])
     cfg, tc = train_cli.resolve_configs(args)
     assert (tc.name, tc.batch_size, tc.image_size, tc.freeze_bn, tc.lr) == (
         "raft-things", 6, (400, 720), True, 1e-5)
     assert cfg.corr_impl == "allpairs" and tc.validation == ("sintel",)
+    args = train_cli.build_parser().parse_args(
+        BASE + ["--preset", "standard", "--validation"])
+    assert train_cli.resolve_configs(args)[1].validation == ()
     train_cli.main(BASE + ["--preset", "standard", "--name", "p",
-                           "--num_steps", "1", "--corr_impl", "flash",
+                           "--num_steps", "2", "--val_freq", "1",
+                           "--validation", "--corr_impl", "flash",
                            "--fused_update"])
     out = capsys.readouterr().out
-    assert out.count("ROADMAP A7") == 1 and "Done: 1 steps" in out
+    assert "ROADMAP A7" not in out and "Validation" not in out
+    assert "Done: 2 steps" in out
     with pytest.raises(SystemExit, match="requires --corr_impl"):
         train_cli.main(BASE + ["--fused_update", "--corr_impl", "local"])
+
+
+def _metric_rows(log_dir, name, key):
+    with open(os.path.join(log_dir, name, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    return {r["step"]: r[key] for r in rows if key in r}
+
+
+def test_cli_validates_at_checkpoints_and_keeps_best(tmp_path, monkeypatch,
+                                                    capsys):
+    """--validation chairs --keep_best --keep 1: the chairs EPE is logged
+    at every checkpoint, retention.json holds the scores of the steps on
+    disk, the best step survives GC beside the newest, and the training
+    losses equal a run without validation (dropout on: validation draws
+    no mask from the generator, and training resumes in train mode)."""
+    write_chairs_tree(str(tmp_path), n=6, n_val=2)
+    monkeypatch.setenv("DEXIRAFT_DATA_DIR", str(tmp_path))
+    monkeypatch.chdir(tmp_path)
+    common = BASE + ["--num_steps", "8", "--val_freq", "2",
+                     "--dropout", "0.2", "--keep", "1"]
+    train_cli.main(common + ["--name", "val", "--log_dir", "runs_v",
+                             "--validation", "chairs", "--keep_best"])
+    out = capsys.readouterr().out
+    assert out.count("Validation Chairs EPE") == 4
+    train_cli.main(common + ["--name", "plain", "--log_dir", "runs_p",
+                             "--validation"])
+    with_val, without = _losses("runs_v", "val"), _losses("runs_p", "plain")
+    assert sorted(with_val) == list(range(1, 9))
+    assert with_val == without
+    epe = _metric_rows("runs_v", "val", "chairs")
+    assert sorted(epe) == [2, 4, 6, 8]
+    assert all(np.isfinite(v) for v in epe.values())
+    steps = ckpt.all_steps("checkpoints/val")
+    best = min(epe, key=epe.get)
+    assert best in steps and 8 in steps and len(steps) <= 3
+    with open("checkpoints/val/retention.json") as f:
+        scores = {int(k): v for k, v in json.load(f).items()}
+    assert sorted(scores) == steps
+    for s in steps:
+        assert scores[s] == pytest.approx(epe[s], rel=1e-6)
+    # without --keep_best the window alone decides: 6 and 8 stay
+    assert ckpt.all_steps("checkpoints/plain") == [6, 8]
+
+
+def test_preset_validation_without_its_data_fails(chairs_env):
+    """A validation set whose data is absent fails at the first
+    checkpoint, as in the JAX trainer (the dataset cannot be listed)."""
+    with pytest.raises(FileNotFoundError):
+        train_cli.main(BASE + ["--name", "s", "--num_steps", "1",
+                               "--val_freq", "1", "--validation", "sintel"])
 
 
 def test_cli_without_a_card_exits_naming_cuda(chairs_env):
