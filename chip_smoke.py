@@ -12,10 +12,13 @@ server and its CLI) on v5's main path, evaluation on the same path (the
 validators and the Sintel submission over synthetic dataset trees, the
 eval and viz CLIs), and training (the train step at the chairs
 geometry, the exact-GT demo, the train CLI with validation, --keep_best
-and --resume). It builds the hand-written CUDA kernels from the sources in this checkout, holds each
-kernel against its plain PyTorch version (and each of the two
-formulations against the other), shows from the launch counters that
-each path went through its kernels, and times them. Imports nothing of
+and --resume), and the packed-record plane with the native decode bridge
+and the trainer's recovery paths (a kill mid-flush, a verified resume, a
+truncated step). It builds the hand-written CUDA kernels from the
+sources in this checkout, holds each kernel against its plain PyTorch
+version (and each of the two formulations against the other), shows from
+the launch counters that each path went through its kernels, and times
+them. Imports nothing of
 JAX or of the JAX package (dexiraft_tpu).
 
 Phases, one JSON line each:
@@ -127,6 +130,19 @@ Phases, one JSON line each:
               kept beside the newest), then --resume from a copy of step
               3: the resumed run starts at step 3 and logs the full run's
               losses within 1e-5 relative
+  records     the packed-record plane on the train_cli phase's tree: the
+              native decode library built from native/dexiraft_native.cpp
+              and bit-equal to the pure-Python codecs on every file, host
+              ms per sample (pure-Python, native, ShardedRecordSet),
+              pack_records --shards 4 --verify in a child (seconds,
+              bytes); train --records_dir --chaos kill_mid_flush@4 dies in
+              step 6's flush (6.tmp-* debris, step 3 the newest), every
+              loss the raw full run's within 1e-5 relative; --resume
+              --records_dir sweeps the debris, restores step 3, steps 4-6
+              within 1e-5, 36 B1 launches; --resume without --records_dir
+              refused; step 6 truncated: restore_verified on the card
+              falls back to step 3 and deletes 6, an all-truncated copy
+              raises and keeps its files
   6 times     CUDA-event medians: v1 and v5 forward ms at 440x1024, B=1
               (TF32 off and PyTorch's default, and the main paths under
               the eval step's arithmetic), v5's DexiNed and prelude
@@ -139,8 +155,8 @@ Phases, one JSON line each:
               path, B1 on the model's coords)
 Then the {"kernels": [...]} line (each entry with its launches on the
 slices' paths, the service's and the eval phase's for B1 as
-serve_launches and eval_launches, and the train phases' counted steps as
-train_launches), the nvidia-smi line, and last
+serve_launches and eval_launches, and the train and records phases'
+counted steps as train_launches), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed phase exits non-zero.
 """
 
@@ -1493,6 +1509,10 @@ TRAIN_WARMUP, TRAIN_TIMED = 2, 5
 TOL_TRAIN_LOSS_REL = 1e-4   # B1 step vs corr_impl="local" step
 TOL_TRAIN_GRAD_REL_L2 = 1e-3
 TOL_RESUME_REL = 1e-5       # resumed train_cli losses vs the full run's
+# the train CLI's arguments in the train_cli and records phases
+TRAIN_CLI_COMMON = ["--stage", "chairs", "--corr_impl", "flash",
+                    "--fused_update", "--num_steps", "6", "--val_freq", "3",
+                    "--sum_freq", "1", "--num_workers", "4"]
 
 
 def train_batch(torch, dev, b, seed):
@@ -1749,9 +1769,7 @@ def phase_train_cli(torch, card) -> dict:
     from dexiraft_tpu_torch.data.synthetic import write_chairs_tree
     from dexiraft_tpu_torch.train import checkpoint as ckpt
 
-    common = ["--stage", "chairs", "--corr_impl", "flash", "--fused_update",
-              "--num_steps", "6", "--val_freq", "3", "--sum_freq", "1",
-              "--num_workers", "4"]
+    common = TRAIN_CLI_COMMON
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         write_chairs_tree(tmp, n_train=20, n_val=4, hw=(384, 512), seed=0)
         env = dict(os.environ, DEXIRAFT_DATA_DIR=tmp,
@@ -1802,6 +1820,238 @@ def phase_train_cli(torch, card) -> dict:
             or sorted(scores) != [3, 6] or best not in kept
             or 6 not in kept):
         raise AssertionError(f"train_cli: {rec}")
+    return rec
+
+
+# ---- records: the packed-record plane, the native bridge, recovery ----
+
+
+def decode_ms(paths_per_sample, decode) -> "tuple[float, list]":
+    """Median host ms of ``decode`` over the samples (each a tuple of
+    paths decoded together), and the decoded arrays."""
+    times, out = [], []
+    for paths in paths_per_sample:
+        t0 = time.perf_counter()
+        arrays = [decode(p) for p in paths]
+        times.append((time.perf_counter() - t0) * 1e3)
+        out.append(arrays)
+    return statistics.median(times), out
+
+
+def phase_records(torch, dev, card, raw_losses) -> dict:
+    """The packed-record plane and the trainer's recovery paths, on the
+    train_cli phase's synthetic chairs tree (20 training and 4 validation
+    pairs of 384x512, seed 0):
+
+      * the native decode bridge builds from native/dexiraft_native.cpp
+        (a failed build fails the phase) and decodes every PPM and .flo
+        of the tree bit-equal to the pure-Python codecs; host ms per
+        sample (two frames and a flow), median over the tree, for the
+        pure-Python codecs, the native ones and ShardedRecordSet reads;
+      * python -m dexiraft_tpu_torch pack_records --stage chairs
+        --image_size 368 496 --shards 4 --verify in a child: seconds,
+        bytes on disk;
+      * train --records_dir with --chaos kill_mid_flush@4 (the train_cli
+        phase's arguments, no validation) dies while step 6's flush is in
+        flight: a non-zero exit, a 6.tmp-* directory, step 3 the newest
+        committed step, and every logged loss the raw full run's
+        (``raw_losses``, from phase_train_cli) within TOL_RESUME_REL;
+      * --resume --records_dir sweeps the debris, restores step 3 and
+        logs the raw run's losses at steps 4-6 within TOL_RESUME_REL;
+        step 6 commits; its "[kernels] launches" line gives B1's 12
+        launches per counted step; --resume without --records_dir exits
+        naming the loader mismatch;
+      * step 6 truncated: restore_verified against a v1 template on the
+        card falls back to step 3 and deletes step 6; a copy whose every
+        step is truncated raises CheckpointIntegrityError and keeps its
+        files."""
+    import shutil
+    import tempfile
+
+    from dexiraft_tpu_torch import train_cli
+    from dexiraft_tpu_torch.data import flow_io, native
+    from dexiraft_tpu_torch.data.records import ShardedRecordSet
+    from dexiraft_tpu_torch.data.synthetic import write_chairs_tree
+    from dexiraft_tpu_torch.resilience import chaos
+    from dexiraft_tpu_torch.resilience.verify import (
+        CheckpointIntegrityError, restore_verified, uncommitted_flushes)
+    from dexiraft_tpu_torch.train import checkpoint as ckpt
+    from dexiraft_tpu_torch.train.state import create_state
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_records_") as tmp:
+        data = write_chairs_tree(tmp, n_train=20, n_val=4, hw=(384, 512),
+                                 seed=0)
+        env = dict(os.environ, DEXIRAFT_DATA_DIR=tmp,
+                   PYTHONPATH=REPO + os.pathsep + os.environ.get(
+                       "PYTHONPATH", ""))
+
+        # the native bridge: built here, from the checkout's source
+        if native.get_lib() is None:
+            raise AssertionError(
+                f"records: the native decode library did not build from "
+                f"{native._SRC} (g++ {shutil.which('g++')!r}) into "
+                f"{native._SO}")
+        samples = [(os.path.join(data, f"{i:05d}_img1.ppm"),
+                    os.path.join(data, f"{i:05d}_img2.ppm"),
+                    os.path.join(data, f"{i:05d}_flow.flo"))
+                   for i in range(24)]
+
+        def native_decode(p):
+            return (native.read_flo_native(p) if p.endswith(".flo")
+                    else native.read_ppm_native(p))
+
+        def python_decode(p):
+            os.environ["DEXIRAFT_NO_NATIVE"] = "1"
+            try:
+                return (flow_io.read_flo(p) if p.endswith(".flo")
+                        else flow_io.read_ppm(p))
+            finally:
+                del os.environ["DEXIRAFT_NO_NATIVE"]
+
+        ms_python, py_arrays = decode_ms(samples, python_decode)
+        ms_native, nat_arrays = decode_ms(samples, native_decode)
+        mismatched = [p for sample, a, b in zip(samples, py_arrays,
+                                                nat_arrays)
+                      for p, x, y in zip(sample, a, b)
+                      if y is None or x.dtype != y.dtype
+                      or not np.array_equal(x, y)]
+
+        def child(args, timeout=420):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "dexiraft_tpu_torch"] + args,
+                cwd=tmp, env=env, capture_output=True, text=True,
+                timeout=timeout)
+            return proc, time.perf_counter() - t0
+
+        def train_losses(name):
+            with open(os.path.join(tmp, "runs", name, "metrics.jsonl")) as f:
+                rows = [json.loads(line) for line in f]
+            return {r["step"]: r["loss"] for r in rows if "loss" in r}
+
+        # the pack
+        rec_dir = os.path.join(tmp, "records")
+        proc, s_pack = child(["pack_records", "--stage", "chairs",
+                              "--image_size", "368", "496", "--shards", "4",
+                              "--out", rec_dir, "--verify"])
+        if proc.returncode != 0:
+            raise AssertionError(f"records: pack_records exited "
+                                 f"{proc.returncode}: {proc.stdout[-2000:]} "
+                                 f"{proc.stderr[-2000:]}")
+        pack_bytes = sum(os.path.getsize(os.path.join(rec_dir, n))
+                         for n in os.listdir(rec_dir))
+        rs = ShardedRecordSet(rec_dir)
+        ms_records, rec_arrays = decode_ms(
+            [(i,) for i in range(len(rs))], rs.read)
+        rs.close()
+        records_equal = all(
+            np.array_equal(r[0][k], x)
+            for r, sample in zip(rec_arrays, nat_arrays)
+            for k, x in zip(("image1", "image2", "flow"), sample))
+
+        # a records run killed while step 6's flush is in flight
+        run_dir = os.path.join(tmp, "checkpoints", "rec")
+        train = ["train", "--name", "rec", "--log_dir", "runs",
+                 "--records_dir", rec_dir] + TRAIN_CLI_COMMON
+        crash, s_crash = child(train + ["--chaos", "kill_mid_flush@4"])
+        crash_losses = train_losses("rec")
+        debris = uncommitted_flushes(run_dir)
+        committed = ckpt.all_steps(run_dir)
+
+        # the verified resume of that directory, under the same pack
+        resume, s_resume = child(train + ["--resume"])
+        if resume.returncode != 0:
+            raise AssertionError(f"records: the resume exited "
+                                 f"{resume.returncode}: "
+                                 f"{resume.stdout[-2000:]} "
+                                 f"{resume.stderr[-3000:]}")
+        all_losses = train_losses("rec")
+        resumed_losses = {s: all_losses[s] for s in (4, 5, 6)
+                          if s in all_losses}
+        launch_lines = [line for line in resume.stdout.splitlines()
+                        if line.startswith("[kernels] launches ")]
+        launches = (json.loads(launch_lines[-1].split(" ", 2)[2])
+                    if launch_lines else {})
+        steps_after_resume = ckpt.all_steps(run_dir)
+        # the same directory without --records_dir: refused
+        swap, s_swap = child(["train", "--name", "rec", "--log_dir",
+                              "runs_swap", "--resume"] + TRAIN_CLI_COMMON)
+
+        # a truncated newest step: verified restore on the card
+        args = train_cli.build_parser().parse_args(TRAIN_CLI_COMMON)
+        cfg, tc = train_cli.resolve_configs(args)
+        truncated = chaos.truncate_checkpoint(run_dir, 6)
+        template = create_state(cfg, tc, device=dev)
+        _, fell_back_to, extra = restore_verified(run_dir, template,
+                                                  clean_debris=True)
+        steps_after_fallback = ckpt.all_steps(run_dir)
+        all_bad = os.path.join(tmp, "checkpoints", "all_bad")
+        shutil.copytree(run_dir, all_bad)
+        for s in ckpt.all_steps(all_bad):
+            chaos.truncate_checkpoint(all_bad, s)
+        before = sorted(os.listdir(all_bad))
+        try:
+            restore_verified(all_bad, template, verbose=False)
+            all_bad_raised = False
+        except CheckpointIntegrityError:
+            all_bad_raised = True
+        all_bad_kept = sorted(os.listdir(all_bad)) == before
+        del template
+
+    def rel(losses):
+        return {s: abs(v - raw_losses[s]) / abs(raw_losses[s])
+                for s, v in losses.items()}
+
+    rec = {"phase": "records", "card": card,
+           "native_library": os.path.relpath(native._SO, REPO),
+           "decode_ms_per_sample": {"python": ms_python,
+                                    "native": ms_native,
+                                    "records": ms_records},
+           "native_mismatched_files": mismatched,
+           "records_equal_native": records_equal,
+           "pack_seconds": s_pack, "pack_bytes": pack_bytes,
+           "pack_records": len(rec_arrays),
+           "crash_exit": crash.returncode,
+           "crash_said": [line for line in crash.stdout.splitlines()
+                          if line.startswith("[chaos]")],
+           "crash_debris": debris, "crash_committed_steps": committed,
+           "crash_losses": crash_losses, "crash_rel_diff": rel(crash_losses),
+           "resumed_from_step_3": "Resumed full state at step 3"
+                                  in resume.stdout,
+           "debris_swept": "removed 1 uncommitted flush" in resume.stdout,
+           "resumed_losses": resumed_losses,
+           "resumed_rel_diff": rel(resumed_losses),
+           "steps_after_resume": steps_after_resume,
+           "b1_launches": launches.get("flash_fused_step"),
+           "launches": launches, "counted_steps": 3,
+           "swap_exit": swap.returncode,
+           "swap_refused": "saved by the 'records' loader" in swap.stderr,
+           "truncated": [os.path.relpath(p, tmp) for p in truncated],
+           "fell_back_to": fell_back_to,
+           "fallback_stream": list(extra.get("stream", ())),
+           "steps_after_fallback": steps_after_fallback,
+           "all_bad_raised": all_bad_raised, "all_bad_kept": all_bad_kept,
+           "seconds": {"crash": s_crash, "resume": s_resume,
+                       "swap": s_swap},
+           "tol_rel": TOL_RESUME_REL}
+    emit(rec)
+    crash_rel = list(rec["crash_rel_diff"].values())
+    resumed_rel = list(rec["resumed_rel_diff"].values())
+    if (mismatched or not records_equal or rec["pack_records"] != 20
+            or crash.returncode == 0
+            or len(debris) != 1 or not debris[0].startswith("6.tmp-")
+            or committed != [3]
+            or sorted(crash_losses) != [1, 2, 3, 4, 5, 6]
+            or max(crash_rel) > TOL_RESUME_REL
+            or not rec["resumed_from_step_3"] or not rec["debris_swept"]
+            or sorted(resumed_losses) != [4, 5, 6]
+            or max(resumed_rel) > TOL_RESUME_REL
+            or steps_after_resume != [3, 6]
+            or rec["b1_launches"] != 12 * rec["counted_steps"]
+            or swap.returncode == 0 or not rec["swap_refused"]
+            or fell_back_to != 3 or steps_after_fallback != [3]
+            or not all_bad_raised or not all_bad_kept):
+        raise AssertionError(f"records: {rec}")
     return rec
 
 
@@ -2391,7 +2641,10 @@ def main(argv=None) -> int:
     # learns, and the CLI with --resume, each through B1 where fused
     train = phase_train(torch, ck, dev, smi)
     demo = phase_train_demo(torch, ck, dev, smi)
-    phase_train_cli(torch, smi)
+    tcli = phase_train_cli(torch, smi)
+    # the packed-record plane, the native bridge and the trainer's
+    # recovery paths, against the train_cli phase's full run
+    recs = phase_records(torch, dev, smi, tcli["full_losses"])
     times = phase_times(torch, ck, gen, dev, v1_models, v5_models, smi)
 
     pc = "dexiraft_tpu/ops/pallas_corr.py"
@@ -2412,13 +2665,15 @@ def main(argv=None) -> int:
                      False),
     ]
     # B1's launches on the service's path, and each kernel's on the train
-    # phases' counted steps (the timed train steps and the demo)
+    # phases' counted steps (the timed train steps, the demo and the
+    # records phase's resumed run)
     kernels[0]["serve_launches"] = serve["launches"]["flash_fused_step"]
     # and on the eval phase's validators and submissions
     kernels[0]["eval_launches"] = ev["b1_launches_total"]
     for entry in kernels:
         entry["train_launches"] = (train["launches"][entry["name"]]
-                                   + demo["launches"][entry["name"]])
+                                   + demo["launches"][entry["name"]]
+                                   + recs["launches"][entry["name"]])
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

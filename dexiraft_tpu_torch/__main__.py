@@ -1,5 +1,5 @@
-"""Package dispatcher: python -m dexiraft_tpu_torch {serve,train,eval,viz}
-[args...]
+"""Package dispatcher: python -m dexiraft_tpu_torch
+{serve,train,eval,viz,pack_records} [args...]
 
 The port's counterpart of ``python -m dexiraft_tpu``; the other commands
 (router, dexined) come with their ROADMAP items (A8, A11).
@@ -13,6 +13,7 @@ _COMMANDS = {
     "train": "dexiraft_tpu_torch.train_cli",
     "eval": "dexiraft_tpu_torch.eval_cli",
     "viz": "dexiraft_tpu_torch.viz_cli",
+    "pack_records": "dexiraft_tpu_torch.pack_records",
 }
 
 
@@ -21,7 +22,9 @@ def main() -> None:
         print(f"usage: python -m dexiraft_tpu_torch "
               f"{{{','.join(_COMMANDS)}}} [args...]", file=sys.stderr)
         raise SystemExit(2)
-    importlib.import_module(_COMMANDS[sys.argv[1]]).main(sys.argv[2:])
+    # a command's integer return is the exit code (pack_records --verify)
+    sys.exit(importlib.import_module(_COMMANDS[sys.argv[1]]).main(
+        sys.argv[2:]))
 
 
 if __name__ == "__main__":

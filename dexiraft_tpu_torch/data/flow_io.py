@@ -6,12 +6,14 @@ Covers the reference's formats (core/utils/frame_utils.py):
   KITTI .png  16-bit RGB: u,v encoded as uint16 (value*64 + 2^15), B=valid
 plus an extension-dispatch reader.
 
-A copy of ``dexiraft_tpu/data/flow_io.py`` with its pure-Python codecs
-only: the native decode bridge stays in the JAX package (ROADMAP A6).
-Binary PPMs (the FlyingChairs format) are decoded here with numpy; PNG
-frames and KITTI's 16-bit flow and disparity PNGs go through the port's
-own codec (data/png.py) on every machine, in the layout cv2 gives the
-JAX package; only other image formats (JPEG) need PIL.
+A copy of ``dexiraft_tpu/data/flow_io.py``. ``.flo`` flows and binary
+PPMs (the FlyingChairs format) go through the native decode bridge
+(data/native.py, the shared C++ codecs) when it builds, and through the
+numpy codecs below otherwise (no g++, DEXIRAFT_NO_NATIVE=1, or a file
+the native codec declines); both decode bit-equal. PNG frames and
+KITTI's 16-bit flow and disparity PNGs go through the port's own codec
+(data/png.py) on every machine, in the layout cv2 gives the JAX
+package; only other image formats (JPEG) need PIL.
 """
 
 from __future__ import annotations
@@ -28,7 +30,12 @@ FLO_MAGIC = 202021.25  # 'PIEH' interpreted as float32
 
 
 def read_flo(path: Union[str, os.PathLike]) -> np.ndarray:
-    """Middlebury .flo -> (H, W, 2) float32."""
+    """Middlebury .flo -> (H, W, 2) float32 (native decoder when built)."""
+    from dexiraft_tpu_torch.data import native
+
+    out = native.read_flo_native(path)
+    if out is not None:
+        return out
     with open(path, "rb") as f:
         magic = np.frombuffer(f.read(4), np.float32)[0]
         if magic != np.float32(FLO_MAGIC):
@@ -151,7 +158,13 @@ def _ppm_token(f) -> bytes:
 
 
 def read_ppm(path: Union[str, os.PathLike]) -> np.ndarray:
-    """Binary 8-bit PPM (P6) -> (H, W, 3) uint8."""
+    """Binary 8-bit PPM (P6) -> (H, W, 3) uint8 (native decoder when
+    built)."""
+    from dexiraft_tpu_torch.data import native
+
+    out = native.read_ppm_native(path)
+    if out is not None:
+        return out
     with open(path, "rb") as f:
         magic = _ppm_token(f)
         if magic != b"P6":

@@ -21,6 +21,13 @@ barrier, taken before anything that reads or changes the directory (the
 next save, a restore, retention, exit); it reports how long the caller
 blocked and how long the flush took. The pending flushes are registered
 under ``OrderedLock("train.checkpoint.pending")``.
+
+``chaos_kill_next_flush`` arms the chaos seam (resilience/chaos.py,
+``--chaos kill_mid_flush@N``): the next save writes ``state.pt`` into its
+``<step>.tmp-*`` directory and the process ``os._exit``s before the commit
+rename, leaving the debris a crash mid-flush leaves.
+``resilience/verify.restore_verified`` is the restore that survives it and
+a truncated or non-finite step.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import dataclasses
 import os
 import shutil
 import tempfile
+import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Dict, Optional, Tuple
@@ -42,6 +50,20 @@ STATE_FILE = "state.pt"
 _LOCK = OrderedLock("train.checkpoint.pending")
 _PENDING: Dict[str, Tuple[int, Future, float]] = {}
 _EXECUTOR: Optional[ThreadPoolExecutor] = None
+# the chaos seam: when set, the next save parks its flush after writing
+# state.pt into the tmp dir and the process exits before the commit
+_chaos_kill_next_flush = False
+
+
+def chaos_kill_next_flush() -> None:
+    """Arm the mid-flush crash: the next ``save_checkpoint`` writes its
+    ``state.pt`` into ``<step>.tmp-*`` and then ``os._exit``s (code 7)
+    before the commit rename (chaos injector — see
+    resilience.chaos.parse_spec, spec ``kill_mid_flush@N``). os._exit
+    skips atexit, so the flush is abandoned exactly as a SIGKILL would
+    abandon it."""
+    global _chaos_kill_next_flush
+    _chaos_kill_next_flush = True
 
 
 def _executor() -> ThreadPoolExecutor:
@@ -82,12 +104,18 @@ def _payload(state, extra: Optional[Dict[str, Any]] = None,
     })
 
 
-def _flush(directory: str, step: int, payload: Dict[str, Any]) -> float:
+def _flush(directory: str, step: int, payload: Dict[str, Any],
+           parked: Optional[threading.Event] = None) -> float:
     t0 = time.perf_counter()
     os.makedirs(directory, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix=f"{step}.tmp-", dir=directory)
     try:
         torch.save(payload, os.path.join(tmp, STATE_FILE))
+        if parked is not None:
+            # chaos: written but never committed; the saving thread
+            # exits the process while this flush waits here
+            parked.set()
+            threading.Event().wait()
         final = os.path.join(directory, str(step))
         if os.path.isdir(final):
             shutil.rmtree(final)
@@ -108,9 +136,22 @@ def save_checkpoint(directory: str, state, step: Optional[int] = None,
     wait_pending(directory)
     t0 = time.perf_counter()
     payload = _payload(state, extra, configs)
-    fut = _executor().submit(_flush, key, step, payload)
+    parked = threading.Event() if _chaos_kill_next_flush else None
+    fut = _executor().submit(_flush, key, step, payload, parked)
     with _LOCK:
         _PENDING[key] = (step, fut, time.perf_counter() - t0)
+    if parked is not None:
+        if not parked.wait(timeout=120):
+            # the flush failed before reaching the commit: exit
+            # DIFFERENTLY so the chaos run fails with the true cause
+            cause = fut.exception() if fut.done() else "still writing"
+            print(f"[chaos] kill_mid_flush of step {step}: the flush never "
+                  f"reached its commit ({cause!r}); exiting 8, not 7",
+                  flush=True)
+            os._exit(8)
+        print(f"[chaos] killing process mid-flush of step {step}",
+              flush=True)
+        os._exit(7)
     if block:
         info = wait_pending(directory)
         if info and info["error"]:
@@ -194,9 +235,16 @@ def load_payload(path: str, step: Optional[int] = None) -> Dict[str, Any]:
 
 def restore_checkpoint(path: str, state, step: Optional[int] = None):
     """Load the full saved state (model, optimizer, generator, step) into
-    ``state`` in place, for ``--resume``; returns (state, the payload's
-    ``extra``)."""
-    payload = load_payload(path, step)
+    ``state`` in place; returns (state, the payload's ``extra``). The
+    trainer's ``--resume`` and rollback go through
+    ``resilience.verify.restore_verified``, which checks a step before
+    it is applied."""
+    return apply_payload(state, load_payload(path, step))
+
+
+def apply_payload(state, payload: Dict[str, Any]):
+    """Load a saved payload (``load_payload``) into ``state`` in place;
+    returns (state, the payload's ``extra``)."""
     state.model.load_state_dict(payload["model"], strict=True)
     state.optimizer.load_state_dict(payload["optimizer"])
     state.generator.set_state(payload["generator"])

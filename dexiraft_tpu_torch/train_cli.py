@@ -11,9 +11,24 @@ fetch_dataset -> Loader -> prefetch to the device -> create_state -> train
 step -> Logger -> DivergenceGuard -> every ``--val_freq`` steps a
 checkpoint, retention's GC (``--keep``, ``--keep_best``) and the
 validation sets (the preset's, or ``--validation``), then a checkpoint at
-the end. Every checkpoint carries the data stream's position, so
-``--resume`` continues the exact sample sequence from the latest step.
-The device is ``cuda`` unless ``--device cpu`` is given.
+the end. Every checkpoint carries the data stream's position, the
+loader's kind and the records pack's fingerprint, so ``--resume``
+continues the exact sample sequence from the latest step that passes
+``resilience.verify.restore_verified`` (a truncated or non-finite newest
+step falls back to the previous one and is deleted; the debris of a
+crash mid-flush is swept), and refuses to resume under the other data
+plane or another pack (``LoaderKindMismatch``). The guard's rollback
+restores through the same check. The device is ``cuda`` unless
+``--device cpu`` is given.
+
+``--records_dir`` trains from a packed-record directory (``python -m
+dexiraft_tpu_torch pack_records``) through ``data.records.RecordLoader``:
+the same batches as the raw loader, decoded once at pack time. Its
+provenance is checked as in the JAX trainer: the pack's stage must be
+the run's, a sintel pack must hold the default mixture, a different
+crop recipe is warned about, and ``--edge_root`` is refused.
+``--chaos SPEC`` (``sigterm@N``, ``kill_mid_flush@N``;
+resilience/chaos.py) fires a real fault after step N.
 
 Validation runs each set's validator (eval/validate.py) through the eval
 step over the live model at the reference iteration counts
@@ -26,8 +41,8 @@ draws nothing from the train state's generator.
 
 Refused, each naming the ROADMAP item that ports it: ``--mixed_precision``
 and ``--precision bf16`` (A2); ``--remat`` and ``--remat_lookup`` (A10);
-``--fsdp``, ``--elastic``, ``--join``, a nonzero ``--stall_timeout`` and
-``--chaos`` (A12); ``--strict`` (A13); ``--records_dir`` (A6).
+``--fsdp``, ``--elastic``, ``--join`` and a nonzero ``--stall_timeout``
+(A12); ``--strict`` (A13).
 ``--restore_ckpt`` takes a checkpoint of this trainer or a state-dict file
 (the bridge's layout); an orbax directory is refused (A10). PyTorch runs
 eagerly, so ``--compile_cache`` has nothing to cache and only says so.
@@ -37,6 +52,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import os.path as osp
 import signal
@@ -119,7 +135,10 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=sorted(_VAL_ITERS),
                    help="sets validated at every checkpoint (default: the "
                         "preset's; an empty list turns them off)")
-    p.add_argument("--records_dir", default=None, help="refused: ROADMAP A6")
+    p.add_argument("--records_dir", default=None,
+                   help="train from a packed-record directory (python -m "
+                        "dexiraft_tpu_torch pack_records) instead of "
+                        "decoding the raw files; the same batch stream")
     p.add_argument("--edge_root", default=None,
                    help="parallel tree of precomputed edge-map PNGs for the "
                         "v2/v3 data-edge contract")
@@ -162,7 +181,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="SIGTERM/SIGINT: 'save' finishes the step and writes "
                         "one checkpoint; 'abort' stops without saving")
     p.add_argument("--chaos", default=None, metavar="SPEC",
-                   help="refused: ROADMAP A12")
+                   help="fault injection after step N: sigterm@N (a real "
+                        "SIGTERM) or kill_mid_flush@N (the next checkpoint "
+                        "write exits the process before its commit)")
     p.add_argument("--stall_timeout", type=float, default=0.0,
                    help="nonzero is refused: ROADMAP A12")
     p.add_argument("--straggler_factor", type=float, default=10.0)
@@ -191,9 +212,7 @@ def refuse_unported(args) -> None:
         (args.elastic, "--elastic", "A12"),
         (args.join is not None, "--join", "A12"),
         (args.stall_timeout != 0.0, "--stall_timeout", "A12"),
-        (args.chaos is not None, "--chaos", "A12"),
         (args.strict, "--strict", "A13"),
-        (args.records_dir is not None, "--records_dir", "A6"),
     )
     for bad, flag, item in refused:
         if bad:
@@ -300,10 +319,39 @@ def _make_validators(model_fn, dev):
     return run
 
 
-def _stream_position(epoch: int, offset: int, per_epoch: int):
-    """The position after consuming the batch at (epoch, offset)."""
-    absolute = epoch * per_epoch + offset + 1
-    return absolute // per_epoch, absolute % per_epoch
+def _open_records(args, tc: TrainConfig):
+    """The packed dataset of ``--records_dir``, with the JAX trainer's
+    provenance checks; exits naming the mismatch."""
+    from dexiraft_tpu_torch.data.datasets import DEFAULT_TRAIN_DS
+    from dexiraft_tpu_torch.data.records import open_records
+
+    if args.edge_root:
+        raise SystemExit("train: --records_dir cannot be combined with "
+                         "--edge_root: edge-paired stages are not packable "
+                         "(pack_records) — use the raw loader")
+    records = open_records(args.records_dir)
+    man = records.manifest
+    if man.stage is not None and man.stage != tc.stage:
+        raise SystemExit(f"train: --records_dir {args.records_dir} was "
+                         f"packed from stage {man.stage!r} but this run "
+                         f"trains stage {tc.stage!r} — pack the right stage "
+                         f"or drop --records_dir")
+    # the raw path always trains sintel with the default mixture
+    # selector; a pack of a reduced mixture is a DIFFERENT epoch
+    if (tc.stage == "sintel" and man.train_ds is not None
+            and man.train_ds != DEFAULT_TRAIN_DS):
+        raise SystemExit(f"train: --records_dir {args.records_dir} was "
+                         f"packed with train_ds={man.train_ds!r} but the "
+                         f"sintel stage trains the {DEFAULT_TRAIN_DS!r} "
+                         f"mixture — repack with the default selector or "
+                         f"use the raw loader")
+    if (man.image_size is not None
+            and tuple(man.image_size) != tuple(tc.image_size)):
+        print(f"[records] WARNING: pack was made at image_size "
+              f"{tuple(man.image_size)}, run requests "
+              f"{tuple(tc.image_size)}; the pack-time crop recipe wins "
+              f"(repack to change it)")
+    return records
 
 
 def train(cfg: RAFTConfig, tc: TrainConfig, args) -> None:
@@ -314,7 +362,13 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args) -> None:
     from dexiraft_tpu_torch.data.loader import Loader
     from dexiraft_tpu_torch.data.prefetch import DevicePrefetcher
     from dexiraft_tpu_torch.device import resolve_device
+    from dexiraft_tpu_torch.ops import corr_kernels
     from dexiraft_tpu_torch.resilience.retention import RetentionPolicy
+    from dexiraft_tpu_torch.resilience.stream import (LoaderKindMismatch,
+                                                      StreamPosition,
+                                                      position_extra,
+                                                      position_from_extra)
+    from dexiraft_tpu_torch.resilience.verify import restore_verified
     from dexiraft_tpu_torch.train import checkpoint as ckpt
     from dexiraft_tpu_torch.train.guard import DivergenceGuard
     from dexiraft_tpu_torch.train.logger import Logger
@@ -328,14 +382,32 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args) -> None:
         print("[cache] nothing to cache: the PyTorch port runs eagerly")
     state = create_state(cfg, tc, device=dev)
     print(f"Parameter Count: {param_count(state.model)}")
-    stream = (0, 0)
+    # which data plane feeds this run, stamped into every checkpoint (kind
+    # and pack fingerprint) so --resume refuses a raw<->records swap AND a
+    # records-to-different-pack swap (LoaderKindMismatch); the pack is
+    # opened BEFORE the resume path so its provenance gates both
+    loader_kind = "records" if args.records_dir else "raw"
+    records = _open_records(args, tc) if args.records_dir else None
+    fingerprint = records.manifest.fingerprint if records is not None \
+        else None
+    # position of the NEXT global batch to consume
+    stream = StreamPosition()
     last_saved = None
     if args.resume and ckpt.latest_step(ckpt_dir) is not None:
-        state, extra = ckpt.restore_checkpoint(ckpt_dir, state)
-        last_saved = state.step
-        stream = tuple(extra.get("stream", (0, 0)))
+        # verified restore: a truncated/non-finite newest step falls back
+        # to the previous one; this trainer owns the directory, so the
+        # debris of a crash mid-flush is swept
+        state, last_saved, extra = restore_verified(ckpt_dir, state,
+                                                    clean_debris=True)
+        try:
+            pos = position_from_extra(extra, last_saved, seed=tc.seed,
+                                      loader_kind=loader_kind,
+                                      fingerprint=fingerprint)
+        except LoaderKindMismatch as e:
+            raise SystemExit(f"[resume] {e}")
+        stream = pos or stream
         print(f"Resumed full state at step {state.step} (data stream: "
-              f"epoch {stream[0]}, batch {stream[1]})")
+              f"epoch {stream.epoch}, batch {stream.offset})")
     elif args.restore_ckpt:
         try:
             restored = ckpt.read_model_weights(args.restore_ckpt)
@@ -346,11 +418,21 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args) -> None:
         print(f"Partial restore from {args.restore_ckpt} "
               f"({len(skipped)} keys fresh)")
 
-    dataset = fetch_dataset(tc.stage, tc.image_size, edge_root=args.edge_root)
-    print(f"Training with {len(dataset)} image pairs")
-    loader = Loader(dataset, tc.batch_size, seed=tc.seed,
-                    num_workers=args.num_workers,
-                    worker_mode=args.worker_mode, mp_start_method="spawn")
+    loader_kwargs = dict(seed=tc.seed, num_workers=args.num_workers,
+                         worker_mode=args.worker_mode, mp_start_method="spawn")
+    if records is not None:
+        from dexiraft_tpu_torch.data.records import RecordLoader
+
+        man = records.manifest
+        print(f"Training with {len(records)} packed samples "
+              f"({man.num_records} records in {len(man.shards)} shard(s), "
+              f"fingerprint {man.fingerprint[:12]})")
+        loader = RecordLoader(records, tc.batch_size, **loader_kwargs)
+    else:
+        dataset = fetch_dataset(tc.stage, tc.image_size,
+                                edge_root=args.edge_root)
+        print(f"Training with {len(dataset)} image pairs")
+        loader = Loader(dataset, tc.batch_size, **loader_kwargs)
     per_epoch = max(len(loader), 1)
     step_fn = make_train_step(cfg, tc)
     logger = Logger(tc.sum_freq, log_dir=osp.join(args.log_dir, tc.name),
@@ -370,8 +452,10 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args) -> None:
         _note_flush(info)
         # GC before the new flush is handed off; the rollback target stays
         retention.apply(ckpt_dir, protect=(last_saved,))
+        extra = position_extra(stream, seed=tc.seed, loader_kind=loader_kind,
+                               fingerprint=fingerprint)
         ckpt.save_checkpoint(ckpt_dir, state, step=step, block=False,
-                             extra={"stream": stream}, configs=configs)
+                             extra=extra, configs=configs)
         if block:
             info = ckpt.wait_pending(ckpt_dir)
             _note_flush(info)
@@ -388,12 +472,21 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args) -> None:
                   + (f" (FLUSH FAILED: {info['error']})" if info["error"]
                      else ""))
 
+    # fault injection (resilience/chaos.py): a real signal or crash fired
+    # after a pinned step, through the real recovery paths
+    chaos_step = None
+    if args.chaos:
+        from dexiraft_tpu_torch.resilience import chaos as chaos_lib
+
+        chaos_step = chaos_lib.parse_spec(args.chaos)
+
     prof_start, prof_stop = args.profile_steps or (-1, -1)
     prof = None
     metrics = None
     preempted = False
     batches = DevicePrefetcher(
-        loader.batches(start_epoch=stream[0], start_offset=stream[1]), dev,
+        loader.batches(start_epoch=stream.epoch, start_offset=stream.offset),
+        dev,
         depth=tc.prefetch_depth, pipeline_stats=loader.stats)
     try:
         with _Preemption() as preempt:
@@ -406,9 +499,12 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args) -> None:
                     prof.__enter__()
                 state, metrics = step_fn(state, batch)
                 total_steps += 1
-                stream = _stream_position(*loader.positions.popleft(),
-                                          per_epoch)
+                # advanced on consumption, never rewound by a rollback
+                stream = StreamPosition(*loader.positions.popleft()).advance(
+                    1, per_epoch)
                 logger.push(metrics)
+                if chaos_step is not None:
+                    chaos_step(total_steps)
                 if prof is not None and total_steps >= prof_stop:
                     prof.__exit__(None, None, None)
                     path = osp.join(args.log_dir, tc.name, "profile",
@@ -428,11 +524,14 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args) -> None:
                             loss_v, state_ok, f"step {total_steps}",
                             last_saved, ckpt_dir=ckpt_dir)
                         _note_flush(ckpt.wait_pending(ckpt_dir))
-                        state, _ = ckpt.restore_checkpoint(ckpt_dir, state,
-                                                           step=last_saved)
+                        # verified: a damaged target falls back further
+                        state, last_saved, _ = restore_verified(
+                            ckpt_dir, state, step=last_saved,
+                            clean_debris=True)
                         print(f"[guard] loss {loss_v:.4g} "
                               f"(state_finite={state_ok}) at step "
-                              f"{total_steps}; {msg}")
+                              f"{total_steps}; {msg}; restored step "
+                              f"{last_saved}")
                         total_steps = state.step
                         logger.rewind(total_steps)
                         metrics = None
@@ -483,6 +582,9 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args) -> None:
         _note_flush(ckpt.wait_pending(ckpt_dir))
     logger.close()
     print(f"[prefetch] {batches.summary()}")
+    # this process's kernel launches (the train step's forward on B1 at
+    # --corr_impl flash --fused_update; all zero on the CPU)
+    print(f"[kernels] launches {json.dumps(dict(corr_kernels.LAUNCHES))}")
     if loader.stats.faults:
         print(f"[pipeline] {loader.stats.summary()}")
     if preempted:

@@ -192,8 +192,9 @@ def test_resolve_corr_impl():
 
 def test_package_imports_no_jax():
     """The port's package, model, engine, kernel, bridge, splat, session,
-    video, scheduler, server, trainer, data, eval, retention and CLI
-    modules load neither
+    video, scheduler, server, trainer, data, records, native decode, eval,
+    resilience and CLI modules, and the lock-registry fixture of its
+    tests, load neither
     jax/flax/optax/orbax nor any dexiraft_tpu module, nor an image library
     (PIL, cv2, imageio: the port decodes PNG itself) (a subprocess: this
     test process has jax loaded by conftest)."""
@@ -233,6 +234,15 @@ def test_package_imports_no_jax():
         "import dexiraft_tpu_torch.eval_cli, dexiraft_tpu_torch.viz_cli\n"
         "import dexiraft_tpu_torch.data.png, dexiraft_tpu_torch.data.synthetic\n"
         "import dexiraft_tpu_torch.resilience.retention\n"
+        "import dexiraft_tpu_torch.data.records, dexiraft_tpu_torch.data.native\n"
+        "import dexiraft_tpu_torch.data.records.packer\n"
+        "import dexiraft_tpu_torch.data.records.loader\n"
+        "import dexiraft_tpu_torch.pack_records\n"
+        "import dexiraft_tpu_torch.resilience.stream\n"
+        "import dexiraft_tpu_torch.resilience.chaos\n"
+        "import dexiraft_tpu_torch.resilience.verify\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import test_torch_lock_registry\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'dexiraft_tpu', "
         "'PIL', 'cv2', 'imageio'))\n"

@@ -19,6 +19,7 @@ from dexiraft_tpu_torch.serve import locks
 from dexiraft_tpu_torch.serve.locks import (LOCK_ORDER, LockOrderViolation,
                                             OrderedLock)
 from dexiraft_tpu_torch.train.step import eval_arithmetic
+from test_torch_lock_registry import preserved_lock_registry
 
 WAIT = 10.0  # seconds an event may take; a hang fails instead of blocking
 
@@ -172,17 +173,20 @@ def test_acquire_blocking_and_timeout():
 
 
 def test_inverted_nesting_still_raises():
-    store = OrderedLock("serve.sessions.store")
-    cv = OrderedLock("serve.scheduler.cv", reentrant=True)
-    with cv:
+    """The inversion is counted in the process-global registry even though
+    it raises; the count is given back on exit."""
+    with preserved_lock_registry():
+        store = OrderedLock("serve.sessions.store")
+        cv = OrderedLock("serve.scheduler.cv", reentrant=True)
+        with cv:
+            with store:
+                pass
         with store:
-            pass
-    with store:
-        with pytest.raises(LockOrderViolation, match="opposite nesting"):
-            cv.acquire()
-        with pytest.raises(LockOrderViolation, match="self-deadlock"):
-            store.acquire()
-    assert not store.locked() and not cv.locked()
+            with pytest.raises(LockOrderViolation, match="opposite nesting"):
+                cv.acquire()
+            with pytest.raises(LockOrderViolation, match="self-deadlock"):
+                store.acquire()
+        assert not store.locked() and not cv.locked()
 
 
 def test_set_strict_and_stats_record():

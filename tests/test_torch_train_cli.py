@@ -1,7 +1,8 @@
 """The port's trainer end to end on the CPU: ``train_cli`` on a synthetic
 FlyingChairs tree, checkpoints, ``--resume``, ``--restore_ckpt``,
 in-training validation with ``--keep_best``, the device prefetch and
-every refused flag.
+every refused flag (``--records_dir`` and ``--chaos`` run in
+tests/test_torch_resilience.py).
 
 The tree is written with the port's own codecs (binary PPM frames and .flo
 flows, as tests/test_data.py's chairs tree), v1 small at 64x96, 2
@@ -125,13 +126,22 @@ def test_cli_restore_ckpt_from_checkpoint_and_state_dict(chairs_env, capsys):
     (["--elastic"], "A12"),
     (["--join", "host1"], "A12"),
     (["--stall_timeout", "30"], "A12"),
-    (["--chaos", "sigterm@3"], "A12"),
     (["--strict"], "A13"),
-    (["--records_dir", "packs"], "A6"),
 ])
 def test_refused_flags_name_their_item(flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
         train_cli.main(BASE + flags)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--chaos", "sigterm@3"],
+    ["--records_dir", "packs"],
+])
+def test_records_dir_and_chaos_are_ported(flags):
+    """No longer refused: the flags parse and pass the refusal gate (the
+    runs themselves are in tests/test_torch_resilience.py)."""
+    args = train_cli.build_parser().parse_args(BASE + flags)
+    train_cli.refuse_unported(args)
 
 
 def test_preset_resolution_and_dropped_validation(chairs_env, capsys):

@@ -30,6 +30,7 @@ from dexiraft_tpu_torch.train.step import (make_encode_step, make_eval_step,
                                            make_refine_step)
 from test_eval import _smooth_flow
 from test_torch_raft import _randomize
+from test_torch_lock_registry import preserved_lock_registry
 
 
 class FakeClock:
@@ -295,17 +296,20 @@ class TestVideoEngine:
 
 
 def test_ordered_lock_refuses_inverted_nesting_and_reentry():
-    chunk = OrderedLock("serve.video.chunk")
-    store = OrderedLock("serve.sessions.device")
-    with chunk:
+    """The inversion is counted in the process-global registry even though
+    it raises; the count is given back on exit."""
+    with preserved_lock_registry():
+        chunk = OrderedLock("serve.video.chunk")
+        store = OrderedLock("serve.sessions.device")
+        with chunk:
+            with store:
+                pass
         with store:
-            pass
-    with store:
-        with pytest.raises(LockOrderViolation, match="opposite nesting"):
-            chunk.acquire()
-        with pytest.raises(LockOrderViolation, match="self-deadlock"):
-            store.acquire()
-    assert not store.locked() and not chunk.locked()
+            with pytest.raises(LockOrderViolation, match="opposite nesting"):
+                chunk.acquire()
+            with pytest.raises(LockOrderViolation, match="self-deadlock"):
+                store.acquire()
+        assert not store.locked() and not chunk.locked()
     with pytest.raises(ValueError, match="LOCK_ORDER"):
         OrderedLock("serve.scratch")
 
