@@ -14,7 +14,9 @@ eval and viz CLIs), and training (the train step at the chairs
 geometry, the exact-GT demo, the train CLI with validation, --keep_best
 and --resume), and the packed-record plane with the native decode bridge
 and the trainer's recovery paths (a kill mid-flush, a verified resume, a
-truncated step). It builds the hand-written CUDA kernels from the
+truncated step), the fleet router over two serve replicas (a replica
+killed, respawned and drained under traffic), and the standalone DexiNed
+edge workload (its train step, its train and test CLI). It builds the hand-written CUDA kernels from the
 sources in this checkout, holds each kernel against its plain PyTorch
 version (and each of the two formulations against the other), shows from
 the launch counters that each path went through its kernels, and times
@@ -112,7 +114,7 @@ Phases, one JSON line each:
               12 iterations, fp32, seed-0 weights, a random batch): v1 on
               allpairs and on B1 at batch 10, v5 on B1 at the largest
               batch <= 10 that fits without remat; ms per step (median of
-              5 after 2, CUDA events), peak allocated memory, B1 launches
+              3 after 1, CUDA events), peak allocated memory, B1 launches
               per step (12), every loss finite and state_finite, and one
               profiled step with the share of B1's backward recompute
               (fused_reference); each B1 step against the corr_impl=
@@ -143,6 +145,29 @@ Phases, one JSON line each:
               refused; step 6 truncated: restore_verified on the card
               falls back to step 3 and deletes 6, an all-truncated copy
               raises and keeps its files
+  router      python -m dexiraft_tpu_torch router --port 0 --spawn 2 in
+              a child over two serve replicas of seed-0 v1 weights on B1
+              (flash fused), spawned and supervised by it: 24 Sintel
+              pairs from 8 threads (half in 4 sessions) straight to one
+              replica, through the router, and through the router with
+              the session-0 replica SIGKILLed mid-traffic; every answer
+              200 and within 1e-2 px of the same request run directly
+              here; the failover and a sticky miss counted; the replica
+              respawned and its breaker closed again; /admin/drain 202,
+              0 in flight, the drained replica respawned; SIGTERM stops the
+              router and both replicas; requests/s, p50/p99 of each
+              round, failover and respawn seconds; B1 = 32 x the
+              replicas' forwards
+  dexined     the standalone DexiNed workload on a synthetic BIPED tree
+              at 720x1280: the CLI's train step at batch 8, 352x352,
+              fp32 timed with its peak memory; a card step against the
+              CPU step on the same weights and batch (loss 1e-4
+              relative, parameters and running variances 1e-3 relative
+              L2); the cofusion head's forward against the CPU's; no
+              corr kernel launched; the CLI in children: --train (2
+              epochs x 3 steps at batch 2, 176x176, two checkpoints),
+              then --test --test_pich --gt_root on 4 images of 720x1280
+              (per-image ms, ODS/OIS/AP, the PNGs)
   6 times     CUDA-event medians: v1 and v5 forward ms at 440x1024, B=1
               (TF32 off and PyTorch's default, and the main paths under
               the eval step's arithmetic), v5's DexiNed and prelude
@@ -154,9 +179,10 @@ Phases, one JSON line each:
               pallas fused, v5 pallas lookup and v5 flash fused (the main
               path, B1 on the model's coords)
 Then the {"kernels": [...]} line (each entry with its launches on the
-slices' paths, the service's and the eval phase's for B1 as
-serve_launches and eval_launches, and the train and records phases'
-counted steps as train_launches), the nvidia-smi line, and last
+slices' paths, the service's, the eval phase's and the router phase's
+for B1 as serve_launches, eval_launches and router_launches, the train
+and records phases' counted steps as train_launches, and the dexined
+phase's as dexined_launches), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed phase exits non-zero.
 """
 
@@ -210,13 +236,21 @@ B3_KERNEL = "pallas_tile"  # B3's and B4's
 # the slice's requests: ((H, W), horizontal shift in px)
 PAIRS = (((436, 1024), 3), ((436, 1024), -5), ((375, 1242), 4),
          ((375, 1242), 2))
+# CUDA-event timings per forward of the times and adaptive phases (few:
+# the whole smoke stays inside its time limit)
+FORWARD_REPS = 5
 SINTEL_BUCKET = (440, 1024)
 
 
 RECORDS: list = []  # every emitted line, for --out
+T0 = time.perf_counter()
 
 
 def emit(obj) -> None:
+    """Print one JSON line; a phase's record gains ``t_s``, the seconds
+    since the smoke started (where the time goes, phase by phase)."""
+    if "phase" in obj:
+        obj["t_s"] = time.perf_counter() - T0
     RECORDS.append(obj)
     print(json.dumps(obj), flush=True)
 
@@ -650,7 +684,7 @@ def phase_slice(torch, ck, dev, model_name, variant, paths, expect):
     from dexiraft_tpu_torch.data.padder import InputPadder
     from dexiraft_tpu_torch.models.raft import RAFT, create_model
     from dexiraft_tpu_torch.serve.engine import InferenceEngine, ServeConfig
-    from dexiraft_tpu_torch.train.step import make_eval_step
+    from dexiraft_tpu_torch.train.step import eval_arithmetic, make_eval_step
 
     names = list(paths)
     seeded = create_model(variant(**paths[names[0]]), seed=0, device=dev)
@@ -700,7 +734,10 @@ def phase_slice(torch, ck, dev, model_name, variant, paths, expect):
                 f"times (expected {count}) and other kernels {stray}")
 
     # the same forward with the kernel swapped for its plain version
-    # (corr_impl="local", same weights), on the Sintel bucket's batch
+    # (corr_impl="local", same weights), on the Sintel bucket's batch,
+    # under the eval step's arithmetic (TF32 off): the convs run the
+    # algorithms the engine's search found, where cuDNN's heuristic for
+    # v5's motion encoder at this batch is an FFT of hundreds of ms a call
     pads = [InputPadder(it["image1"].shape, "sintel", target=SINTEL_BUCKET)
             for it in items[:2]]
     im1 = torch.from_numpy(np.stack([p.pad(it["image1"])[0]
@@ -710,7 +747,7 @@ def phase_slice(torch, ck, dev, model_name, variant, paths, expect):
     x1 = im1.to(dev).permute(0, 3, 1, 2)
     x2 = im2.to(dev).permute(0, 3, 1, 2)
     lows = {}
-    with torch.inference_mode():
+    with torch.inference_mode(), eval_arithmetic(False):
         for path in names + ["plain"]:
             lows[path] = models[path](x1, x2, iters=ITERS)[0]
     diff = {p: float((lows[p] - lows["plain"]).abs().max()) for p in names}
@@ -1015,16 +1052,19 @@ def phase_adaptive(torch, ck, dev) -> dict:
     x1, x2 = (torch.from_numpy(x).to(dev).permute(0, 3, 1, 2)
               for x in (im1, im2))
     with torch.inference_mode(), eval_arithmetic(False):
-        rec["fixed_ms"] = timed_ms(torch, lambda: base(x1, x2, iters=ITERS))
+        rec["fixed_ms"] = timed_ms(torch, lambda: base(x1, x2, iters=ITERS),
+                                   reps=FORWARD_REPS)
         rec["adaptive_tol0_ms"] = timed_ms(
-            torch, lambda: tol0(x1, x2, iters=ITERS, adaptive=True))
+            torch, lambda: tol0(x1, x2, iters=ITERS, adaptive=True),
+            reps=FORWARD_REPS)
         rec["adaptive_tol0_no_exit_read_ms"] = timed_ms(
             torch, lambda: tol0(x1, x2, iters=ITERS, adaptive=True,
-                                exit_check_every=ITERS))
+                                exit_check_every=ITERS), reps=FORWARD_REPS)
         rec["fixed_damped_ms"] = timed_ms(
-            torch, lambda: gated(x1, x2, iters=ITERS))
+            torch, lambda: gated(x1, x2, iters=ITERS), reps=FORWARD_REPS)
         rec["adaptive_gated_ms"] = timed_ms(
-            torch, lambda: gated(x1, x2, iters=ITERS, adaptive=True))
+            torch, lambda: gated(x1, x2, iters=ITERS, adaptive=True),
+            reps=FORWARD_REPS)
     rec["exit_read_ms_per_iteration"] = (
         rec["adaptive_tol0_ms"]["median"]
         - rec["adaptive_tol0_no_exit_read_ms"]["median"]) / (ITERS - 1)
@@ -1505,7 +1545,8 @@ def phase_serve_cli(torch) -> dict:
 
 TRAIN_BATCH = 10            # STANDARD_STAGES chairs: batch 10, 368x496
 TRAIN_SIZE = (368, 496)
-TRAIN_WARMUP, TRAIN_TIMED = 2, 5
+# steps timed per train case (few: the smoke's time limit)
+TRAIN_WARMUP, TRAIN_TIMED = 1, 3
 TOL_TRAIN_LOSS_REL = 1e-4   # B1 step vs corr_impl="local" step
 TOL_TRAIN_GRAD_REL_L2 = 1e-3
 TOL_RESUME_REL = 1e-5       # resumed train_cli losses vs the full run's
@@ -1728,14 +1769,19 @@ def phase_train(torch, ck, dev, card) -> dict:
     return {"launches": launches, "records": records, "v5_batch": fitted}
 
 
+# the demo's steps (few: the smoke's time limit; its EPE has fallen to
+# under a third of the first 25 steps' by the fourth 25)
+DEMO_STEPS = 100
+
+
 def phase_train_demo(torch, ck, dev, card) -> dict:
-    """RAFT-small v1 on B1, 192x256, batch 4, 12 iterations, 200 steps on
-    exact-GT synthetic pairs: the mean EPE of the last 25 steps must be at
-    most half that of the first 25."""
+    """RAFT-small v1 on B1, 192x256, batch 4, 12 iterations, DEMO_STEPS
+    steps on exact-GT synthetic pairs: the mean EPE of the last 25 steps
+    must be at most half that of the first 25."""
     from dexiraft_tpu_torch.train_demo import run_demo
 
     ck.reset_launches()
-    out = run_demo(steps=200, batch=4, size=(192, 256), corr_impl="flash",
+    out = run_demo(steps=DEMO_STEPS, batch=4, size=(192, 256), corr_impl="flash",
                    fused_update=True, device=str(dev), log=lambda m: None)
     torch.cuda.synchronize()
     launches = dict(ck.LAUNCHES)
@@ -1748,7 +1794,8 @@ def phase_train_demo(torch, ck, dev, card) -> dict:
            "steps_per_s": out["steps_per_s"],
            "first_step_s": out["first_step_s"], "launches": launches}
     emit(rec)
-    if launches["flash_fused_step"] != 200 * 12 or not last <= 0.5 * first:
+    if (launches["flash_fused_step"] != DEMO_STEPS * 12
+            or not last <= 0.5 * first):
         raise AssertionError(f"train_demo: {rec}")
     return {"launches": launches, "rec": rec}
 
@@ -2408,8 +2455,8 @@ def time_forwards(torch, models, paths, x1, x2, rec, prefix) -> None:
         with torch.inference_mode():
             for path in paths:
                 ts = sorted(cuda_times_ms(
-                    lambda: models[path](x1, x2, iters=ITERS), reps=10,
-                    warmup=2))
+                    lambda: models[path](x1, x2, iters=ITERS),
+                    reps=FORWARD_REPS, warmup=2))
                 name = f"{prefix}forward_ms_{bh}x{bw}_{path}_{key}"
                 rec[name] = statistics.median(ts)
                 rec[name + "_min_max"] = [ts[0], ts[-1]]
@@ -2554,6 +2601,715 @@ def kernel_entry(name, lib, replaces, launches, err, rec, prefix, fused):
             "bound_ms": bound / 1e3, "bound_by": by, "library_ms": None}
 
 
+# ---- the fleet router (python -m dexiraft_tpu_torch router) ---------------
+
+ROUTER_HW = (436, 1024)      # Sintel pairs, the 440x1024 bucket
+ROUTER_REQUESTS = 24         # per round, from ROUTER_CLIENTS threads
+ROUTER_CLIENTS = 8
+ROUTER_SESSIONS = 4          # threads 0..3 each send one session's requests
+ROUTER_KILL_AFTER = 6        # answers of the kill round before the SIGKILL
+ROUTER_BOOT_S = 900          # the replicas' load + warm-up, and a respawn's
+# the replicas' serve flags after `--` (the router CLI forwards them)
+ROUTER_SERVE_ARGS = ["--variant", "v1", "--corr_impl", "flash",
+                     "--fused_update", "--iters", str(ITERS),
+                     "--batch_size", "2", "--warmup", "440x1024"]
+
+
+def free_ports(n):
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def free_port_pair():
+    """Two consecutive free ports (the router CLI spawns replica i on
+    --port_base + i)."""
+    import socket
+
+    for _ in range(50):
+        base = free_ports(1)[0]
+        if base + 1 > 65535:
+            continue
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", base + 1))
+            except OSError:
+                continue
+        return base
+    raise AssertionError("router: no two consecutive free ports")
+
+
+def port_open(port) -> bool:
+    import socket
+
+    with socket.socket() as s:
+        s.settimeout(2.0)
+        return s.connect_ex(("127.0.0.1", port)) == 0
+
+
+def router_items(seed):
+    """ROUTER_REQUESTS Sintel-sized pairs (frame_pairs' scene and shift)."""
+    rng = np.random.default_rng(seed)
+    h, w = ROUTER_HW
+    items = []
+    for k in range(ROUTER_REQUESTS):
+        base = rng.uniform(0, 255, (h // 8 + 2, w // 8 + 2, 3))
+        im = np.kron(base, np.ones((8, 8, 1)))[:h, :w]
+        im2 = np.roll(im, (k % 7) - 3, axis=1) + rng.normal(0, 2, im.shape)
+        items.append({"image1": im.astype(np.float32),
+                      "image2": np.clip(im2, 0, 255).astype(np.float32)})
+    return items
+
+
+def replica_pids(ports):
+    """{port: pid} of the serve processes listening on ``ports``, from
+    /proc (each one's command line names its --port): the router's
+    children, and any a failed router left behind (the replicas run in
+    sessions of their own)."""
+    out = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                argv = f.read().decode().split("\0")
+        except OSError:
+            continue
+        if "dexiraft_tpu_torch" in argv and "serve" in argv \
+                and "--port" in argv:
+            port = int(argv[argv.index("--port") + 1])
+            if port in ports:
+                out[port] = int(d)
+    return out
+
+
+def router_round(url, items, sessions, on_answer=None):
+    """ROUTER_REQUESTS POSTs from ROUTER_CLIENTS threads: the first half
+    of the requests go in order in ``sessions`` (thread k < ROUTER_SESSIONS
+    sends sessions[k]'s), the rest stateless. Returns (answers [(index,
+    status, headers, body, t_done, latency_s)], wall seconds, the session
+    of each session request)."""
+    import threading
+    import urllib.error
+
+    from dexiraft_tpu_torch.serve.server import encode_request
+
+    bodies = [encode_request(it["image1"], it["image2"]) for it in items]
+    answers, lock = [], threading.Lock()
+    session_of = {i: sessions[i % ROUTER_SESSIONS]
+                  for i in range(ROUTER_REQUESTS // 2)}
+    stateless = list(range(ROUTER_REQUESTS // 2, ROUTER_REQUESTS))
+    work = [[i for i in session_of if i % ROUTER_SESSIONS == k]
+            for k in range(ROUTER_SESSIONS)]
+    n_free = ROUTER_CLIENTS - ROUTER_SESSIONS
+    work += [stateless[k::n_free] for k in range(n_free)]
+
+    def client(k):
+        for i in work[k]:
+            t0 = time.perf_counter()
+            try:
+                body, hdr = http_post(url, "/v1/flow", bodies[i],
+                                      session=session_of.get(i))
+                status = 200
+            except urllib.error.HTTPError as e:
+                body, hdr, status = e.read(), dict(e.headers), e.code
+            t1 = time.perf_counter()
+            with lock:
+                answers.append((i, status, hdr, body, t1, t1 - t0))
+                n = len(answers)
+            if on_answer is not None:
+                on_answer(n)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(ROUTER_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("router: a client thread is still waiting")
+    return answers, time.perf_counter() - t0, session_of
+
+
+def round_stats(answers, wall_s) -> dict:
+    lat = [a[5] * 1e3 for a in answers]
+    return {"requests": len(answers), "wall_s": wall_s,
+            "requests_per_s": len(answers) / wall_s,
+            "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)),
+            "statuses": sorted({a[1] for a in answers})}
+
+
+def check_router_answers(answers, items, session_of, direct) -> float:
+    """Every 200 answer against the same request run directly in this
+    process (``direct(item, flow_init)`` -> (flow_low, flow_up)); a
+    session request the replica answered warm (X-Warm-Start) is run with
+    the splat of the direct run of the session's previous request, a cold
+    one without. Returns the max abs flow_up difference (px)."""
+    from dexiraft_tpu_torch.serve.server import decode_response
+
+    worst = 0.0
+    prev_low = {}
+    for i, status, hdr, body, _, _ in sorted(answers, key=lambda a: a[0]):
+        if status != 200:
+            raise AssertionError(f"router: request {i} answered {status}")
+        sid = session_of.get(i)
+        warm = hdr.get("X-Warm-Start", "0") in ("1", "true", "True")
+        low, up = direct(items[i], prev_low.get(sid) if warm else None)
+        if sid is not None:
+            prev_low[sid] = low
+        got = decode_response(body)
+        if got.shape != up.shape or not np.isfinite(got).all():
+            raise AssertionError(f"router: request {i} flow {got.shape}")
+        worst = max(worst, float(np.abs(got - up).max()))
+    return worst
+
+
+def phase_router(torch, dev, card) -> dict:
+    """The fleet router (python -m dexiraft_tpu_torch router --port 0
+    --spawn 2) in a child, over two serve replicas of seed-0 v1 weights on
+    B1 (flash fused) that it spawns and supervises. Three rounds of
+    ROUTER_REQUESTS Sintel pairs from ROUTER_CLIENTS threads, half in 4
+    sessions (X-Session-Id): straight to one replica, through the router,
+    and through the router with one replica SIGKILLed after
+    ROUTER_KILL_AFTER answers. Checked: every answer 200 (no 5xx across
+    the kill) and within TOL_FLOW_PX of the same request run directly in
+    this process (warm answers on the splat of the session's previous
+    flow); the router counts the failover and a sticky miss; the
+    supervisor respawns the killed replica and its breaker closes again;
+    POST /admin/drain gives 202 and the drain reaches 0 in flight, and
+    the drained replica comes back; SIGTERM stops the router and every
+    replica (exit 0, ports closed). Measured: requests/s and p50/p99 of
+    each round, the failover seconds (kill to the next 200) and the
+    respawn seconds (kill to the breaker closed). B1's launches are the
+    replicas' own counts (/stats' kernel_launches, zeroed after their
+    warm-up), read from each process just before it is killed or drained
+    and at the end, each held against its /stats engine batches x ITERS."""
+    import re
+    import signal
+    import tempfile
+    import threading
+
+    from dexiraft_tpu_torch import serve_cli
+    from dexiraft_tpu_torch.serve.engine import InferenceEngine, ServeConfig
+    from dexiraft_tpu_torch.serve.router import HashRing
+
+    serve_args = ROUTER_SERVE_ARGS
+    rec = {"phase": "router", "card": card, "replicas": 2,
+           "serve_args": serve_args, "hw": list(ROUTER_HW)}
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_router_")
+    weights = os.path.join(tmp.name, "raft_v1_seed0.pt")
+    # seed-0 weights of the replicas' config, saved for their --model;
+    # the same model runs the direct requests here, through the
+    # replicas' own builders
+    args = serve_cli.build_parser().parse_args(
+        ["--synthetic_init", "--port", "0"] + serve_args)
+    _, model = serve_cli._load(args, dev)
+    torch.save(model.state_dict(), weights)
+    engine = InferenceEngine(
+        serve_cli._make_eval_fn(args, model, args.iters, dev),
+        ServeConfig.from_args(args, mode=args.mode, warm_start=True,
+                              device_carry=True), device=dev)
+    splat = serve_cli._make_carry_fn(dev, device=True)
+
+    def direct(item, prev_low):
+        it = dict(item) if prev_low is None else dict(
+            item, flow_init=splat(prev_low))
+        (res,) = engine.run_batch([it])
+        return res.flow_low, np.asarray(res.flow_up)
+
+    port_base = free_port_pair()
+    cmd = [sys.executable, "-m", "dexiraft_tpu_torch", "router", "--port",
+           "0", "--spawn", "2", "--port_base", str(port_base),
+           "--boot_timeout_s", str(ROUTER_BOOT_S), "--", "--model", weights,
+           *serve_args]
+    rec["cmd"] = " ".join(cmd[2:])
+    lines = []
+    t0 = time.perf_counter()
+    child = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+    replica_ports = [port_base, port_base + 1]
+    try:
+        url = None
+        watchdog = threading.Timer(ROUTER_BOOT_S, child.kill)
+        watchdog.start()
+        for line in child.stdout:
+            lines.append(line.rstrip())
+            m = re.search(r"\[router\] listening on (http://\S+)", line)
+            if m:
+                url = m.group(1)
+                break
+        watchdog.cancel()
+        if url is None:
+            raise AssertionError(f"router: no 'listening on' line: "
+                                 f"{lines[-30:]}")
+        rec["startup_s"] = time.perf_counter() - t0
+        reader = threading.Thread(
+            target=lambda: lines.extend(ln.rstrip() for ln in child.stdout),
+            daemon=True)
+        reader.start()
+        pids = replica_pids(replica_ports)
+        rids = {port_base: "r0", port_base + 1: "r1"}
+        if sorted(pids) != replica_ports:
+            raise AssertionError(f"router: replica processes {pids}")
+
+        def pool():
+            return http_json(url, "/stats")["pool"]
+
+        def replica_counts(rid):
+            """(engine batches, kernel launches) of replica ``rid``'s
+            /stats, through the router."""
+            scraped = http_json(url, "/stats?replicas=1")["replica_stats"]
+            if "engine" not in scraped[rid]:
+                raise AssertionError(f"router: /stats of {rid}: "
+                                     f"{scraped[rid]}")
+            return (scraped[rid]["engine"]["batches"],
+                    scraped[rid]["service"]["kernel_launches"])
+
+        worst = 0.0
+        # round 1: straight to one replica; round 2: through the router
+        for name, target, seed in (("direct_r0",
+                                    f"http://127.0.0.1:{port_base}", 300),
+                                   ("router", url, 301)):
+            items = router_items(seed)
+            sessions = [f"{name}-s{k}" for k in range(ROUTER_SESSIONS)]
+            answers, wall, session_of = router_round(target, items, sessions)
+            worst = max(worst, check_router_answers(
+                answers, items, session_of, direct))
+            rec[name] = round_stats(answers, wall)
+        # each replica process's counts, read last just before it dies
+        counts = {}
+
+        def note_counts(rid):
+            batches, launches = replica_counts(rid)
+            counts[f"{rid}@{len(counts)}"] = {"batches": batches,
+                                              "launches": launches}
+
+        # round 3: through the router, one replica SIGKILLed mid-traffic
+        aff0 = pool()["affinity"]
+        items = router_items(302)
+        sessions = [f"kill-s{k}" for k in range(ROUTER_SESSIONS)]
+        # the victim is session 0's home on the router's ring (64 virtual
+        # nodes, RouterConfig's default), so the kill moves a live session
+        victim = HashRing(["r0", "r1"]).lookup(sessions[0])
+        victim_port = {v: k for k, v in rids.items()}[victim]
+        killed = {}
+
+        def on_answer(n):
+            if n == ROUTER_KILL_AFTER and not killed:
+                note_counts(victim)
+                killed["t"] = time.perf_counter()
+                os.kill(pids[victim_port], signal.SIGKILL)
+
+        answers, wall, session_of = router_round(url, items, sessions,
+                                                 on_answer)
+        worst = max(worst, check_router_answers(
+            answers, items, session_of, direct))
+        rec["router_kill"] = round_stats(answers, wall)
+        after_kill = [a for a in answers if a[4] > killed["t"]
+                      and a[1] == 200]
+        rec["failover_s"] = (min(a[4] for a in after_kill) - killed["t"]
+                             if after_kill else None)
+        st = http_json(url, "/stats")
+        rec["router_stats_after_kill"] = st["router"]
+        aff = st["pool"]["affinity"]
+        rec["sticky_misses"] = aff["sticky_misses"] - aff0["sticky_misses"]
+        rec["max_abs_flow_px"] = worst
+        if st["router"]["upstream_errors"] or rec["failover_s"] is None:
+            raise AssertionError(f"router: kill round {st['router']}")
+        if rec["sticky_misses"] < 1 or st["router"]["failovers"] < 1:
+            raise AssertionError(f"router: no failover / sticky miss counted:"
+                                 f" {st['router']} {aff}")
+
+        # the supervisor respawns the victim; its breaker closes again
+        seen_open = False
+        while True:
+            r = pool()["replicas"][victim]
+            seen_open = seen_open or r["state"] != "closed"
+            if (seen_open and r["state"] == "closed" and r["ready"]
+                    and r["health"].get("uptime_s", 1e9)
+                    < time.perf_counter() - killed["t"]):
+                break
+            if time.perf_counter() - killed["t"] > ROUTER_BOOT_S:
+                raise AssertionError(f"router: {victim} never came back: {r}")
+            time.sleep(0.2)
+        rec["respawn_s"] = time.perf_counter() - killed["t"]
+        rec["victim_breaker_opened"] = seen_open
+
+        # zero-drop drain of the survivor, with traffic on the fleet
+        drained = "r1" if victim == "r0" else "r0"
+        note_counts(drained)
+        body, _ = http_post(url, f"/admin/drain?replica={drained}", b"")
+        code = json.loads(body)
+        t_drain = time.perf_counter()
+        answers, _, _ = router_round(url, router_items(303),
+                                     [f"drain-s{k}" for k in range(4)])
+        rec["drain"] = {"response": code,
+                        "statuses": sorted({a[1] for a in answers})}
+        if code.get("status") != "draining" or rec["drain"]["statuses"] != [
+                200]:
+            raise AssertionError(f"router: drain {rec['drain']}")
+        while not any(f"drain {drained}: complete" in ln for ln in lines):
+            if time.perf_counter() - t_drain > ROUTER_BOOT_S:
+                raise AssertionError(f"router: drain never completed: "
+                                     f"{lines[-20:]}")
+            time.sleep(0.2)
+        done = [ln for ln in lines if f"drain {drained}: complete" in ln][0]
+        rec["drain"]["log"] = done
+        m = re.search(r"last inflight (\d+)", done)
+        if "replica restarted" not in done or not m or int(m.group(1)):
+            raise AssertionError(f"router: drain outcome {done}")
+        # the restart hook has spawned the new process (the supervisor
+        # owns it, so the router's SIGTERM below stops it too)
+        while not any(f"replica {drained} drained and respawned" in ln
+                      for ln in lines):
+            if time.perf_counter() - t_drain > ROUTER_BOOT_S:
+                raise AssertionError(f"router: {drained} not respawned")
+            time.sleep(0.2)
+        rec["drain"]["respawned_s"] = time.perf_counter() - t_drain
+        # the respawned victim served the drain round; the drained
+        # replica's count was read before its drain
+        note_counts(victim)
+        rec["replica_counts"] = counts
+        # B1 runs ITERS times a forward (a batch of the engine), and no
+        # other kernel runs. A forward counts its launches as it enqueues
+        # them and its batch after, and /stats reads the batches first:
+        # the quiet readings hold exactly ITERS a batch; the one under
+        # traffic (the victim's, just before the kill) may also hold the
+        # launches of a forward still being enqueued, and of the next if
+        # the dispatcher started it between the two reads
+        for key, c in counts.items():
+            n, b = c["launches"]["flash_fused_step"], c["batches"]
+            stray = {k: v for k, v in c["launches"].items()
+                     if k != "flash_fused_step" and v}
+            quiet = key != f"{victim}@0"
+            if (stray or not ITERS * b <= n < ITERS * (b + 2)
+                    or (quiet and n != ITERS * b)):
+                raise AssertionError(f"router: replica {key} launched {n} "
+                                     f"B1 for {c['batches']} forwards, other "
+                                     f"kernels {stray}")
+        rec["launches"] = {"flash_fused_step": sum(
+            c["launches"]["flash_fused_step"] for c in counts.values())}
+        if not rec["launches"]["flash_fused_step"]:
+            raise AssertionError("router: the replicas launched no B1")
+        rec["lock_order_violations"] = http_json(
+            url, "/stats")["locks"]["order_violations"]
+        if rec["lock_order_violations"]:
+            raise AssertionError(f"router: lock order violations "
+                                 f"{rec['lock_order_violations']}")
+
+        t1 = time.perf_counter()
+        child.send_signal(signal.SIGTERM)
+        rc = child.wait(timeout=180)
+        rec["sigterm_to_exit_s"] = time.perf_counter() - t1
+        rec["rc"] = rc
+        reader.join(5)
+    finally:
+        if child.poll() is None:
+            # a failed phase: the router first, then its replicas by pid
+            # (they run in sessions of their own; a respawn in flight may
+            # have started one just before the router died)
+            child.kill()
+            child.wait()
+            time.sleep(1.0)
+            for pid in replica_pids(replica_ports).values():
+                try:
+                    os.kill(pid, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
+        tmp.cleanup()
+    rec["log_tail"] = lines[-6:]
+    rec["ports_open_after_exit"] = [p for p in replica_ports if port_open(p)]
+    emit(rec)
+    if rc != 0 or rec["ports_open_after_exit"]:
+        raise AssertionError(f"router: exit {rc}, replica ports still open "
+                             f"{rec['ports_open_after_exit']}: {lines[-20:]}")
+    if worst > TOL_FLOW_PX:
+        raise AssertionError(f"router: flows {worst} px from the direct run")
+    return rec
+
+
+# ---- the standalone DexiNed workload (python -m dexiraft_tpu_torch dexined)
+
+DEXINED_HW = (720, 1280)     # BIPED's registry resolution
+DEXINED_TRAIN_IMAGES = 8     # one batch at the CLI default
+DEXINED_TEST_IMAGES = 4
+DEXINED_BATCH, DEXINED_SIZE = 8, 352   # the CLI's --batch_size, --img_size
+DEXINED_CPU_BATCH = 2        # the card step held against the CPU step
+TOL_DEXINED_LOSS_REL = 1e-4
+TOL_DEXINED_STATE_REL_L2 = 1e-3
+TOL_DEXINED_GRAD_REL_L2 = 1e-6   # each parameter's fp64 gradient, card vs CPU
+TOL_DEXINED_FORWARD = 1e-4   # of the largest logit, card vs CPU
+
+
+def write_biped_tree(root, seed=0):
+    """A synthetic BIPED tree from ``seed`` at DEXINED_HW: training pairs
+    (imgs/train/rgbr/aug/seq0/*.jpg, edge_maps/.../*.png) and a test
+    directory of .jpg images with a gt/ directory of edge maps. Each
+    image is an 8x8-block random texture with its edges drawn in; each
+    edge map holds a few hundred edge pixels (segments), so the metrics'
+    matching stays cheap. The values mean nothing."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    h, w = DEXINED_HW
+    dirs = {k: os.path.join(root, *p) for k, p in (
+        ("img", ("imgs", "train", "rgbr", "aug", "seq0")),
+        ("gt", ("edge_maps", "train", "rgbr", "aug", "seq0")),
+        ("test", ("test",)), ("test_gt", ("test_gt",)))}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+
+    def pair():
+        base = rng.integers(0, 256, (h // 8 + 1, w // 8 + 1, 3))
+        img = np.kron(base, np.ones((8, 8, 1)))[:h, :w].astype(np.uint8)
+        gt = np.zeros((h, w), np.uint8)
+        for _ in range(6):
+            x0, y0 = int(rng.integers(0, w)), int(rng.integers(0, h))
+            x1 = int(np.clip(x0 + rng.integers(-120, 120), 0, w - 1))
+            y1 = int(np.clip(y0 + rng.integers(-120, 120), 0, h - 1))
+            cv2.line(gt, (x0, y0), (x1, y1), 255, 1)
+            cv2.line(img, (x0, y0), (x1, y1), (255, 255, 255), 1)
+        return img, gt
+
+    for i in range(DEXINED_TRAIN_IMAGES):
+        img, gt = pair()
+        cv2.imwrite(os.path.join(dirs["img"], f"{i}.jpg"), img)
+        cv2.imwrite(os.path.join(dirs["gt"], f"{i}.png"), gt)
+    for i in range(DEXINED_TEST_IMAGES):
+        img, gt = pair()
+        cv2.imwrite(os.path.join(dirs["test"], f"t{i}.jpg"), img)
+        cv2.imwrite(os.path.join(dirs["test_gt"], f"t{i}.png"), gt)
+    return dirs
+
+
+def rel_l2(a, b) -> float:
+    return float((a - b).norm() / b.norm())
+
+
+def phase_dexined(torch, ck, dev, card) -> dict:
+    """The standalone DexiNed workload on a synthetic BIPED tree (8
+    training and 4 test images of 720x1280, written from a seed).
+    In-process, with the corr kernels' counts set to 0: the CLI's train
+    step (dexined_cli.make_train_step: train-mode BatchNorm, the
+    multiscale bdcn loss, AdamW) at its defaults, batch 8 at 352x352,
+    fp32, timed (CUDA events, median of 5 after 2) with its peak memory;
+    the step on the card, in fp32 and in fp64, held against the CPU's
+    fp64 step from the same weights and the first DEXINED_CPU_BATCH
+    samples (each: loss within TOL_DEXINED_LOSS_REL relative, the
+    parameters and the BatchNorm running variances after the AdamW step
+    within TOL_DEXINED_STATE_REL_L2 relative L2; the fp64 step's
+    gradients, each parameter's within TOL_DEXINED_GRAD_REL_L2 relative
+    L2, the pre-BatchNorm conv biases left out, whose gradients are
+    rounding noise, and those of the parameters no loss reaches exactly
+    0: Adam's first update is about lr times the gradient's sign, so the
+    state holds the step and the gradients its size); the cofusion
+    head's forward on the card against the CPU's
+    (within TOL_DEXINED_FORWARD of the largest logit); no corr kernel
+    launched. Then the CLI in children: --train --epochs 2
+    --steps_per_epoch 3 --batch_size 2 --img_size 176 (two checkpoints,
+    finite losses), then --test --test_pich --gt_root over the 4 test
+    images (per-image ms at 720x1280, ODS/OIS/AP with the dilation
+    matching, every PNG written)."""
+    import re
+    import tempfile
+
+    from dexiraft_tpu_torch import dexined_cli as cli
+    from dexiraft_tpu_torch.dexined.data import BipedDataset
+    from dexiraft_tpu_torch.models.dexined import (PRE_BN_BIAS, DexiNed,
+                                                   create_dexined)
+
+    rec = {"phase": "dexined", "card": card, "hw": list(DEXINED_HW),
+           "batch": DEXINED_BATCH, "img_size": DEXINED_SIZE}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dexined_") as root:
+        t0 = time.perf_counter()
+        dirs = write_biped_tree(root)
+        rec["tree_s"] = time.perf_counter() - t0
+        ds = BipedDataset(root, img_size=DEXINED_SIZE)
+        samples = [ds.sample(i, np.random.default_rng((42, 0, i)))
+                   for i in range(DEXINED_BATCH)]
+        images = np.stack([s["images"] for s in samples])
+        labels = np.stack([s["labels"] for s in samples])
+        ck.reset_launches()
+        seconds = rec["seconds"] = {}
+        t0 = time.perf_counter()
+
+        def lap(name):
+            nonlocal t0
+            t1 = time.perf_counter()
+            seconds[name] = t1 - t0
+            t0 = t1
+
+        # the train step at the CLI defaults, timed
+        model = create_dexined(42).to(dev)
+        opt = cli.make_optimizer(model, 1e-4, 0.0)
+        step = cli.make_train_step(model, opt)
+        x, y = cli.to_nchw(images, dev), cli.to_nchw(labels, dev)
+        losses = []
+        torch.cuda.reset_peak_memory_stats(dev)
+        times = cuda_times_ms(lambda: losses.append(step(x, y)[0]), reps=5,
+                              warmup=2)
+        peak = torch.cuda.max_memory_allocated(dev)
+        losses = [float(v) for v in losses]
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"dexined: train losses {losses}")
+        rec.update(train_ms_per_step=statistics.median(times),
+                   train_ms_min_max=[min(times), max(times)],
+                   train_peak_allocated_gib=peak / 2 ** 30,
+                   train_losses=losses)
+        del model, opt, step, x, y
+        torch.cuda.empty_cache()
+        lap("train_timed")
+
+        # one step on the card against the same step on the CPU, same
+        # weights and batch. At these random weights the fp32 gradients
+        # sit ~1% from the fp64 ones (median leaf 5e-3 relative L2, worst
+        # 1e-2, on the CPU at any thread count), so the card's fp32 step
+        # (the CLI's arithmetic) is held on its loss and state against the
+        # CPU's fp64 step, and the card's fp64 step on every gradient
+        n = DEXINED_CPU_BATCH
+        weights = create_dexined(43).state_dict()
+        after = {}
+        for name, where, dtype in (("cpu_fp64", "cpu", torch.float64),
+                                   ("card_fp64", dev, torch.float64),
+                                   ("card_fp32", dev, torch.float32)):
+            m = DexiNed()
+            m.load_state_dict(weights, strict=True)
+            m = m.to(where, dtype)
+            loss, ok = cli.make_train_step(m, cli.make_optimizer(
+                m, 1e-4, 0.0))(cli.to_nchw(images[:n], where).to(dtype),
+                               cli.to_nchw(labels[:n], where).to(dtype))
+            sd = {k: v.detach().cpu().double()
+                  for k, v in m.state_dict().items()}
+            after[name] = {
+                "loss": float(loss), "finite": bool(ok),
+                "params": torch.cat([sd[k].reshape(-1)
+                                     for k, _ in m.named_parameters()]),
+                "running_var": torch.cat([v.reshape(-1) for k, v in sd.items()
+                                          if k.endswith("running_var")]),
+                "grads": {k: p.grad.detach().cpu().double()
+                          for k, p in m.named_parameters()}}
+            del m
+            lap(f"step_{name}")
+        ref = after["cpu_fp64"]
+
+        def held(got):
+            """``got``'s step against the CPU's fp64 step: the loss, the
+            state after it, and each gradient (the pre-BatchNorm conv
+            biases left out; the largest gradient of the parameters the
+            loss does not reach, which are 0 on the CPU)."""
+            rel, unreached, noise = {}, [], []
+            for k, g in ref["grads"].items():
+                mine = got["grads"][k]
+                if PRE_BN_BIAS.match(k):
+                    noise.append(float(mine.abs().max()))
+                elif float(g.norm()) == 0.0:
+                    unreached.append(float(mine.abs().max()))
+                else:
+                    rel[k] = rel_l2(mine, g)
+            worst = max(rel, key=rel.get)
+            return {"loss_rel_diff": abs(got["loss"] - ref["loss"])
+                    / abs(ref["loss"]),
+                    "params_rel_l2": rel_l2(got["params"], ref["params"]),
+                    "running_var_rel_l2": rel_l2(got["running_var"],
+                                                 ref["running_var"]),
+                    "finite": got["finite"], "grad_leaves": len(rel),
+                    "grad_worst_rel_l2": rel[worst], "grad_worst_leaf": worst,
+                    "grad_median_rel_l2": statistics.median(rel.values()),
+                    "grad_unreached_max": max(unreached),
+                    "pre_bn_bias_grad_max": max(noise)}
+
+        hold = {"batch": n, "loss_cpu_fp64": ref["loss"],
+                "loss_card_fp32": after["card_fp32"]["loss"],
+                "cpu_fp64_finite": ref["finite"],
+                "card_fp32": held(after["card_fp32"]),
+                "card_fp64": held(after["card_fp64"])}
+        rec["card_vs_cpu_step"] = hold
+        c64 = hold["card_fp64"]
+        if not (ref["finite"]
+                and all(h["loss_rel_diff"] <= TOL_DEXINED_LOSS_REL
+                        and h["params_rel_l2"] <= TOL_DEXINED_STATE_REL_L2
+                        and h["running_var_rel_l2"] <= TOL_DEXINED_STATE_REL_L2
+                        and h["finite"] and h["grad_unreached_max"] == 0.0
+                        for h in (hold["card_fp32"], c64))
+                and c64["grad_worst_rel_l2"] <= TOL_DEXINED_GRAD_REL_L2):
+            raise AssertionError(f"dexined: card step vs CPU step {hold}")
+
+        # the cofusion head: card forward against the CPU forward
+        co = create_dexined(44, fusion="cofusion").eval()
+        xc = cli.to_nchw(images[:1], "cpu")
+        with torch.inference_mode():
+            maps_c = torch.cat(co(xc), 1)
+            maps_g = torch.cat(co.to(dev)(xc.to(dev)), 1).cpu()
+        err = float((maps_g - maps_c).abs().max())
+        scale = float(maps_c.abs().max())
+        rec["cofusion"] = {"max_abs_logit_err": err, "max_abs_logit": scale}
+        if err > TOL_DEXINED_FORWARD * max(1.0, scale):
+            raise AssertionError(f"dexined: cofusion card vs CPU "
+                                 f"{rec['cofusion']}")
+        del co
+        lap("cofusion")
+
+        rec["launches"] = {k: v for k, v in ck.LAUNCHES.items()}
+        if any(rec["launches"].values()):
+            raise AssertionError(f"dexined: corr kernels launched "
+                                 f"{rec['launches']}")
+
+        # the CLI in children: train, then test
+        env = dict(os.environ)
+        ckpt = os.path.join(root, "ck")
+        t0 = time.perf_counter()
+        # batch 2 at 176x176: the child's first step searches cuDNN's
+        # algorithms for its shapes again, and batch 8's step was timed
+        # above
+        out = _child(["dexined", "--train", "--data_root", root,
+                      "--epochs", "2", "--steps_per_epoch", "3",
+                      "--batch_size", "2", "--img_size", "176",
+                      "--checkpoint", ckpt], env)
+        rec["cli_train_s"] = time.perf_counter() - t0
+        cli_losses = [float(v) for v in re.findall(r"Loss: (\S+)", out)]
+        steps = sorted(int(d) for d in os.listdir(ckpt) if d.isdigit())
+        rec["cli_train"] = {"losses": cli_losses, "checkpoints": steps,
+                            "log": out.strip().splitlines()[-6:]}
+        if steps != [3, 6] or not cli_losses or not all(
+                np.isfinite(cli_losses)):
+            raise AssertionError(f"dexined: CLI train {rec['cli_train']}: "
+                                 f"{out[-2000:]}")
+        outdir = os.path.join(root, "out")
+        t0 = time.perf_counter()
+        out = _child(["dexined", "--test", "--test_pich", "--data_root",
+                      dirs["test"], "--gt_root", dirs["test_gt"],
+                      "--matching", "dilation", "--checkpoint", ckpt,
+                      "--output_dir", outdir], env)
+        rec["cli_test_s"] = time.perf_counter() - t0
+        per_image = [float(v) for v in re.findall(r"\.jpg: (\S+) ms", out)]
+        metrics = re.search(r"ODS: (\S+)\s+OIS: (\S+)\s+AP: (\S+)", out)
+        files = sorted(os.path.relpath(os.path.join(d, f), outdir)
+                       for d, _, fs in os.walk(outdir) for f in fs)
+        expect = sorted(f"BIPED/{sub}t{i}.png"
+                        for i in range(DEXINED_TEST_IMAGES)
+                        for sub in ("", "fusedCH/", "avgCH/"))
+        rec["cli_test"] = {"ms_per_image": per_image,
+                           "metrics": (dict(zip(("ODS", "OIS", "AP"),
+                                                map(float, metrics.groups())))
+                                       if metrics else None),
+                           "files": len(files)}
+        if (len(per_image) != DEXINED_TEST_IMAGES or metrics is None
+                or files != expect):
+            raise AssertionError(f"dexined: CLI test {rec['cli_test']} "
+                                 f"{files}: {out[-2000:]}")
+    emit(rec)
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -2645,6 +3401,10 @@ def main(argv=None) -> int:
     # the packed-record plane, the native bridge and the trainer's
     # recovery paths, against the train_cli phase's full run
     recs = phase_records(torch, dev, smi, tcli["full_losses"])
+    # the fleet router over two serve replicas on B1, and the standalone
+    # DexiNed workload (no corr kernel)
+    router = phase_router(torch, dev, smi)
+    dexined = phase_dexined(torch, ck, dev, smi)
     times = phase_times(torch, ck, gen, dev, v1_models, v5_models, smi)
 
     pc = "dexiraft_tpu/ops/pallas_corr.py"
@@ -2670,10 +3430,13 @@ def main(argv=None) -> int:
     kernels[0]["serve_launches"] = serve["launches"]["flash_fused_step"]
     # and on the eval phase's validators and submissions
     kernels[0]["eval_launches"] = ev["b1_launches_total"]
+    # the router phase's replicas, as they counted them
+    kernels[0]["router_launches"] = router["launches"]["flash_fused_step"]
     for entry in kernels:
         entry["train_launches"] = (train["launches"][entry["name"]]
                                    + demo["launches"][entry["name"]]
                                    + recs["launches"][entry["name"]])
+        entry["dexined_launches"] = dexined["launches"][entry["name"]]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -1,8 +1,7 @@
 """Package dispatcher: python -m dexiraft_tpu_torch
-{serve,train,eval,viz,pack_records} [args...]
+{serve,router,train,eval,viz,dexined,pack_records} [args...]
 
-The port's counterpart of ``python -m dexiraft_tpu``; the other commands
-(router, dexined) come with their ROADMAP items (A8, A11).
+The port's counterpart of ``python -m dexiraft_tpu``.
 """
 
 import importlib
@@ -10,9 +9,11 @@ import sys
 
 _COMMANDS = {
     "serve": "dexiraft_tpu_torch.serve_cli",
+    "router": "dexiraft_tpu_torch.router_cli",
     "train": "dexiraft_tpu_torch.train_cli",
     "eval": "dexiraft_tpu_torch.eval_cli",
     "viz": "dexiraft_tpu_torch.viz_cli",
+    "dexined": "dexiraft_tpu_torch.dexined_cli",
     "pack_records": "dexiraft_tpu_torch.pack_records",
 }
 

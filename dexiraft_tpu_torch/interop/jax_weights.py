@@ -103,6 +103,11 @@ _DEXINED_BLOCKS = {
     "up_block_6": "UpConvBlock_5",
 }
 
+# the CoFusion head (DexiNed(fusion="cofusion")): block_cat.<name> ->
+# CoFusion_0/<flax module>; its GroupNorms' weight/bias are scale/bias
+_COFUSION = {"conv1": "Conv_0", "conv2": "Conv_1", "conv3": "Conv_2",
+             "norm_layer1": "GroupNorm_0", "norm_layer2": "GroupNorm_1"}
+
 _BN_LEAVES = {"weight": ("params", "scale"), "bias": ("params", "bias"),
               "running_mean": ("batch_stats", "mean"),
               "running_var": ("batch_stats", "var")}
@@ -145,6 +150,8 @@ def _numbered(sub: str) -> str:
 
 def _dexined_module(parts) -> Tuple[str, ...]:
     """DexiNed torch path (without root and leaf) -> flax module path."""
+    if parts[0] == "block_cat" and parts[1] in _COFUSION:
+        return ("CoFusion_0", _COFUSION[parts[1]])
     ours = _DEXINED_BLOCKS[parts[0]]
     if parts[0].startswith("up_block"):
         # features.{i}: 0, 3, ... 1x1 convs; 2, 5, ... transposed convs
@@ -253,11 +260,13 @@ def dexined_state_dict_from_jax(variables: Mapping[str, Any]
                                 ) -> Dict[str, torch.Tensor]:
     """Flax DexiNed variables (the standalone network's tree) -> the
     port's ``DexiNed`` state dict, by the map RAFT v5 uses for its
-    ``dexined.*`` keys."""
+    ``dexined.*`` keys. A tree with a ``CoFusion_0`` head fills
+    ``DexiNed(fusion="cofusion")``'s keys."""
     from dexiraft_tpu_torch.models.dexined import DexiNed
 
+    fusion = "cofusion" if "CoFusion_0" in variables["params"] else "cat"
     with torch.device("meta"):
-        keys = list(DexiNed().state_dict().keys())
+        keys = list(DexiNed(fusion).state_dict().keys())
 
     def source(key):
         coll, path = flax_source("dexined." + key)

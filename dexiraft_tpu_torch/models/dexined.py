@@ -1,39 +1,62 @@
-"""DexiNed, the edge network that v5 embeds frozen, in PyTorch (NCHW).
+"""DexiNed, the edge network that v5 embeds frozen and the standalone
+edge workload trains, in PyTorch (NCHW).
 
-Counterpart of ``dexiraft_tpu/models/dexined.py`` (``fusion="cat"``): a
-stem of two DoubleConvBlocks, dense blocks with 0.5 * (new + skip)
-fusion, left and right 1x1-conv skip paths, transposed-conv upsamplers,
-and a final 1x1 fusion over the 6 scale outputs. Returns 7 maps (6 scales
-and the fused one), each (B, 1, H, W) of raw logits: the edge contract the
-v5 flow model consumes (no sigmoid).
+Counterpart of ``dexiraft_tpu/models/dexined.py``: a stem of two
+DoubleConvBlocks, dense blocks with 0.5 * (new + skip) fusion, left and
+right 1x1-conv skip paths, transposed-conv upsamplers, and a final fusion
+over the 6 scale outputs: the 1x1 ``block_cat`` conv (``fusion="cat"``,
+the default, the head RAFT v4/v5 embed) or the attention head
+:class:`CoFusion` (``fusion="cofusion"``). Returns 7 maps (6 scales and
+the fused one), each (B, 1, H, W) of raw logits: the edge contract the v5
+flow model consumes (no sigmoid).
+
+BatchNorm is ``models.layers.BatchNorm2d``: in train mode (the standalone
+trainer) its running variance folds in the biased batch variance, as
+flax's does; its state-dict keys and eval mode are torch's.
 
 Attribute names are the reference torch model's (``block_1.conv1``,
 ``dblock_3.denselayer1.norm2``, ``side_5.bn``, ``up_block_5.features.2``,
 ``block_cat.conv``, ...), the names the JAX package's converter maps
-(``interop/torch_convert.py``), so converted weights load strictly. Two
-modules exist only for the weights: ``block_cat``'s BatchNorm (never
+(``interop/torch_convert.py``), so converted weights load strictly; the
+CoFusion head's are ``block_cat.conv1`` ... ``block_cat.norm_layer2``. Two
+modules exist only for the weights: the "cat" head's BatchNorm (never
 applied) and ``side_5`` (never called), as in the reference.
 
 The upsamplers are ``nn.ConvTranspose2d`` with the reference's paddings:
 the JAX package's "transpose" upconv. Its default "subpixel" upconv is a
 TPU rewrite of the same linear map with the same parameters, so both
-values of ``dexined_upconv`` build this one module.
+values of ``dexined_upconv`` (and of the DexiNed CLI's ``--upconv``)
+build this one module.
 """
 
 from __future__ import annotations
 
+import re
 from typing import List, Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dexiraft_tpu_torch.models.layers import (DEXINED_ROOT, BatchNorm2d,
+                                              seeded_init_)
+
 # torch ConvTranspose2d paddings per up_scale: output (in-1)*2 - 2p + k = 2*in
 _UPCONV_PAD = {1: 0, 2: 1, 3: 3, 4: 7}
 
 
-def _bn(planes: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(planes, eps=1e-5, momentum=0.1)
+FUSIONS = ("cat", "cofusion")
+
+# the names of the conv biases that feed a BatchNorm: the BatchNorm
+# subtracts the batch mean, so their gradients are zero in exact
+# arithmetic and rounding noise in any implementation (no two agree)
+PRE_BN_BIAS = re.compile(r"^((block|side|pre_dense)_\d\.conv\d?"
+                         r"|dblock_\d\.denselayer\d\.conv\d)\.bias$")
+
+
+def _bn(planes: int) -> BatchNorm2d:
+    # flax momentum 0.9 (the running stats' weight) is torch's 0.1
+    return BatchNorm2d(planes, eps=1e-5, momentum=0.1)
 
 
 class DoubleConvBlock(nn.Module):
@@ -128,16 +151,45 @@ class UpConvBlock(nn.Module):
         return self.features(x)
 
 
+class CoFusion(nn.Module):
+    """Attention-weighted fusion over the stacked scale maps (JAX
+    ``CoFusion``; the reference's ``CoFusion``, whose attribute names
+    these are): two conv3x3(64) + GroupNorm(4) + relu stages, a
+    conv3x3(``in_features``), a softmax over channels, then the
+    attention-weighted sum of the input maps (a convex combination per
+    pixel). (B, C, H, W) -> (B, 1, H, W)."""
+
+    def __init__(self, in_features: int):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_features, 64, 3, padding=1)
+        self.conv2 = nn.Conv2d(64, 64, 3, padding=1)
+        self.conv3 = nn.Conv2d(64, in_features, 3, padding=1)
+        # flax GroupNorm's epsilon (torch's default is 1e-5)
+        self.norm_layer1 = nn.GroupNorm(4, 64, eps=1e-6)
+        self.norm_layer2 = nn.GroupNorm(4, 64, eps=1e-6)
+
+    def forward(self, x):
+        attn = F.relu(self.norm_layer1(self.conv1(x)))
+        attn = F.relu(self.norm_layer2(self.conv2(attn)))
+        attn = torch.softmax(self.conv3(attn), dim=1)
+        return (x * attn).sum(dim=1, keepdim=True)
+
+
 def _maxpool_3x3_s2(x):
     # output ceil(H / 2), as the JAX max_pool with padding 1
     return F.max_pool2d(x, 3, stride=2, padding=1)
 
 
 class DexiNed(nn.Module):
-    """The full network; a (B, 3, H, W) batch in [-1, 1] -> 7 logit maps."""
+    """The full network; a (B, 3, H, W) batch -> 7 logit maps. ``fusion``
+    picks the final head (module docstring); another value raises."""
 
-    def __init__(self):
+    def __init__(self, fusion: str = "cat"):
         super().__init__()
+        if fusion not in FUSIONS:
+            raise ValueError(f"unknown fusion {fusion!r}; "
+                             "expected 'cat' or 'cofusion'")
+        self.fusion = fusion
         self.block_1 = DoubleConvBlock(3, 32, 64, stride=2)
         self.block_2 = DoubleConvBlock(64, 128, use_act=False)
         self.dblock_3 = DenseBlock(2, 128, 256)
@@ -161,7 +213,8 @@ class DexiNed(nn.Module):
         self.up_block_4 = UpConvBlock(512, 3)
         self.up_block_5 = UpConvBlock(512, 4)
         self.up_block_6 = UpConvBlock(256, 4)
-        self.block_cat = SingleConvBlock(6, 1, 1, use_bn=False)
+        self.block_cat = (CoFusion(6) if fusion == "cofusion"
+                          else SingleConvBlock(6, 1, 1, use_bn=False))
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         block_1 = self.block_1(x)
@@ -209,6 +262,18 @@ class DexiNed(nn.Module):
         results = [out_1, out_2, out_3, out_4, out_5, out_6]
         results.append(self.block_cat(torch.cat(results, dim=1)))
         return results
+
+
+def create_dexined(seed: int = 0, fusion: str = "cat") -> DexiNed:
+    """A standalone DexiNed on the CPU with the JAX package's DexiNed init
+    drawn from ``seed``: Xavier-normal convs, normal(0.1) for a
+    one-channel transposed conv, zero biases, identity norms
+    (``models.layers.seeded_init_``'s branch for the module path RAFT
+    gives the network)."""
+    model = DexiNed(fusion)
+    seeded_init_(nn.ModuleDict({DEXINED_ROOT: model}),
+                 torch.Generator().manual_seed(seed))
+    return model
 
 
 def stack_edge_maps(outputs: List[torch.Tensor]) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """Named, ranked locks for the serving tier and the trainer.
 
 A copy of the part of ``dexiraft_tpu/analysis/locks.py`` that the port's
-serving tier and the trainer use: :class:`OrderedLock`, a ``threading.Lock`` (or, with
+serving tier, its fleet router and the trainer use: :class:`OrderedLock`, a ``threading.Lock`` (or, with
 ``reentrant=True``, an ``RLock``) with a name whose rank comes from
 :data:`LOCK_ORDER` (the JAX package's order, restricted to the locks the
 port takes, names kept). Taking a lock while holding one of a higher
@@ -33,6 +33,12 @@ LOCK_ORDER: Tuple[str, ...] = (
     "serve.video.chunk",         # VideoEngine._lock: one chunk's frame loop
     "serve.server.stop",         # FlowService._stop_lock: drain idempotence
     "serve.scheduler.cv",        # Scheduler._cv: queues + dispatch decision
+    "serve.router.supervisor",   # router_cli._Supervisor._lock: child procs
+    "serve.router.autoscale",    # Router._autoscale_lock: scrape-window
+                                 # read-and-swap (nests pool + stats records)
+    "serve.router.pool",         # ReplicaPool._lock: breaker + ring + affinity
+    "serve.router.inflight",     # Router._inflight_lock: admission bound
+    "serve.router.stats",        # RouterStats._lock: proxy counters
     "serve.video.inflight",      # VideoEngine._inflight_lock: chunk admission
     "serve.video.stats",         # VideoEngine._stats_lock: chunk counters
     "serve.sessions.store",      # SessionStore._lock: flow-seed carry map

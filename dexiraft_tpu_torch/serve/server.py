@@ -12,7 +12,10 @@ format, status codes and drain. Where the port differs:
     the response goes out;
   * ``/healthz`` also reports the device the step runs on (``device``),
     and /stats' service block the device memory the process holds
-    (``device_memory_reserved_bytes``);
+    (``device_memory_reserved_bytes``) and the corr kernels' launches in
+    this process (``kernel_launches``, ops/corr_kernels.LAUNCHES: a
+    replica's own count of the kernels its forwards ran; serve_cli zeroes
+    it after the warm-up, and ``?reset=1`` leaves it);
   * ``/stats``: the engine block says ``search_s`` / ``searches`` /
     ``searched`` for the JAX ``compile_s`` / ``compiles`` / ``compiled``
     (the first dispatch of a signature runs cuDNN's search, not an XLA
@@ -89,6 +92,7 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 import torch
 
+from dexiraft_tpu_torch.ops import corr_kernels
 from dexiraft_tpu_torch.serve import locks
 from dexiraft_tpu_torch.serve.buckets import bucket_shape
 from dexiraft_tpu_torch.serve.engine import InferenceEngine
@@ -519,6 +523,10 @@ class FlowService:
         }
 
     def stats_record(self) -> dict:
+        # the engine's batches before the launches: a forward counts its
+        # launches as it enqueues them and its batch after, so the pair
+        # read in this order never shows a batch without its launches
+        engine = self.engine.stats_record()
         return {
             "service": {
                 "uptime_s": round(self.uptime_s(), 3),
@@ -532,8 +540,9 @@ class FlowService:
                 # the caching allocator's hold on the card (None off it):
                 # each --workers child holds its own
                 "device_memory_reserved_bytes": self._device_memory(),
+                "kernel_launches": dict(corr_kernels.LAUNCHES),
             },
-            "engine": self.engine.stats_record(),
+            "engine": engine,
             "scheduler": self.scheduler.stats_record(),
             "sessions": (self.sessions.stats_record()
                          if self.sessions is not None else None),

@@ -364,6 +364,7 @@ def _make_video_engine(args, cfg, model, dev, sessions_on):
 
 
 def _serve_one(args) -> None:
+    from dexiraft_tpu_torch.ops import corr_kernels
     from dexiraft_tpu_torch.serve.engine import InferenceEngine
     from dexiraft_tpu_torch.serve.server import FlowService
 
@@ -387,6 +388,8 @@ def _serve_one(args) -> None:
         print(f"[serve] warmup: {engine.registry.searches} signature(s) "
               f"searched in {search_s:.1f} s"
               f"{' (+streaming)' if video is not None else ''}", flush=True)
+    # /stats' kernel_launches counts traffic: the warm-up's are not
+    corr_kernels.reset_launches()
 
     service = FlowService(
         engine,

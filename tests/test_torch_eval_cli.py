@@ -260,7 +260,7 @@ def test_dispatcher_lists_eval_and_viz():
                           env=dict(os.environ, PYTHONPATH=REPO),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 2
-    assert "{serve,train,eval,viz,pack_records}" in proc.stderr
+    assert "{serve,router,train,eval,viz,dexined,pack_records}" in proc.stderr
 
 
 def test_viz_cli_matches_flow_to_image_and_jax(tmp_path, capsys):

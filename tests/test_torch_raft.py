@@ -192,9 +192,9 @@ def test_resolve_corr_impl():
 
 def test_package_imports_no_jax():
     """The port's package, model, engine, kernel, bridge, splat, session,
-    video, scheduler, server, trainer, data, records, native decode, eval,
-    resilience and CLI modules, and the lock-registry fixture of its
-    tests, load neither
+    video, scheduler, server, router, trainer, data, records, native
+    decode, eval, resilience, DexiNed workload and CLI modules, and the
+    lock-registry fixture of its tests, load neither
     jax/flax/optax/orbax nor any dexiraft_tpu module, nor an image library
     (PIL, cv2, imageio: the port decodes PNG itself) (a subprocess: this
     test process has jax loaded by conftest)."""
@@ -241,6 +241,10 @@ def test_package_imports_no_jax():
         "import dexiraft_tpu_torch.resilience.stream\n"
         "import dexiraft_tpu_torch.resilience.chaos\n"
         "import dexiraft_tpu_torch.resilience.verify\n"
+        "import dexiraft_tpu_torch.serve.router, dexiraft_tpu_torch.router_cli\n"
+        "import dexiraft_tpu_torch.dexined, dexiraft_tpu_torch.dexined.data\n"
+        "import dexiraft_tpu_torch.dexined.metrics\n"
+        "import dexiraft_tpu_torch.dexined_cli\n"
         "sys.path.insert(0, 'tests')\n"
         "import test_torch_lock_registry\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

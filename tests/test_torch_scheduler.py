@@ -10,10 +10,14 @@ engine's accounting (in-flight window, searched signatures, carry bytes)
 is pinned on stubs.
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
 
+import dexiraft_tpu.serve.engine as j_engine_mod
+import dexiraft_tpu_torch.serve.engine as t_engine_mod
 from dexiraft_tpu.serve import InferenceEngine as JEngine
 from dexiraft_tpu.serve import QueueFull as JQueueFull
 from dexiraft_tpu.serve import Scheduler as JScheduler
@@ -101,8 +105,14 @@ TRACE = (
 )
 
 
-def _run_trace(sched_cls, engine_cls, config_cls, queue_full, adaptive):
+def _run_trace(sched_cls, engine_cls, config_cls, queue_full, adaptive,
+               engine_mod, monkeypatch):
     clock, log = FakeClock(), []
+    # the engine times its dispatches (compile_s, which the scheduler
+    # subtracts from its service estimates) with time.perf_counter: read
+    # the trace's clock there too, so no real seconds reach the decisions
+    monkeypatch.setattr(engine_mod, "time",
+                        types.SimpleNamespace(perf_counter=clock))
     engine = engine_cls(_stub(clock, log, adaptive),
                         config_cls(batch_size=4, adaptive=adaptive))
     s = sched_cls(engine, slo_ms=200.0, max_queue=6, adaptive=adaptive,
@@ -134,18 +144,18 @@ def _run_trace(sched_cls, engine_cls, config_cls, queue_full, adaptive):
 
 
 @pytest.mark.parametrize("adaptive", [False, True])
-def test_scheduler_decisions_equal_jax(adaptive):
+def test_scheduler_decisions_equal_jax(adaptive, monkeypatch):
     j_dec, j_rec, j_est = _run_trace(JScheduler, JEngine, JConfig,
-                                     JQueueFull, adaptive)
+                                     JQueueFull, adaptive, j_engine_mod,
+                                     monkeypatch)
     t_dec, t_rec, t_est = _run_trace(Scheduler, InferenceEngine, ServeConfig,
-                                     QueueFull, adaptive)
+                                     QueueFull, adaptive, t_engine_mod,
+                                     monkeypatch)
     assert t_dec == j_dec
     assert t_rec == j_rec
-    # the learned estimates differ only by the first dispatches' real
-    # (not fake-clock) seconds the EWMA leaves out
-    assert set(t_est) == set(j_est)
-    for k in j_est:
-        assert abs(t_est[k] - j_est[k]) < 1.0, k
+    # both engines and schedulers read the one fake clock: the learned
+    # estimates are the same arithmetic on the same seconds
+    assert t_est == j_est
     polls = [d for d in t_dec if d[0] == "poll" and d[1]]
     assert {tuple(d[2]) for d in polls} == {("dispatch_full",),
                                             ("dispatch_slo",),

@@ -36,6 +36,7 @@ from dexiraft_tpu_torch import serve_cli
 from dexiraft_tpu_torch.config import VARIANTS
 from dexiraft_tpu_torch.interop.jax_weights import raft_state_dict_from_jax
 from dexiraft_tpu_torch.models.raft import RAFT
+from dexiraft_tpu_torch.ops import corr_kernels
 from dexiraft_tpu_torch.serve import (FlowService, InferenceEngine,
                                       ServeConfig)
 from dexiraft_tpu_torch.serve.server import (decode_response,
@@ -55,7 +56,7 @@ ENGINE_DIFF = {  # the first dispatch of a signature runs cuDNN's search
     "compiled": "searched"}
 LOCKS_DIFF = {"cycles"}  # every port lock is ranked: no graph to search
 # the device memory the process holds (None off the card)
-SERVICE_DIFF = {"device_memory_reserved_bytes"}
+SERVICE_DIFF = {"device_memory_reserved_bytes", "kernel_launches"}
 
 
 def _stub_eval(im1, im2, flow_init=None):
@@ -158,6 +159,8 @@ def test_healthz_and_stats_keys_equal_jax_but_listed_differences(service):
     assert set(stats) == set(j_stats)
     assert set(stats["service"]) == set(j_stats["service"]) | SERVICE_DIFF
     assert stats["service"]["device_memory_reserved_bytes"] is None
+    assert set(stats["service"]["kernel_launches"]) == set(
+        corr_kernels.KERNEL_LIBRARY_OF)
     for block in ("scheduler", "sessions"):
         assert set(stats[block]) == set(j_stats[block]), block
     assert stats["video"] is None and j_stats["video"] is None
