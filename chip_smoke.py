@@ -64,6 +64,14 @@ Phases, one JSON line each:
               (PyTorch's default flags) and off, and with the step's
               default, against the TF32-off plain-lookup path, <= 1e-2 px
               for the default; the global flags as they were
+  mixed       mixed precision (bf16 over fp32 weights, B1 in fp32): v1's
+              and v5's flash fused paths at 440x1024, B=1, 32 iterations
+              through make_eval_step, fp32 and bf16: ms per forward
+              (median of 5 after 2), B1 32 a forward; the bf16 flow_low's
+              relative L2 and max px from the fp32 forward's, within 1.5x
+              JAX's own bf16 error at these weights; B1's bf16 forward no
+              farther from the fp32 plain-lookup forward than 1.5x the
+              plain-lookup bf16 forward is
   variants    v2, v3 and v4 at batch 1 in the Sintel bucket (v2/v3 with
               seeded uint8 edge frames): B1's path against the plain path
               on the same weights, <= 1e-2 px, ITERS B1 launches, ms
@@ -109,7 +117,9 @@ Phases, one JSON line each:
               eval phase's weights> --dataset sintel --submission sintel
               --warm_start in a child: its EPEs equal the in-process
               per-image run's within 1e-3 px; then viz over that
-              submission: each PNG decodes to flow_to_image of its .flo
+              submission: each PNG decodes to flow_to_image of its .flo;
+              then eval --mixed_precision --dataset sintel in a child:
+              its EPEs within the argued bf16 bound of the fp32 child's
   train       the train step at the chairs preset's geometry (368x496,
               12 iterations, fp32, seed-0 weights, a random batch): v1 on
               allpairs and on B1 at batch 10, v5 on B1 at the largest
@@ -120,6 +130,15 @@ Phases, one JSON line each:
               (fused_reference); each B1 step against the corr_impl=
               "local" step on the same weights and batch: loss within
               1e-4 relative, flattened gradient within 1e-3 relative L2
+  train_precision_remat  v5 on B1 at the train phase's geometry, batch
+              and seed-0 weights: precision bf16, remat per_iter and
+              dots_saveable (fp32): ms per step (median of 3 after 1),
+              peak allocated memory, B1 launches per step (12 in bf16,
+              24 under remat: the backward re-runs B1); each remat step's
+              loss and gradients against the no-remat step (1e-4, 1e-3
+              relative L2), the bf16 step's against the fp32 step within
+              1.5x JAX's own bf16 error; v1 on allpairs with remat_lookup:
+              its peak beside the no-remat step's, the same equality
   train_demo  RAFT-small v1 on B1, 192x256, batch 4, 12 iterations, 200
               steps on exact-GT warped-texture pairs: mean EPE of the
               last 25 steps <= 0.5x the first 25; 2400 B1 launches
@@ -179,10 +198,11 @@ Phases, one JSON line each:
               pallas fused, v5 pallas lookup and v5 flash fused (the main
               path, B1 on the model's coords)
 Then the {"kernels": [...]} line (each entry with its launches on the
-slices' paths, the service's, the eval phase's and the router phase's
-for B1 as serve_launches, eval_launches and router_launches, the train
-and records phases' counted steps as train_launches, and the dexined
-phase's as dexined_launches), the nvidia-smi line, and last
+slices' paths, the service's, the eval phase's, the router phase's and
+the mixed phase's for B1 as serve_launches, eval_launches,
+router_launches and mixed_launches, the train, train_precision_remat and
+records phases' counted steps as train_launches, and the dexined phase's
+as dexined_launches), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed phase exits non-zero.
 """
 
@@ -236,9 +256,9 @@ B3_KERNEL = "pallas_tile"  # B3's and B4's
 # the slice's requests: ((H, W), horizontal shift in px)
 PAIRS = (((436, 1024), 3), ((436, 1024), -5), ((375, 1242), 4),
          ((375, 1242), 2))
-# CUDA-event timings per forward of the times and adaptive phases (few:
-# the whole smoke stays inside its time limit)
-FORWARD_REPS = 5
+# CUDA-event timings per forward of the times, adaptive, variants and
+# video phases (few: the whole smoke stays inside its time limit)
+FORWARD_REPS = 3
 SINTEL_BUCKET = (440, 1024)
 
 
@@ -806,6 +826,115 @@ def phase_tf32(torch, dev, model_name, model, batch) -> dict:
     return rec
 
 
+# mixed precision: the argued factor (tests/test_torch_mixed_precision_
+# model.py) and JAX's own bf16 error of flow_low / flow_up (relative L2 from
+# its fp32 forward) at this smoke's seed-0 weights, 32 iterations, on
+# frame_pairs-like scenes at 128x256, the largest of seeds 0-2 (a CPU run:
+# python tests/test_torch_bf16_readings.py card_forward)
+MIXED_A = 1.5
+E_J_FLOW = {"v1": (6.48e-3, 2.90e-3), "v5": (1.40e-2, 1.16e-2)}
+MIXED_REPS, MIXED_WARMUP = 5, 2
+
+
+def rel_l2(a, b) -> float:
+    return float((a - b).norm() / b.norm())
+
+
+def phase_mixed(torch, ck, dev, card, models, batches) -> dict:
+    """v1's and v5's flash fused paths in fp32 (``models``, the slices'
+    seeded models) and in mixed precision (the same weights), B=1 on the
+    first Sintel pair of ``batches``, through make_eval_step: ms per
+    forward, B1's launches over the timed bf16 forwards (counts set to 0
+    before them), the bf16 flow's distance from the fp32 flow, and B1's
+    bf16 forward against the plain-lookup model's in fp32 and bf16."""
+    import dataclasses
+
+    from dexiraft_tpu_torch.models.raft import RAFT
+    from dexiraft_tpu_torch.train.step import make_eval_step
+
+    out = {"launches": 0}
+    for name in ("v1", "v5"):
+        fp32 = models[name]["fused" if name == "v1" else "flash_fused"]
+        sd = fp32.state_dict()
+
+        def sibling(**kw):
+            m = RAFT(dataclasses.replace(fp32.cfg, **kw))
+            m.load_state_dict(sd, strict=True)
+            return m.to(dev).eval()
+
+        paths = {"fp32": fp32, "bf16": sibling(mixed_precision=True),
+                 "plain_fp32": sibling(corr_impl="local",
+                                       fused_update=False),
+                 "plain_bf16": sibling(corr_impl="local", fused_update=False,
+                                       mixed_precision=True)}
+        im1, im2 = batches[name][0][:1], batches[name][1][:1]
+        flows, times, launches = {}, {}, {}
+        for path, model in paths.items():
+            step = make_eval_step(model, ITERS, dev)
+            ck.reset_launches()
+            flows[path] = step(im1, im2)  # the first call searches cuDNN
+            torch.cuda.synchronize()
+            launches[path] = dict(ck.LAUNCHES)
+            if path in ("fp32", "bf16"):
+                ck.reset_launches()
+                times[path] = timed_ms(torch, lambda: step(im1, im2),
+                                       reps=MIXED_REPS, warmup=MIXED_WARMUP)
+                torch.cuda.synchronize()
+                if path == "bf16":
+                    launches["bf16_timed"] = dict(ck.LAUNCHES)
+        low = {p: f[0] for p, f in flows.items()}
+        up = {p: f[1] for p, f in flows.items()}
+        e_low, e_up = E_J_FLOW[name]
+        rel = rel_l2(low["bf16"], low["fp32"])
+        d_b1 = rel_l2(low["bf16"], low["plain_fp32"])
+        d_plain = rel_l2(low["plain_bf16"], low["plain_fp32"])
+        timed = (MIXED_REPS + MIXED_WARMUP) * ITERS
+        b1 = launches["bf16_timed"]["flash_fused_step"]
+        rec = {"phase": "mixed", "card": card, "model": name,
+               "path": "flash_fused", "batch": 1, "size": list(SINTEL_BUCKET),
+               "iters": ITERS, "ms_per_forward": times,
+               "bf16_speedup": times["fp32"]["median"]
+               / times["bf16"]["median"],
+               "flow_low_rel_l2": rel,
+               "flow_low_max_px": float((low["bf16"] - low["fp32"]).abs()
+                                        .max()),
+               "flow_up_rel_l2": rel_l2(up["bf16"], up["fp32"]),
+               "flow_up_max_px": float((up["bf16"] - up["fp32"]).abs().max()),
+               "flow_up_rms_px": float(up["fp32"].double().square().sum(-1)
+                                       .mean().sqrt()),
+               "flow_up_mean_endpoint_px": float(
+                   (up["bf16"] - up["fp32"]).double().square().sum(-1)
+                   .sqrt().mean()),
+               "bound_rel_l2": MIXED_A * e_low, "e_j_flow_low": e_low,
+               "b1_bf16_vs_plain_fp32": d_b1,
+               "plain_bf16_vs_plain_fp32": d_plain,
+               "b1_launches_timed": b1, "b1_expected": timed,
+               "launches_first_call": launches}
+        emit(rec)
+        stray = {k: v for p in ("bf16", "fp32", "bf16_timed")
+                 for k, v in launches[p].items()
+                 if k != "flash_fused_step" and v}
+        plain_b1 = launches["plain_bf16"]["flash_fused_step"] + launches[
+            "plain_fp32"]["flash_fused_step"]
+        if (b1 != timed or launches["bf16"]["flash_fused_step"] != ITERS
+                or stray or plain_b1):
+            raise AssertionError(f"mixed {name}: launches {launches}")
+        if not all(bool(torch.isfinite(f).all()) for f in low.values()):
+            raise AssertionError(f"mixed {name}: non-finite flow")
+        if not (0 < rel <= MIXED_A * e_low):
+            raise AssertionError(f"mixed {name}: bf16 flow_low {rel} from "
+                                 f"fp32, bound {MIXED_A * e_low}")
+        if not d_b1 <= MIXED_A * d_plain:
+            raise AssertionError(f"mixed {name}: B1 bf16 {d_b1} from fp32, "
+                                 f"plain bf16 {d_plain}")
+        out[name] = rec
+        out["launches"] += b1 + launches["bf16"]["flash_fused_step"] + \
+            launches["fp32"]["flash_fused_step"]
+        del paths
+        torch.cuda.empty_cache()
+    return out
+
+
 def sintel_frames(seed, n, shift=3, edges=False):
     """``n`` chained Sintel-shaped frames (436x1024): a smooth random scene
     moved ``shift`` px to the right per frame, plus noise. With ``edges``,
@@ -948,7 +1077,8 @@ def phase_variants(torch, ck, dev) -> dict:
         xe = {k: torch.from_numpy(v).to(dev).permute(0, 3, 1, 2)
               for k, v in kw.items()}
         with torch.inference_mode(), eval_arithmetic(False):
-            ms = timed_ms(torch, lambda: flash(x1, x2, iters=ITERS, **xe))
+            ms = timed_ms(torch, lambda: flash(x1, x2, iters=ITERS, **xe),
+                          reps=FORWARD_REPS)
         rec = {"phase": "variants", "variant": name, "batch": 1,
                "bucket": list(SINTEL_BUCKET), "iters": ITERS, "tf32": False,
                "launches": launches,
@@ -1186,10 +1316,12 @@ def phase_video(torch, ck, dev) -> dict:
     x = pad_batch(pad, frames[:1])
     with torch.inference_mode():
         feats = encode(x)
-        rec["encode_ms"] = timed_ms(torch, lambda: encode(x))
+        rec["encode_ms"] = timed_ms(torch, lambda: encode(x),
+                                    reps=FORWARD_REPS)
         zeros = torch.zeros(1, SINTEL_BUCKET[0] // 8, SINTEL_BUCKET[1] // 8,
                             2, device=dev)
-        rec["refine_ms"] = timed_ms(torch, lambda: refine(feats, feats, zeros))
+        rec["refine_ms"] = timed_ms(torch, lambda: refine(feats, feats, zeros),
+                                    reps=FORWARD_REPS)
 
     field = torch.zeros(SINTEL_BUCKET[0] // 8, SINTEL_BUCKET[1] // 8, 2)
     field += torch.tensor([1.3, -0.7])  # a uniform shift: no collisions
@@ -1622,16 +1754,19 @@ def profile_train_step(torch, step_fn, state, batch, range_name) -> dict:
     return out
 
 
-def train_case(torch, ck, dev, name, cfg, tc, batch, card) -> dict:
+def train_case(torch, ck, dev, name, cfg, tc, batch, card, b1_per_iter=1,
+               profile=True, phase="train") -> dict:
     """ms per step (median of TRAIN_TIMED after TRAIN_WARMUP, CUDA
-    events), peak allocated memory, B1 launches per step, every step's
-    loss finite and state_finite true, and one profiled step."""
+    events), peak allocated memory, B1 launches per step (``b1_per_iter``
+    an iteration on B1's path: 2 under remat, whose backward re-runs it),
+    every step's loss finite and state_finite true, and one profiled
+    step (``profile``)."""
     from dexiraft_tpu_torch.models.raft import create_model
-    from dexiraft_tpu_torch.train.state import create_state
+    from dexiraft_tpu_torch.train.state import create_state, train_model_config
     from dexiraft_tpu_torch.train.step import make_train_step
 
-    state = create_state(cfg, tc, device=dev,
-                         model=create_model(cfg, seed=0, device=dev))
+    state = create_state(cfg, tc, device=dev, model=create_model(
+        train_model_config(cfg, tc), seed=0, device=dev))
     step_fn = make_train_step(cfg, tc)
     metrics = []
     for _ in range(TRAIN_WARMUP):
@@ -1656,14 +1791,16 @@ def train_case(torch, ck, dev, name, cfg, tc, batch, card) -> dict:
         raise AssertionError(f"train {name}: losses {losses}, state_finite "
                              f"{finite}")
     per_step = {k: v / TRAIN_TIMED for k, v in launches.items() if v}
-    expect = tc.iters if cfg.corr_impl == "flash" and cfg.fused_update else 0
+    expect = (b1_per_iter * tc.iters
+              if cfg.corr_impl == "flash" and cfg.fused_update else 0)
     if per_step.get("flash_fused_step", 0) != expect or any(
             k != "flash_fused_step" for k in per_step):
         raise AssertionError(f"train {name}: launches per step {per_step}, "
                              f"expected {expect} of flash_fused_step only")
-    prof = profile_train_step(torch, step_fn, state, batch,
-                              ck.RECOMPUTE_RANGE)
-    rec = {"phase": "train", "case": name, "card": card,
+    prof = (profile_train_step(torch, step_fn, state, batch,
+                               ck.RECOMPUTE_RANGE) if profile
+            else "not measured (not profiled in this phase)")
+    rec = {"phase": phase, "case": name, "card": card,
            "batch": tc.batch_size, "size": list(TRAIN_SIZE),
            "iters": tc.iters, "ms_per_step": statistics.median(times),
            "ms_per_step_min_max": [min(times), max(times)],
@@ -1766,7 +1903,123 @@ def phase_train(torch, ck, dev, card) -> dict:
     hold_b1_step_against_local(
         torch, ck, dev, "v5", raft_v5, dataclasses.replace(tc, batch_size=2),
         {k: v[:2] for k, v in batch.items()})
-    return {"launches": launches, "records": records, "v5_batch": fitted}
+    return {"launches": launches, "records": records, "v5_batch": fitted,
+            "batch": batch}
+
+
+# the bf16 train step against the fp32 one: MIXED_A x JAX's own bf16 error
+# of v5's train step at this smoke's seed-0 weights (loss as a relative
+# error, floored at 2^-9: read 1.51e-3 and 1.56e-3; the gradients as one
+# vector's relative L2), read at 96x128, batch 2, 12 iterations, on
+# train_batch-like inputs, the larger of seeds 0-1 (a CPU run: python
+# tests/test_torch_bf16_readings.py card_train; the port's own bf16 gradients sat
+# 2.8e-2 to 2.9e-2 from its fp32 ones there)
+E_J_TRAIN = {"loss": 2.0 ** -9, "grad": 1.548e-1}
+
+
+def one_step(torch, ck, dev, cfg, tc, batch, weights):
+    """(loss, flattened gradient, B1 launches, peak allocated bytes) of one
+    step from ``weights`` on ``batch``."""
+    from dexiraft_tpu_torch.models.raft import RAFT
+    from dexiraft_tpu_torch.train.state import create_state, train_model_config
+    from dexiraft_tpu_torch.train.step import make_train_step
+
+    model = RAFT(train_model_config(cfg, tc))
+    model.load_state_dict(weights, strict=True)
+    state = create_state(cfg, tc, device=dev, model=model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ck.reset_launches()
+    _, m = make_train_step(cfg, tc)(state, batch)
+    torch.cuda.synchronize()
+    out = (float(m["loss"]), flat_grads(torch, state.model),
+           ck.LAUNCHES["flash_fused_step"],
+           torch.cuda.max_memory_allocated(dev))
+    del state, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_precision_remat(torch, ck, dev, card, batch) -> dict:
+    """v5 on B1 at the train phase's geometry and batch (10 at 368x496,
+    12 iterations, seed-0 weights): the bf16 step and the two remat
+    policies timed (train_case), then one step of each from the same
+    weights held against the fp32 no-remat step; v1 on allpairs with
+    remat_lookup against its no-remat step, peak memory beside it."""
+    import dataclasses
+
+    from dexiraft_tpu_torch.config import STANDARD_STAGES, raft_v1, raft_v5
+    from dexiraft_tpu_torch.models.raft import create_model
+
+    tc = dataclasses.replace(STANDARD_STAGES[0], iters=12,
+                             batch_size=TRAIN_BATCH)
+    v5 = raft_v5(corr_impl="flash", fused_update=True)
+    cases = {"v5_bf16": (dataclasses.replace(tc, precision="bf16"), 1),
+             "v5_remat_per_iter": (dataclasses.replace(tc, remat="per_iter"),
+                                   2),
+             "v5_remat_dots_saveable": (dataclasses.replace(
+                 tc, remat="dots_saveable"), 2)}
+    launches = {k: 0 for k in ck.LAUNCHES}
+    records = {}
+    for name, (tcase, per_iter) in cases.items():
+        res = train_case(torch, ck, dev, name, v5, tcase, batch, card,
+                         b1_per_iter=per_iter, profile=False,
+                         phase="train_precision_remat")
+        records[name] = res["rec"]
+        for k, v in res["launches"].items():
+            launches[k] += v
+
+    holds = {}
+    weights = create_model(v5, seed=0, device="cpu").state_dict()
+    ref = one_step(torch, ck, dev, v5, tc, batch, weights)
+    steps = {name: one_step(torch, ck, dev, v5, tcase, batch, weights)
+             for name, (tcase, _) in cases.items()}
+    for name, (loss, grad, b1, peak) in steps.items():
+        loss_rel = abs(loss - ref[0]) / abs(ref[0])
+        grad_rel = rel_l2(grad, ref[1])
+        if name == "v5_bf16":
+            tol = (MIXED_A * E_J_TRAIN["loss"], MIXED_A * E_J_TRAIN["grad"])
+        else:
+            tol = (TOL_TRAIN_LOSS_REL, TOL_TRAIN_GRAD_REL_L2)
+        holds[name] = {"loss_rel_diff": loss_rel, "grad_rel_l2": grad_rel,
+                       "tol": list(tol), "b1_launches": b1,
+                       "peak_allocated_gib": peak / 2 ** 30}
+        launches["flash_fused_step"] += b1
+    launches["flash_fused_step"] += ref[2]
+    holds["v5_fp32"] = {"b1_launches": ref[2],
+                        "peak_allocated_gib": ref[3] / 2 ** 30}
+
+    v1 = raft_v1(corr_impl="allpairs")
+    w1 = create_model(v1, seed=0, device="cpu").state_dict()
+    # the no-remat step twice: the peak of a shape's first step holds
+    # cuDNN's search workspaces, which neither measured step may carry
+    one_step(torch, ck, dev, v1, tc, batch, w1)
+    lookup = one_step(torch, ck, dev, dataclasses.replace(
+        v1, remat_lookup=True), tc, batch, w1)
+    plain = one_step(torch, ck, dev, v1, tc, batch, w1)
+    holds["v1_allpairs_remat_lookup"] = {
+        "loss_rel_diff": abs(lookup[0] - plain[0]) / abs(plain[0]),
+        "grad_rel_l2": rel_l2(lookup[1], plain[1]),
+        "tol": [TOL_TRAIN_LOSS_REL, TOL_TRAIN_GRAD_REL_L2],
+        "peak_allocated_gib": lookup[3] / 2 ** 30,
+        "peak_allocated_gib_no_remat": plain[3] / 2 ** 30}
+    rec = {"phase": "train_precision_remat", "card": card,
+           "check": "one step from the same weights and batch against the "
+                    "fp32 no-remat step", "holds": holds}
+    emit(rec)
+    for name, h in holds.items():
+        if "tol" in h and not (h["loss_rel_diff"] <= h["tol"][0]
+                               and h["grad_rel_l2"] <= h["tol"][1]):
+            raise AssertionError(f"train_precision_remat {name}: {h}")
+        want = {"v5_bf16": 12, "v5_fp32": 12}.get(
+            name, 0 if name.startswith("v1") else 24)
+        if h.get("b1_launches", want) != want:
+            raise AssertionError(f"train_precision_remat {name}: B1 "
+                                 f"launched {h['b1_launches']}, not {want}")
+    if holds["v5_bf16"]["grad_rel_l2"] == 0:
+        raise AssertionError("train_precision_remat: the bf16 step equals "
+                             "the fp32 step")
+    return {"launches": launches, "records": records, "holds": holds}
 
 
 # the demo's steps (few: the smoke's time limit; its EPE has fallen to
@@ -2356,7 +2609,7 @@ def _child(args, env, timeout=420):
     return proc.stdout
 
 
-def phase_eval_cli(torch, card, root, ev) -> dict:
+def phase_eval_cli(torch, card, root, ev, mixed_rms_px) -> dict:
     """python -m dexiraft_tpu_torch eval --variant v5 --model <phase
     eval's seed-0 weights as a state-dict file> --dataset sintel
     --submission sintel --warm_start in a child process (corr_impl auto:
@@ -2393,7 +2646,23 @@ def phase_eval_cli(torch, card, root, ev) -> dict:
                   for f in fs if f.endswith(".flo"))
     pngs_equal = [np.array_equal(read_png(f[:-4] + ".png"),
                                  flow_to_image(read_flo(f))) for f in flos]
+    # the same evaluation in mixed precision (no submission): each EPE
+    # within the argued bound of the fp32 child's, |dEPE| <= the mean
+    # endpoint distance of the two flows <= their RMS distance, taken as
+    # MIXED_A x JAX's bf16 error x the RMS of v5's fp32 flow_up (phase
+    # mixed, the same weights at the same geometry), plus the rounding
+    t0 = time.perf_counter()
+    mixed_out = _child(["eval", "--variant", "v5", "--model", weights,
+                        "--dataset", "sintel", "--mixed_precision"], env)
+    mixed_s = time.perf_counter() - t0
+    mixed_epe = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"Validation \((\w+)\) EPE: ([\d.]+)", mixed_out)}
+    mixed_bound = (MIXED_A * E_J_FLOW["v5"][1] * mixed_rms_px + 1e-3)
+    mixed_diff = {k: abs(mixed_epe.get(k, np.inf) - printed.get(k, np.inf))
+                  for k in ("clean", "final")}
     rec = {"phase": "eval_cli", "card": card, "printed_epe": printed,
+           "mixed_precision_epe": mixed_epe, "mixed_epe_diff": mixed_diff,
+           "mixed_epe_bound": mixed_bound, "mixed_seconds": mixed_s,
            "in_process_epe": {k: want[k] for k in ("clean", "final")},
            "epe_diff_px": diff, "auto_resolved": "[eval] corr_impl auto -> "
            "flash + fused_update" in out,
@@ -2402,7 +2671,8 @@ def phase_eval_cli(torch, card, root, ev) -> dict:
     emit(rec)
     # the printed EPE is rounded to 3 decimals
     if (max(diff.values()) > TOL_EVAL_PATHS_PX + 5e-4 or len(flos) != 8
-            or not all(pngs_equal) or not rec["auto_resolved"]):
+            or not all(pngs_equal) or not rec["auto_resolved"]
+            or not max(mixed_diff.values()) <= mixed_bound):
         raise AssertionError(f"eval_cli: {rec}")
     return rec
 
@@ -2544,7 +2814,7 @@ def phase_times(torch, ck, gen, dev, v1_models, v5_models, card):
                               ("v5_", v5_models["flash_fused"])):
             path = "fused" if not prefix else "flash_fused"
             rec[f"{prefix}forward_ms_{bh}x{bw}_{path}_eval_step"] = timed_ms(
-                torch, lambda: model(x1, x2, iters=ITERS))
+                torch, lambda: model(x1, x2, iters=ITERS), reps=FORWARD_REPS)
     # v5's prelude: DexiNed on both frames, and everything but the loop
     # (iters=0: DexiNed, the four encoders, the pyramid, the upsampling)
     v5 = v5_models["pallas_fused"]
@@ -2554,9 +2824,9 @@ def phase_times(torch, ck, gen, dev, v1_models, v5_models, card):
         key = "tf32_default" if tf32 else "tf32_off"
         with torch.inference_mode():
             rec[f"v5_dexined_ms_{bh}x{bw}_{key}"] = cuda_time_ms(
-                lambda: v5.dexined(both))
+                lambda: v5.dexined(both), reps=FORWARD_REPS)
             rec[f"v5_prelude_ms_{bh}x{bw}_{key}"] = cuda_time_ms(
-                lambda: v5(x1, x2, iters=0))
+                lambda: v5(x1, x2, iters=0), reps=FORWARD_REPS)
     rec["profile_v1_fused_tf32_default"] = profile_forward(
         torch, lambda: v1_models["fused"](x1, x2, iters=ITERS), B1_KERNEL)
     rec["profile_v5_pallas_fused_tf32_default"] = profile_forward(
@@ -3091,10 +3361,6 @@ def write_biped_tree(root, seed=0):
     return dirs
 
 
-def rel_l2(a, b) -> float:
-    return float((a - b).norm() / b.norm())
-
-
 def phase_dexined(torch, ck, dev, card) -> dict:
     """The standalone DexiNed workload on a synthetic BIPED tree (8
     training and 4 test images of 720x1280, written from a seed).
@@ -3372,6 +3638,10 @@ def main(argv=None) -> int:
     # the eval step's own arithmetic, on each model's main path
     phase_tf32(torch, dev, "v1", v1_models["fused"], v1_batch)
     phase_tf32(torch, dev, "v5", v5_models["flash_fused"], v5_batch)
+    # mixed precision on the main paths
+    mixed = phase_mixed(torch, ck, dev, smi,
+                        {"v1": v1_models, "v5": v5_models},
+                        {"v1": v1_batch, "v5": v5_batch})
     # the rest of the model family, the adaptive loop and the streaming
     # engine, each on B1, the production kernel
     phase_variants(torch, ck, dev)
@@ -3387,7 +3657,8 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as root:
         try:
             ev = phase_eval(torch, ck, dev, smi, root)
-            phase_eval_cli(torch, smi, root, ev)
+            phase_eval_cli(torch, smi, root, ev,
+                           mixed["v5"]["flow_up_rms_px"])
         finally:
             if data_dir is None:
                 os.environ.pop("DEXIRAFT_DATA_DIR", None)
@@ -3396,6 +3667,9 @@ def main(argv=None) -> int:
     # training: the train step at the chairs geometry, the demo that
     # learns, and the CLI with --resume, each through B1 where fused
     train = phase_train(torch, ck, dev, smi)
+    # bf16 and remat on the same step (A2, A10)
+    precision_remat = phase_train_precision_remat(torch, ck, dev, smi,
+                                                  train.pop("batch"))
     demo = phase_train_demo(torch, ck, dev, smi)
     tcli = phase_train_cli(torch, smi)
     # the packed-record plane, the native bridge and the trainer's
@@ -3432,8 +3706,11 @@ def main(argv=None) -> int:
     kernels[0]["eval_launches"] = ev["b1_launches_total"]
     # the router phase's replicas, as they counted them
     kernels[0]["router_launches"] = router["launches"]["flash_fused_step"]
+    # the mixed phase's forwards
+    kernels[0]["mixed_launches"] = mixed["launches"]
     for entry in kernels:
         entry["train_launches"] = (train["launches"][entry["name"]]
+                                   + precision_remat["launches"][entry["name"]]
                                    + demo["launches"][entry["name"]]
                                    + recs["launches"][entry["name"]])
         entry["dexined_launches"] = dexined["launches"][entry["name"]]

@@ -5,10 +5,11 @@ Counterpart of ``dexiraft_tpu/config.py``: the same frozen ``RAFTConfig``
 constructors and the CLI vocabularies. This package keeps its own copy so
 that it never imports the JAX package.
 
-Fields the port does not implement yet (remat, mixed precision, scan
-unrolling) are accepted at their defaults and refused with a clear error
-otherwise. Both DexiNed upsampler forms are accepted: they are one linear
-map with one parameter tree (models/dexined.py).
+``scan_unroll``, an XLA scan knob with nothing to unroll in an eager
+loop, is accepted at its default only. Mixed precision and the three
+remat fields run as in JAX (models/raft.py, models/layers.py). Both
+DexiNed upsampler forms are accepted: they are one linear map with one
+parameter tree (models/dexined.py).
 """
 
 from __future__ import annotations
@@ -65,22 +66,6 @@ def resolve_corr_impl_args(args, platform: str, label: str) -> Tuple[str, bool]:
     return impl, fused
 
 
-# fields that exist for parity with the JAX config but that the port does
-# not implement yet: name -> the only value accepted
-_UNPORTED_DEFAULTS = {
-    "mixed_precision": False,
-    "remat": False,
-    "remat_policy": "full",
-    "remat_lookup": False,
-    "scan_unroll": 1,
-}
-# the ROADMAP item that ports each of them
-_UNPORTED_ITEMS = {
-    "mixed_precision": "A2",
-    "remat": "A10",
-    "remat_policy": "A10",
-    "remat_lookup": "A10",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,6 +90,8 @@ class RAFTConfig:
     corr_levels: int = 4
     corr_radius: Optional[int] = None  # None -> 4 full / 3 small
     dropout: float = 0.0
+    # bf16 encoders, DexiNed and update block over fp32 parameters; the
+    # correlation (pyramid, lookup, B1) stays fp32
     mixed_precision: bool = False
     corr_impl: str = "allpairs"
     # STORAGE precision of the fmap2 pyramid the lookup reads
@@ -114,8 +101,11 @@ class RAFTConfig:
     # query rows per chunk of the plain lookup (bounds its transient
     # correlation block; None = whole frame at once)
     corr_row_chunk: Optional[int] = 8
+    # recompute each refinement iteration in the backward; the policy
+    # "dots_saveable" keeps the conv and matmul outputs
     remat: bool = False
     remat_policy: str = "full"
+    # recompute only the lookup (unfused paths, without remat)
     remat_lookup: bool = False
     dexined_upconv: str = "subpixel"
     scan_unroll: int = 1
@@ -150,14 +140,11 @@ class RAFTConfig:
             raise ValueError(
                 f"converge_tol must be >= 0 (a flow-delta NORM threshold; "
                 f"0 disables the gate), got {self.converge_tol}")
-        for name, default in _UNPORTED_DEFAULTS.items():
-            if getattr(self, name) != default:
-                item = _UNPORTED_ITEMS.get(name)
-                raise ValueError(
-                    f"{name}={getattr(self, name)!r} is not supported by the "
-                    f"PyTorch port yet (only {default!r}"
-                    + (f"; ROADMAP {item}" if item else "")
-                    + "); use the JAX package (dexiraft_tpu) for it")
+        if self.scan_unroll != 1:
+            raise ValueError(
+                f"scan_unroll={self.scan_unroll!r} is not supported by the "
+                "PyTorch port (only 1: its loop is eager); use the JAX "
+                "package (dexiraft_tpu) for it")
 
     @property
     def radius(self) -> int:
@@ -239,7 +226,8 @@ class TrainConfig:
     gamma: float = 0.8
     iters: int = 12
     add_noise: bool = False
-    # "fp32"; "bf16" is refused by train/step.py (ROADMAP A2)
+    # "fp32" | "bf16"; bf16 runs the model in mixed precision (the
+    # parameters, loss, optimizer and BatchNorm stats stay fp32)
     precision: str = "fp32"
     # microbatches per step: the batch's leading dim is accum_steps * micro
     accum_steps: int = 1
@@ -247,7 +235,8 @@ class TrainConfig:
     # v1-lineage fusion: the same model on the image pair and on the edge
     # pair, per-iteration flows summed before the loss
     edge_sum_fusion: bool = False
-    # "none"; "per_iter" / "dots_saveable" are refused (ROADMAP A10)
+    # "none" | "per_iter" | "dots_saveable": the model's remat and its
+    # policy ("full" for per_iter)
     remat: str = "none"
     freeze_bn: bool = False  # true for every post-chairs stage
     val_freq: int = 5000

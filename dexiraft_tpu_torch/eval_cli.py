@@ -15,9 +15,10 @@ directory of the port's trainer, loaded with strict=True. The device is
 ``cuda`` unless ``--device cpu`` is given; without a card the CLI exits
 naming it. ``--corr_impl auto`` is the fused B1 kernel on the card.
 
-Refused, each naming the ROADMAP item that ports it:
-``--mixed_precision`` (A2), ``--data_parallel`` > 0 (A12), ``--strict``
-(A13), an orbax ``--model`` directory (A10). PyTorch runs eagerly, so
+``--mixed_precision`` runs the model in bf16 over its fp32 weights, as
+the JAX CLI's flag does. Refused, each naming the ROADMAP item that
+ports it: ``--data_parallel`` > 0 (A12), ``--strict`` (A13), an orbax
+``--model`` directory (A10). PyTorch runs eagerly, so
 ``--scan_unroll`` changes nothing and only says so. v2/v3 take their edge
 frames from the data, which the validators never pass: they fail with the
 model's ValueError, as in the JAX package.
@@ -62,7 +63,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--variant", default="v1", choices=sorted(VARIANTS))
     p.add_argument("--small", action="store_true")
     p.add_argument("--mixed_precision", action="store_true",
-                   help="refused: ROADMAP A2")
+                   help="bf16 encoders, DexiNed and update block (the "
+                        "correlation stays fp32)")
     p.add_argument("--corr_impl", default="auto",
                    choices=["auto", "allpairs", "local", "pallas", "flash"],
                    help="'auto' (default) = the fused flash kernel (B1) on "
@@ -118,7 +120,6 @@ def build_parser() -> argparse.ArgumentParser:
 def refuse_unported(args) -> None:
     """Exit naming the ROADMAP item of the first flag the port lacks."""
     refused = (
-        (args.mixed_precision, "--mixed_precision", "A2"),
         (args.data_parallel > 0, "--data_parallel", "A12"),
         (args.strict, "--strict", "A13"),
     )
@@ -138,6 +139,7 @@ def load_model(args, dev):
     impl, fused = resolve_corr_impl_args(args, dev.type, "eval")
     try:
         cfg = VARIANTS[args.variant](small=args.small,
+                                     mixed_precision=args.mixed_precision,
                                      corr_impl=impl,
                                      corr_dtype=args.corr_dtype,
                                      fused_update=fused,

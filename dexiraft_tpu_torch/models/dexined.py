@@ -39,7 +39,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dexiraft_tpu_torch.models.layers import (DEXINED_ROOT, BatchNorm2d,
-                                              seeded_init_)
+                                              Conv2d, ConvTranspose2d,
+                                              GroupNorm, seeded_init_)
 
 # torch ConvTranspose2d paddings per up_scale: output (in-1)*2 - 2p + k = 2*in
 _UPCONV_PAD = {1: 0, 2: 1, 3: 3, 4: 7}
@@ -68,10 +69,10 @@ class DoubleConvBlock(nn.Module):
         super().__init__()
         out_features = out_features or mid_features
         self.use_act = use_act
-        self.conv1 = nn.Conv2d(in_features, mid_features, 3, padding=1,
-                               stride=stride)
+        self.conv1 = Conv2d(in_features, mid_features, 3, padding=1,
+                            stride=stride)
         self.bn1 = _bn(mid_features)
-        self.conv2 = nn.Conv2d(mid_features, out_features, 3, padding=1)
+        self.conv2 = Conv2d(mid_features, out_features, 3, padding=1)
         self.bn2 = _bn(out_features)
 
     def forward(self, x):
@@ -87,7 +88,7 @@ class SingleConvBlock(nn.Module):
                  use_bn: bool = True):
         super().__init__()
         self.use_bn = use_bn
-        self.conv = nn.Conv2d(in_features, out_features, 1, stride=stride)
+        self.conv = Conv2d(in_features, out_features, 1, stride=stride)
         self.bn = _bn(out_features)
 
     def forward(self, x):
@@ -101,9 +102,9 @@ class DenseLayer(nn.Module):
 
     def __init__(self, in_features: int, out_features: int):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_features, out_features, 3, padding=2)
+        self.conv1 = Conv2d(in_features, out_features, 3, padding=2)
         self.norm1 = _bn(out_features)
-        self.conv2 = nn.Conv2d(out_features, out_features, 3)
+        self.conv2 = Conv2d(out_features, out_features, 3)
         self.norm2 = _bn(out_features)
 
     def forward(self, x1, x2):
@@ -140,10 +141,10 @@ class UpConvBlock(nn.Module):
         layers: List[nn.Module] = []
         for i in range(up_scale):
             out_features = 1 if i == up_scale - 1 else 16
-            layers += [nn.Conv2d(in_features, out_features, 1),
+            layers += [Conv2d(in_features, out_features, 1),
                        nn.ReLU(inplace=True),
-                       nn.ConvTranspose2d(out_features, out_features, k,
-                                          stride=2, padding=pad)]
+                       ConvTranspose2d(out_features, out_features, k,
+                                       stride=2, padding=pad)]
             in_features = out_features
         self.features = nn.Sequential(*layers)
 
@@ -161,12 +162,12 @@ class CoFusion(nn.Module):
 
     def __init__(self, in_features: int):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_features, 64, 3, padding=1)
-        self.conv2 = nn.Conv2d(64, 64, 3, padding=1)
-        self.conv3 = nn.Conv2d(64, in_features, 3, padding=1)
+        self.conv1 = Conv2d(in_features, 64, 3, padding=1)
+        self.conv2 = Conv2d(64, 64, 3, padding=1)
+        self.conv3 = Conv2d(64, in_features, 3, padding=1)
         # flax GroupNorm's epsilon (torch's default is 1e-5)
-        self.norm_layer1 = nn.GroupNorm(4, 64, eps=1e-6)
-        self.norm_layer2 = nn.GroupNorm(4, 64, eps=1e-6)
+        self.norm_layer1 = GroupNorm(4, 64, eps=1e-6)
+        self.norm_layer2 = GroupNorm(4, 64, eps=1e-6)
 
     def forward(self, x):
         attn = F.relu(self.norm_layer1(self.conv1(x)))

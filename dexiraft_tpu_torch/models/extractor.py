@@ -22,7 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from dexiraft_tpu_torch.models.layers import ChannelDropout, make_norm
+from dexiraft_tpu_torch.models.layers import ChannelDropout, Conv2d, make_norm
 
 BASIC_STAGES: Tuple[Tuple[int, int], ...] = ((64, 1), (96, 2), (128, 2))
 SMALL_STAGES: Tuple[Tuple[int, int], ...] = ((32, 1), (64, 2), (96, 2))
@@ -35,15 +35,15 @@ class ResidualBlock(nn.Module):
                  stride: int = 1):
         super().__init__()
         groups = planes // 8
-        self.conv1 = nn.Conv2d(in_planes, planes, 3, padding=1, stride=stride)
-        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1)
+        self.conv1 = Conv2d(in_planes, planes, 3, padding=1, stride=stride)
+        self.conv2 = Conv2d(planes, planes, 3, padding=1)
         self.norm1 = make_norm(norm_fn, groups, planes)
         self.norm2 = make_norm(norm_fn, groups, planes)
         self.downsample = None
         if stride != 1:
             self.norm3 = make_norm(norm_fn, groups, planes)
             self.downsample = nn.Sequential(
-                nn.Conv2d(in_planes, planes, 1, stride=stride), self.norm3)
+                Conv2d(in_planes, planes, 1, stride=stride), self.norm3)
 
     def forward(self, x):
         y = F.relu(self.norm1(self.conv1(x)))
@@ -61,9 +61,9 @@ class BottleneckBlock(nn.Module):
         super().__init__()
         groups = planes // 8
         q = planes // 4
-        self.conv1 = nn.Conv2d(in_planes, q, 1)
-        self.conv2 = nn.Conv2d(q, q, 3, padding=1, stride=stride)
-        self.conv3 = nn.Conv2d(q, planes, 1)
+        self.conv1 = Conv2d(in_planes, q, 1)
+        self.conv2 = Conv2d(q, q, 3, padding=1, stride=stride)
+        self.conv3 = Conv2d(q, planes, 1)
         self.norm1 = make_norm(norm_fn, groups, q)
         self.norm2 = make_norm(norm_fn, groups, q)
         self.norm3 = make_norm(norm_fn, groups, planes)
@@ -71,7 +71,7 @@ class BottleneckBlock(nn.Module):
         if stride != 1:
             self.norm4 = make_norm(norm_fn, groups, planes)
             self.downsample = nn.Sequential(
-                nn.Conv2d(in_planes, planes, 1, stride=stride), self.norm4)
+                Conv2d(in_planes, planes, 1, stride=stride), self.norm4)
 
     def forward(self, x):
         y = F.relu(self.norm1(self.conv1(x)))
@@ -98,7 +98,7 @@ class Encoder(nn.Module):
                  in_channels: int = 3):
         super().__init__()
         block_cls = ResidualBlock if block == "residual" else BottleneckBlock
-        self.conv1 = nn.Conv2d(in_channels, stem_width, 7, stride=2, padding=3)
+        self.conv1 = Conv2d(in_channels, stem_width, 7, stride=2, padding=3)
         self.norm1 = make_norm(norm_fn, 8, stem_width)
         in_planes = stem_width
         for i, (planes, stride) in enumerate(stages, start=1):
@@ -106,7 +106,7 @@ class Encoder(nn.Module):
                                   block_cls(planes, planes, norm_fn, 1))
             setattr(self, f"layer{i}", layer)
             in_planes = planes
-        self.conv2 = nn.Conv2d(in_planes, output_dim, 1)
+        self.conv2 = Conv2d(in_planes, output_dim, 1)
         self.dropout = ChannelDropout(dropout) if dropout > 0 else None
 
     def forward(self, x: Union[torch.Tensor, Sequence[torch.Tensor]]):

@@ -1,4 +1,5 @@
-"""Shared layer helpers: the norm factory and the seeded init.
+"""Shared layer helpers: the compute-dtype layers, the norm factory and
+the seeded init.
 
 Counterpart of ``dexiraft_tpu/models/layers.py``. The reference's four norm
 modes with torch's own hyperparameters: eps 1e-5 everywhere, BatchNorm
@@ -6,6 +7,31 @@ momentum 0.1 (running stats in eval mode), instance norm without affine,
 and "none" as an empty ``nn.Sequential`` (no parameters, as the reference
 registers it). In training mode BatchNorm updates its running stats by
 flax's rule (:class:`BatchNorm2d`).
+
+Mixed precision follows flax's ``dtype=`` attribute, layer by layer. Every
+conv and norm of the model is one of this module's subclasses, whose
+``compute_dtype`` is None (plain fp32, torch's own forward) or the
+compute dtype that :func:`set_compute_dtype` gives the whole model:
+
+  * a conv casts its input, its fp32 weight and its fp32 bias to the
+    compute dtype and returns the compute dtype; the bias is added after
+    the convolution, in the compute dtype, as flax adds it (and as cuDNN's
+    path does). Autograd differentiates the casts, so the gradients reach
+    the fp32 masters as fp32, as flax's per-use cast does;
+  * a norm (BatchNorm, GroupNorm, instance norm) reduces AND normalises in
+    fp32, since flax's ``_compute_stats`` promotes the input to fp32 and
+    ``_normalize`` subtracts an fp32 mean from it, and rounds only its
+    output to the compute dtype; running statistics stay fp32.
+
+Everything between these layers (relu, tanh, the GRU's blend,
+``torch.cat``) runs in whatever dtype its inputs promote to, the rule jnp
+follows too: a bf16 tensor concatenated with an fp32 one gives fp32. The
+GRUs' gates use :func:`sigmoid`, which rounds where jax.nn.sigmoid does.
+
+``torch.autocast`` is not used on purpose: its per-op lists keep group and
+batch norm in fp32 outputs, differ between the CPU and CUDA, and round at
+other places than flax; and it is thread-local state, while the engines
+run the model on ``DeviceThread``s of their own.
 """
 
 from __future__ import annotations
@@ -18,13 +44,49 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 
-class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` whose training-mode running variance follows
-    flax's ``nn.BatchNorm``: the EMA folds in the BIASED batch variance
-    (``torch.nn.BatchNorm2d`` folds the unbiased one, n/(n-1) larger).
-    Normalization and the eval mode are torch's, and so are the state
-    dict's keys."""
+class ComputeDtype:
+    """Mixin of the layers that follow the model's compute dtype (None:
+    torch's own fp32 forward)."""
 
+    compute_dtype: Optional[torch.dtype] = None
+
+
+class Conv2d(ComputeDtype, nn.Conv2d):
+    """``nn.Conv2d`` with flax's ``dtype=`` rule (module docstring)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
+        return y if self.bias is None else y + self.bias.to(dt)[:, None, None]
+
+
+class ConvTranspose2d(ComputeDtype, nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` with flax's ``dtype=`` rule."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        y = F.conv_transpose2d(x.to(dt), self.weight.to(dt), None,
+                               self.stride, self.padding, self.output_padding,
+                               self.groups, self.dilation)
+        return y if self.bias is None else y + self.bias.to(dt)[:, None, None]
+
+
+class _Fp32Norm(ComputeDtype):
+    """A norm that, given a compute dtype, normalises its input's values in
+    fp32 and rounds the output to the compute dtype, as flax does."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        return super().forward(x.to(torch.float32)).to(dt)
+
+
+class _FlaxBatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
@@ -38,11 +100,50 @@ class BatchNorm2d(nn.BatchNorm2d):
                             self.eps)
 
 
+class BatchNorm2d(_Fp32Norm, _FlaxBatchNorm2d):
+    """``nn.BatchNorm2d`` whose training-mode running variance follows
+    flax's ``nn.BatchNorm``: the EMA folds in the BIASED batch variance
+    (``torch.nn.BatchNorm2d`` folds the unbiased one, n/(n-1) larger).
+    Normalization and the eval mode are torch's, and so are the state
+    dict's keys; with a compute dtype the statistics, the running stats
+    and the normalisation are fp32 (module docstring)."""
+
+
+class GroupNorm(_Fp32Norm, nn.GroupNorm):
+    """``nn.GroupNorm`` that follows the compute dtype (module docstring)."""
+
+
+class InstanceNorm2d(_Fp32Norm, nn.InstanceNorm2d):
+    """``nn.InstanceNorm2d`` that follows the compute dtype."""
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """The logistic function with jax.nn.sigmoid's rounding points: in a
+    low-precision dtype jax computes 1 / (1 + exp(-x)) op by op, each op
+    rounded to that dtype (torch.sigmoid rounds once, and differs from it
+    by one bf16 ulp on about a third of the elements); fp32 is
+    torch.sigmoid."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return 1 / (1 + torch.exp(-x))
+
+
+def set_compute_dtype(model: nn.Module, dtype: Optional[torch.dtype]
+                      ) -> nn.Module:
+    """Give every conv and norm of ``model`` the compute dtype ``dtype``
+    (None: fp32, torch's own forward); the parameters stay as they are."""
+    for m in model.modules():
+        if isinstance(m, ComputeDtype):
+            m.compute_dtype = dtype
+    return model
+
+
 class ChannelDropout(nn.Module):
     """Channel dropout (``Dropout2d`` semantics: one draw per (sample,
-    channel), broadcast over H and W, kept values scaled by 1/(1-p)). The
-    masks come from ``generator`` when one is set (the train state's, on
-    the activations' device), else from the global RNG."""
+    channel), broadcast over H and W, kept values divided by 1-p in their
+    own dtype, as flax's ``nn.Dropout`` divides them). The masks come from
+    ``generator`` when one is set (the train state's, on the activations'
+    device), else from the global RNG."""
 
     def __init__(self, p: float):
         super().__init__()
@@ -55,7 +156,7 @@ class ChannelDropout(nn.Module):
         keep = 1.0 - self.p
         u = torch.rand((x.shape[0], x.shape[1], 1, 1), device=x.device,
                        generator=self.generator)
-        return x * ((u < keep).to(x.dtype) / keep)
+        return torch.where(u < keep, x / keep, 0.0)
 
     def extra_repr(self) -> str:
         return f"p={self.p}"
@@ -63,11 +164,11 @@ class ChannelDropout(nn.Module):
 
 def make_norm(norm_fn: str, num_groups: int, planes: int) -> nn.Module:
     if norm_fn == "group":
-        return nn.GroupNorm(num_groups=num_groups, num_channels=planes, eps=1e-5)
+        return GroupNorm(num_groups=num_groups, num_channels=planes, eps=1e-5)
     if norm_fn == "batch":
         return BatchNorm2d(planes, eps=1e-5, momentum=0.1)
     if norm_fn == "instance":
-        return nn.InstanceNorm2d(planes, eps=1e-5, affine=False)
+        return InstanceNorm2d(planes, eps=1e-5, affine=False)
     if norm_fn == "none":
         return nn.Sequential()
     raise ValueError(f"unknown norm_fn: {norm_fn!r}")

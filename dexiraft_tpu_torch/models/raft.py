@@ -45,21 +45,48 @@ BatchNorm uses batch statistics and dropout is on; :meth:`RAFT.freeze_bn`
 puts every BatchNorm in eval while dropout stays on (JAX ``freeze_bn``).
 The embedded DexiNed always runs in eval mode and without gradients, as
 JAX calls it with ``train=False`` under ``stop_gradient``.
+
+``cfg.mixed_precision`` gives every conv and norm of the model, the
+embedded DexiNed's included, the compute dtype bf16 (``layers.
+set_compute_dtype``: flax's ``dtype=`` rule), as JAX's ``RAFT`` passes
+``dtype`` to every submodule. The parameters stay fp32. Where JAX casts
+back to fp32, so does the port: the fmaps (the correlation, its pyramid
+and B1 stay fp32), DexiNed's maps, each iteration's flow delta before it
+moves the fp32 ``coords1``, the flow and mask before the convex upsampling,
+and v3's RefineFlow output. ``ctx``, the GRU state ``net`` it seeds and
+``inp`` stay bf16; so does the zero ``up_mask`` of the carry.
+
+``cfg.remat`` recomputes each refinement iteration (the update block, the
+lookup and, in training, the iteration's upsampling) in the backward
+instead of storing its activations: JAX's ``nn.remat(RAFTStep)``, here
+``torch.utils.checkpoint`` around the iteration. ``remat_policy=
+"dots_saveable"`` keeps the outputs of the convolutions and matmuls and
+recomputes the rest, as ``jax.checkpoint_policies.dots_saveable`` does
+(selective checkpointing). B1 is a kernel launched outside ATen, so the
+policy sees no op of it: the iteration's B1 launch is recomputed in the
+backward under either policy, as the Pallas call is in JAX.
+``cfg.remat_lookup`` (unfused paths, without ``remat``) recomputes only
+the lookup. None of them applies when autograd is off (eval, serve and
+the adaptive loop run as without them).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from dexiraft_tpu_torch.config import PORTED_CORR_IMPLS, RAFTConfig
 from dexiraft_tpu_torch.device import resolve_device
 from dexiraft_tpu_torch.models.dexined import DexiNed, stack_edge_maps
 from dexiraft_tpu_torch.models.extractor import BasicEncoder, SmallEncoder
-from dexiraft_tpu_torch.models.layers import ChannelDropout, seeded_init_
+from dexiraft_tpu_torch.models.layers import (ChannelDropout, seeded_init_,
+                                              set_compute_dtype)
 from dexiraft_tpu_torch.models.update import (BasicUpdateBlock, RefineFlow,
                                               SmallUpdateBlock)
 from dexiraft_tpu_torch.ops.corr import build_corr_pyramid
@@ -81,6 +108,22 @@ PORTED_VARIANTS = (("raft", False), ("early", False), ("separate", False),
 
 # DexiNed's logit maps, v5's edge-encoder input channels
 EDGE_CHANNELS = 7
+
+# the ops whose outputs remat_policy="dots_saveable" keeps: the
+# convolutions and matmuls (jax.checkpoint_policies.dots_saveable keeps
+# conv_general_dilated and dot_general)
+DOT_OPS = frozenset({
+    torch.ops.aten.convolution.default,
+    torch.ops.aten.mm.default,
+    torch.ops.aten.bmm.default,
+    torch.ops.aten.addmm.default,
+    torch.ops.aten.baddbmm.default,
+})
+
+
+def _dots_saveable(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 class RAFT(nn.Module):
@@ -124,6 +167,10 @@ class RAFT(nn.Module):
             self.refine_flow = RefineFlow()
         if cfg.embed_dexined:
             self.dexined = DexiNed()
+        self.compute_dtype = (torch.bfloat16 if cfg.mixed_precision
+                              else torch.float32)
+        if cfg.mixed_precision:
+            set_compute_dtype(self, self.compute_dtype)
 
     # ---- modes -----------------------------------------------------------
 
@@ -164,7 +211,7 @@ class RAFT(nn.Module):
         cfg = self.cfg
         if cfg.embed_dexined:
             with torch.no_grad():
-                return stack_edge_maps(self.dexined(images))
+                return stack_edge_maps(self.dexined(images)).float()
         if cfg.variant in ("early", "separate"):
             if edges is None:
                 raise ValueError(
@@ -186,10 +233,10 @@ class RAFT(nn.Module):
             image, edges, "a data-supplied edge frame in mode='encode'")
         if cfg.variant == "early":
             image, em = torch.cat([image, em], dim=1), None
-        out = {"fmap": self.fnet(image), "ctx": self.cnet(image)}
+        out = {"fmap": self.fnet(image).float(), "ctx": self.cnet(image)}
         if cfg.has_edge_stream:
             efnet, ecnet = self._edge_encoders()
-            out["efmap"] = efnet(em)
+            out["efmap"] = efnet(em).float()
             out["ectx"] = ecnet(em)
         return out
 
@@ -215,11 +262,12 @@ class RAFT(nn.Module):
             image1 = torch.cat([image1, em1], dim=1)
             image2 = torch.cat([image2, em2], dim=1)
         fmap1, fmap2 = self.fnet([image1, image2])
-        f1 = {"fmap": fmap1, "ctx": self.cnet(image1)}
-        f2 = {"fmap": fmap2}
+        f1 = {"fmap": fmap1.float(), "ctx": self.cnet(image1)}
+        f2 = {"fmap": fmap2.float()}
         if cfg.has_edge_stream:
             efnet, ecnet = self._edge_encoders()
-            f1["efmap"], f2["efmap"] = efnet([em1, em2])
+            efmap1, efmap2 = efnet([em1, em2])
+            f1["efmap"], f2["efmap"] = efmap1.float(), efmap2.float()
             f1["ectx"] = ecnet(em1)
         return f1, f2
 
@@ -244,9 +292,14 @@ class RAFT(nn.Module):
             net, mask, delta = self.update_block(net, inp, None, flow,
                                                  pyr=pyr, coords=coords1)
         else:
-            corr = pyr(coords1).permute(0, 3, 1, 2)
+            if cfg.remat_lookup and not cfg.remat and torch.is_grad_enabled():
+                corr = checkpoint(pyr, coords1, use_reentrant=False,
+                                  preserve_rng_state=False)
+            else:
+                corr = pyr(coords1)
+            corr = corr.permute(0, 3, 1, 2)
             net, mask, delta = self.update_block(net, inp, corr, flow)
-        delta = delta.permute(0, 2, 3, 1)
+        delta = delta.float().permute(0, 2, 3, 1)
         if cfg.variant == "dual":  # coupled: edge deltas move the image flow
             coords1 = torch.cat([coords1[:b] + delta[:b] + delta[b:],
                                  coords1[b:] + delta[b:]], dim=0)
@@ -256,9 +309,10 @@ class RAFT(nn.Module):
 
     def _upsample(self, flow: torch.Tensor,
                   mask: Optional[torch.Tensor]) -> torch.Tensor:
+        flow = flow.float()
         if mask is None:  # the small model has no mask head
             return upflow8(flow.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
-        return upsample_flow_convex_nchw(flow, mask)
+        return upsample_flow_convex_nchw(flow, mask.float())
 
     def _predict(self, coords1, coords0, mask, b):
         """(flow_low, flow_up) of the image stream after one iteration; in
@@ -269,8 +323,31 @@ class RAFT(nn.Module):
             eflow = (coords1[b:] - coords0).permute(0, 3, 1, 2)
             flow_up = self.refine_flow(
                 flow_up, self._upsample(eflow,
-                                        None if mask is None else mask[b:]))
+                                        None if mask is None else mask[b:])
+            ).float()
         return flow_low, flow_up
+
+    def _iteration(self, pyr, inp, base, coords0, coords1, net, b, emit):
+        """One iteration and, with ``emit``, its upsampled image flow ->
+        (coords1, net, up_mask, flow_up or None): the unit remat
+        recomputes."""
+        coords1, net, mask = self._step(pyr, inp, base, coords1, net, b)
+        flow_up = self._predict(coords1, coords0, mask, b)[1] if emit else None
+        return coords1, net, mask, flow_up
+
+    def _run_iteration(self, *args):
+        """:meth:`_iteration`, under ``torch.utils.checkpoint`` when
+        ``cfg.remat`` is set and autograd records (the iteration draws no
+        random numbers, so no RNG state is kept for the recompute)."""
+        cfg = self.cfg
+        if not (cfg.remat and torch.is_grad_enabled()):
+            return self._iteration(*args)
+        kw = {}
+        if cfg.remat_policy == "dots_saveable":
+            kw["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts, _dots_saveable)
+        return checkpoint(self._iteration, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
 
     def _outputs(self, coords1, coords0, mask, b):
         flow_low, flow_up = self._predict(coords1, coords0, mask, b)
@@ -335,17 +412,19 @@ class RAFT(nn.Module):
                 kernel="plain" if cfg.corr_impl == "local" else cfg.corr_impl)
         # iters=0 (or a frozen item) keeps the JAX carry's zero mask
         mask = None if cfg.small else fmap1.new_zeros(
-            (fmap1.shape[0], 64 * 9, h8, w8))
+            (fmap1.shape[0], 64 * 9, h8, w8), dtype=self.compute_dtype)
 
         if emit:
             preds = []
             for _ in range(iters):
-                coords1, net, mask = self._step(pyr, inp, base, coords1, net, b)
-                preds.append(self._predict(coords1, coords0, mask, b)[1])
+                coords1, net, mask, flow_up = self._run_iteration(
+                    pyr, inp, base, coords0, coords1, net, b, True)
+                preds.append(flow_up)
             return torch.stack(preds, dim=0)
         if not adaptive:
             for _ in range(iters):
-                coords1, net, mask = self._step(pyr, inp, base, coords1, net, b)
+                coords1, net, mask, _ = self._run_iteration(
+                    pyr, inp, base, coords0, coords1, net, b, False)
             return self._outputs(coords1, coords0, mask, b)
 
         budget = iters if iter_budget is None else int(iter_budget)

@@ -18,6 +18,16 @@ unfused path. On the fused path:
   (b) the kernel applies 1/sqrt(C) itself;
   (c) per-level int8 scales are folded into the weight rows here;
   (d) the relu comes after the kernel.
+
+Under mixed precision (``layers.set_compute_dtype``) every conv here runs
+in the compute dtype, and the ``torch.cat``s promote as jnp's
+concatenations do: the motion features (bf16 convs beside the fp32 flow)
+and the GRU's input (bf16 ``inp`` beside them) are fp32, and each conv
+rounds its input again. The fused path is the one exception, as in JAX's
+``FusedCorrEncoder``: the kernel takes convc1's fp32 master weight and
+bias (never a rounded copy) and fp32 levels, and only its output is
+rounded to the compute dtype, before the relu; the unfused convc1 rounds
+the correlation features and its weight like any other conv.
 """
 
 from __future__ import annotations
@@ -26,13 +36,15 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dexiraft_tpu_torch.models.layers import Conv2d, sigmoid
 from dexiraft_tpu_torch.ops.corr_kernels import FUSED_STEPS
 
 
-def fused_corr_conv(conv: nn.Conv2d, pyr, coords: torch.Tensor) -> torch.Tensor:
+def fused_corr_conv(conv: Conv2d, pyr, coords: torch.Tensor) -> torch.Tensor:
     """convc1 over the pyramid's windows at ``coords`` (B, H, W, 2, level-0
     pixels), computed by the fused kernel of ``pyr.kernel`` -> (B, F, H, W),
-    pre-activation."""
+    pre-activation, in the conv's compute dtype (fp32 weight, fp32 kernel
+    output, then one rounding)."""
     if pyr.kernel not in FUSED_STEPS:
         raise ValueError(f"the {pyr.kernel!r} lookup has no fused kernel; "
                          f"expected one of {tuple(FUSED_STEPS)}")
@@ -46,7 +58,8 @@ def fused_corr_conv(conv: nn.Conv2d, pyr, coords: torch.Tensor) -> torch.Tensor:
                                   w.to(torch.float32),
                                   conv.bias.to(torch.float32), pyr.radius,
                                   pyr.row_chunk)
-    return out.permute(0, 3, 1, 2)
+    out = out.permute(0, 3, 1, 2)
+    return out if conv.compute_dtype is None else out.to(conv.compute_dtype)
 
 
 class FlowHead(nn.Module):
@@ -54,8 +67,8 @@ class FlowHead(nn.Module):
 
     def __init__(self, input_dim: int = 128, hidden_dim: int = 256):
         super().__init__()
-        self.conv1 = nn.Conv2d(input_dim, hidden_dim, 3, padding=1)
-        self.conv2 = nn.Conv2d(hidden_dim, 2, 3, padding=1)
+        self.conv1 = Conv2d(input_dim, hidden_dim, 3, padding=1)
+        self.conv2 = Conv2d(hidden_dim, 2, 3, padding=1)
 
     def forward(self, x):
         return self.conv2(F.relu(self.conv1(x)))
@@ -66,14 +79,14 @@ class ConvGRU(nn.Module):
 
     def __init__(self, hidden_dim: int = 128, input_dim: int = 192 + 128):
         super().__init__()
-        self.convz = nn.Conv2d(hidden_dim + input_dim, hidden_dim, 3, padding=1)
-        self.convr = nn.Conv2d(hidden_dim + input_dim, hidden_dim, 3, padding=1)
-        self.convq = nn.Conv2d(hidden_dim + input_dim, hidden_dim, 3, padding=1)
+        self.convz = Conv2d(hidden_dim + input_dim, hidden_dim, 3, padding=1)
+        self.convr = Conv2d(hidden_dim + input_dim, hidden_dim, 3, padding=1)
+        self.convq = Conv2d(hidden_dim + input_dim, hidden_dim, 3, padding=1)
 
     def forward(self, h, x):
         hx = torch.cat([h, x], dim=1)
-        z = torch.sigmoid(self.convz(hx))
-        r = torch.sigmoid(self.convr(hx))
+        z = sigmoid(self.convz(hx))
+        r = sigmoid(self.convr(hx))
         q = torch.tanh(self.convq(torch.cat([r * h, x], dim=1)))
         return (1 - z) * h + z * q
 
@@ -84,18 +97,18 @@ class SepConvGRU(nn.Module):
     def __init__(self, hidden_dim: int = 128, input_dim: int = 192 + 128):
         super().__init__()
         c = hidden_dim + input_dim
-        self.convz1 = nn.Conv2d(c, hidden_dim, (1, 5), padding=(0, 2))
-        self.convr1 = nn.Conv2d(c, hidden_dim, (1, 5), padding=(0, 2))
-        self.convq1 = nn.Conv2d(c, hidden_dim, (1, 5), padding=(0, 2))
-        self.convz2 = nn.Conv2d(c, hidden_dim, (5, 1), padding=(2, 0))
-        self.convr2 = nn.Conv2d(c, hidden_dim, (5, 1), padding=(2, 0))
-        self.convq2 = nn.Conv2d(c, hidden_dim, (5, 1), padding=(2, 0))
+        self.convz1 = Conv2d(c, hidden_dim, (1, 5), padding=(0, 2))
+        self.convr1 = Conv2d(c, hidden_dim, (1, 5), padding=(0, 2))
+        self.convq1 = Conv2d(c, hidden_dim, (1, 5), padding=(0, 2))
+        self.convz2 = Conv2d(c, hidden_dim, (5, 1), padding=(2, 0))
+        self.convr2 = Conv2d(c, hidden_dim, (5, 1), padding=(2, 0))
+        self.convq2 = Conv2d(c, hidden_dim, (5, 1), padding=(2, 0))
 
     @staticmethod
     def _pass(h, x, convz, convr, convq):
         hx = torch.cat([h, x], dim=1)
-        z = torch.sigmoid(convz(hx))
-        r = torch.sigmoid(convr(hx))
+        z = sigmoid(convz(hx))
+        r = sigmoid(convr(hx))
         q = torch.tanh(convq(torch.cat([r * h, x], dim=1)))
         return (1 - z) * h + z * q
 
@@ -109,10 +122,10 @@ class SmallMotionEncoder(nn.Module):
 
     def __init__(self, corr_planes: int):
         super().__init__()
-        self.convc1 = nn.Conv2d(corr_planes, 96, 1)
-        self.convf1 = nn.Conv2d(2, 64, 7, padding=3)
-        self.convf2 = nn.Conv2d(64, 32, 3, padding=1)
-        self.conv = nn.Conv2d(128, 80, 3, padding=1)
+        self.convc1 = Conv2d(corr_planes, 96, 1)
+        self.convf1 = Conv2d(2, 64, 7, padding=3)
+        self.convf2 = Conv2d(64, 32, 3, padding=1)
+        self.conv = Conv2d(128, 80, 3, padding=1)
 
     def forward(self, flow, corr, pyr=None, coords=None):
         if pyr is not None:
@@ -130,11 +143,11 @@ class BasicMotionEncoder(nn.Module):
 
     def __init__(self, corr_planes: int):
         super().__init__()
-        self.convc1 = nn.Conv2d(corr_planes, 256, 1)
-        self.convc2 = nn.Conv2d(256, 192, 3, padding=1)
-        self.convf1 = nn.Conv2d(2, 128, 7, padding=3)
-        self.convf2 = nn.Conv2d(128, 64, 3, padding=1)
-        self.conv = nn.Conv2d(64 + 192, 128 - 2, 3, padding=1)
+        self.convc1 = Conv2d(corr_planes, 256, 1)
+        self.convc2 = Conv2d(256, 192, 3, padding=1)
+        self.convf1 = Conv2d(2, 128, 7, padding=3)
+        self.convf2 = Conv2d(128, 64, 3, padding=1)
+        self.conv = Conv2d(64 + 192, 128 - 2, 3, padding=1)
 
     def forward(self, flow, corr, pyr=None, coords=None):
         if pyr is not None:
@@ -174,10 +187,12 @@ class BasicUpdateBlock(nn.Module):
         self.gru = SepConvGRU(hidden_dim=hidden_dim,
                               input_dim=input_dim + hidden_dim)
         self.flow_head = FlowHead(hidden_dim, hidden_dim=256)
+        # the relu is out of place: under remat_policy="dots_saveable" the
+        # conv output before it is a saved tensor
         self.mask = nn.Sequential(
-            nn.Conv2d(hidden_dim, 256, 3, padding=1),
-            nn.ReLU(inplace=True),
-            nn.Conv2d(256, 64 * 9, 1))
+            Conv2d(hidden_dim, 256, 3, padding=1),
+            nn.ReLU(),
+            Conv2d(256, 64 * 9, 1))
 
     def forward(self, net, inp, corr, flow, pyr=None, coords=None):
         motion = self.encoder(flow, corr, pyr=pyr, coords=coords)
@@ -195,7 +210,7 @@ class RefineFlow(nn.Module):
 
     def __init__(self):
         super().__init__()
-        self.conv = nn.Conv2d(4, 2, 1)
+        self.conv = Conv2d(4, 2, 1)
 
     def forward(self, flow_up, eflow_up):
         return self.conv(torch.cat([flow_up, eflow_up], dim=1))

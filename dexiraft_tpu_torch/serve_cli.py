@@ -25,9 +25,9 @@ plain version.
 writes and ``load_raft_pth`` reads; a ``module.`` prefix and a
 ``state_dict`` wrapper are stripped), or a checkpoint directory of the
 port's trainer (its newest step's model), loaded with ``strict=True``.
+``--mixed_precision`` serves the model in bf16 over its fp32 weights.
 Refused, each naming its ROADMAP item: an orbax checkpoint directory
-(A10), ``--mixed_precision`` (A2), ``--data_parallel`` > 0 (A12) and
-``--strict`` (A13). The JAX CLI's XLA flags (``--compile_cache_dir``,
+(A10), ``--data_parallel`` > 0 (A12) and ``--strict`` (A13). The JAX CLI's XLA flags (``--compile_cache_dir``,
 ``--no_compile_cache``, ``--scan_unroll``) have no counterpart here.
 
 SIGTERM drains: admitted requests finish and flush before exit; a second
@@ -59,7 +59,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--variant", default="v1", choices=sorted(VARIANTS))
     p.add_argument("--small", action="store_true")
     p.add_argument("--mixed_precision", action="store_true",
-                   help="refused: not ported yet (ROADMAP A2)")
+                   help="bf16 encoders, DexiNed and update block (the "
+                        "correlation stays fp32)")
     p.add_argument("--corr_impl", default="auto",
                    choices=["auto", "allpairs", "local", "pallas", "flash"],
                    help="'auto' (default) = the production config: the "

@@ -31,7 +31,7 @@ from dexiraft_tpu_torch.config import RAFTConfig, TrainConfig
 from dexiraft_tpu_torch.device import resolve_device
 from dexiraft_tpu_torch.models.raft import RAFT
 from dexiraft_tpu_torch.ops.losses import sequence_loss
-from dexiraft_tpu_torch.train.state import TrainState
+from dexiraft_tpu_torch.train.state import TrainState, train_model_config
 
 # The eval step's convolutions: fp32 (TF32 off). On an H100 at 440x1024,
 # 32 iterations, seeded weights, TF32 convolutions moved v5's flow_low
@@ -298,26 +298,24 @@ def make_train_step(cfg: RAFTConfig, tc: TrainConfig, mesh=None,
     edge pair, and the per-iteration flows are summed. ``freeze_bn``: every
     BatchNorm runs on its running stats.
 
-    Refused, each with the ROADMAP item that ports it: ``precision="bf16"``
-    (A2), ``remat`` other than "none" (A10), a mesh or
+    ``precision="bf16"`` and ``remat`` act through the model: the state's
+    model must be built from ``train_model_config(cfg, tc)``, as
+    ``create_state(cfg, tc)`` builds it (mixed precision, the remat
+    policy). The loss, metrics, gradients, clipping, AdamW and BatchNorm
+    stats stay fp32, with no loss scaling (bf16 has fp32's exponent
+    range), as in JAX.
+
+    Refused, with the ROADMAP item that ports them: a mesh or
     ``compute_sharding="halo"`` (A12).
     """
     if tc.precision not in ("fp32", "bf16"):
         raise ValueError(f"precision must be fp32|bf16, got {tc.precision!r}")
-    if tc.precision == "bf16":
-        raise ValueError("precision='bf16' is not ported to PyTorch yet "
-                         "(ROADMAP A2); train with precision='fp32'")
     if tc.accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {tc.accum_steps}")
     if compute_sharding not in ("fence", "halo"):
         raise ValueError(f"compute_sharding must be fence|halo, "
                          f"got {compute_sharding!r}")
-    if tc.remat not in ("none", "per_iter", "dots_saveable"):
-        raise ValueError(f"remat must be none|per_iter|dots_saveable, "
-                         f"got {tc.remat!r}")
-    if tc.remat != "none":
-        raise ValueError(f"remat={tc.remat!r} is not ported to PyTorch yet "
-                         "(ROADMAP A10); train with remat='none'")
+    cfg = train_model_config(cfg, tc)
     if mesh is not None or compute_sharding == "halo":
         raise ValueError("a device mesh and compute_sharding='halo' are not "
                          "ported to PyTorch yet (ROADMAP A12); the port "
@@ -344,7 +342,8 @@ def make_train_step(cfg: RAFTConfig, tc: TrainConfig, mesh=None,
         model, opt, gen = state.model, state.optimizer, state.generator
         if model.cfg != cfg:
             raise ValueError("the state's model was built from another "
-                             "RAFTConfig than this step's")
+                             "RAFTConfig than this step's (build it from "
+                             "train_model_config(cfg, tc))")
         dev = state.device
         to_dev = _nchw(dev)
         b = dict(batch)

@@ -39,8 +39,10 @@ the checkpoint for ``--keep_best`` (resilience/retention.py, scores in
 eval mode and the train step puts it back in train mode; validation
 draws nothing from the train state's generator.
 
-Refused, each naming the ROADMAP item that ports it: ``--mixed_precision``
-and ``--precision bf16`` (A2); ``--remat`` and ``--remat_lookup`` (A10);
+``--mixed_precision`` (or ``--precision bf16``, which implies it) trains
+the model in bf16 over fp32 parameters; ``--remat`` and ``--remat_lookup``
+recompute each iteration (or only its lookup) in the backward, as the JAX
+CLI's flags do. Refused, each naming the ROADMAP item that ports it:
 ``--fsdp``, ``--elastic``, ``--join`` and a nonzero ``--stall_timeout``
 (A12); ``--strict`` (A13).
 ``--restore_ckpt`` takes a checkpoint of this trainer or a state-dict file
@@ -94,7 +96,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--variant", default="v1", choices=sorted(VARIANTS))
     p.add_argument("--small", action="store_true")
     p.add_argument("--mixed_precision", action="store_true",
-                   help="refused: ROADMAP A2")
+                   help="bf16 encoders, DexiNed and update block over fp32 "
+                        "parameters (the correlation stays fp32)")
     p.add_argument("--corr_impl", default="allpairs",
                    choices=["allpairs", "local", "pallas", "flash"])
     p.add_argument("--corr_dtype", default="fp32", choices=["fp32", "bf16"],
@@ -104,9 +107,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="each iteration's 4-level lookup and the motion "
                         "encoder's corr conv in one kernel launch (requires "
                         "--corr_impl flash or pallas)")
-    p.add_argument("--remat", action="store_true", help="refused: ROADMAP A10")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each refinement iteration in the "
+                        "backward instead of storing its activations")
     p.add_argument("--remat_lookup", action="store_true",
-                   help="refused: ROADMAP A10")
+                   help="recompute only the correlation lookup in the "
+                        "backward (unfused paths)")
     p.add_argument("--dexined_upconv", default="subpixel",
                    choices=["transpose", "subpixel"])
     p.add_argument("--dropout", type=float, default=0.0)
@@ -120,7 +126,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--iters", type=int, default=12)
     p.add_argument("--add_noise", action="store_true")
     p.add_argument("--precision", choices=["fp32", "bf16"], default="fp32",
-                   help="bf16 is refused: ROADMAP A2")
+                   help="bf16 trains in mixed precision (implies "
+                        "--mixed_precision); loss and optimizer stay fp32")
     p.add_argument("--accum_steps", type=int, default=1,
                    help="gradient accumulation: batch_size = accum * "
                         "microbatch")
@@ -204,10 +211,6 @@ def build_parser() -> argparse.ArgumentParser:
 def refuse_unported(args) -> None:
     """Exit naming the ROADMAP item of the first flag the port lacks."""
     refused = (
-        (args.mixed_precision, "--mixed_precision", "A2"),
-        (args.precision == "bf16", "--precision bf16", "A2"),
-        (args.remat, "--remat", "A10"),
-        (args.remat_lookup, "--remat_lookup", "A10"),
         (args.fsdp is not None, "--fsdp", "A12"),
         (args.elastic, "--elastic", "A12"),
         (args.join is not None, "--join", "A12"),
@@ -233,10 +236,13 @@ def resolve_configs(args) -> "tuple[RAFTConfig, TrainConfig]":
                          "flash or pallas")
     cfg = VARIANTS[args.variant](
         small=args.small,
+        mixed_precision=args.mixed_precision,
         dropout=args.dropout,
         corr_impl=args.corr_impl,
         corr_dtype=args.corr_dtype,
         fused_update=args.fused_update,
+        remat=args.remat,
+        remat_lookup=args.remat_lookup,
         dexined_upconv=args.dexined_upconv,
     )
     if args.preset != "none":

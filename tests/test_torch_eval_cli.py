@@ -190,8 +190,28 @@ def test_eval_cli_frontier_record_has_jax_keys(env, capsys):
         assert json.loads(f.read()) == rec
 
 
+def test_eval_cli_mixed_precision_reaches_the_model(env, capsys):
+    """--mixed_precision builds the model in bf16 (its weights stay fp32)
+    and evaluates: its chairs EPE is finite, differs from the fp32 run's
+    (the forward really rounds) and stays within 2e-2 of it (relative;
+    tests/test_torch_mixed_precision_model.py argues the flow itself)."""
+    args = eval_cli.build_parser().parse_args(
+        ["--device", "cpu", "--small", "--model", env.weights,
+         "--dataset", "chairs", "--mixed_precision"])
+    eval_cli.refuse_unported(args)
+    cfg, model = eval_cli.load_model(args, torch.device("cpu"))
+    assert cfg.mixed_precision and model.compute_dtype == torch.bfloat16
+    assert {p.dtype for p in model.parameters()} == {torch.float32}
+    capsys.readouterr()
+    fp32 = _numbers(_run(env, capsys, "--dataset", "chairs"))
+    bf16 = _numbers(_run(env, capsys, "--dataset", "chairs",
+                         "--mixed_precision"))
+    assert len(bf16) == len(fp32) and np.isfinite(bf16).all()
+    assert bf16 != fp32
+    assert abs(bf16[0] - fp32[0]) <= 2e-2 * abs(fp32[0])
+
+
 @pytest.mark.parametrize("flags, item", [
-    (["--mixed_precision"], "A2"),
     (["--data_parallel", "2"], "A12"),
     (["--strict"], "A13"),
 ])

@@ -171,8 +171,13 @@ def test_refusals():
     with torch.device("meta"):
         v5 = RAFT(raft_v5(corr_impl="pallas", fused_update=True))
     assert hasattr(v5, "dexined") and hasattr(v5, "efnet")
+    # mixed precision and the remat fields are ported; scan_unroll is not
+    for kw in (dict(remat=True), dict(remat=True, remat_policy="dots_saveable"),
+               dict(remat_lookup=True), dict(mixed_precision=True)):
+        with torch.device("meta"):
+            RAFT(raft_v1(**kw))
     with pytest.raises(ValueError, match="not supported by the PyTorch port"):
-        raft_v1(remat=True)
+        raft_v1(scan_unroll=2)
     with pytest.raises(ValueError, match="fused_update=True requires"):
         raft_v1(corr_impl="local", fused_update=True)
     # training mode is ported; int8 storage stays refused there, as in JAX

@@ -171,8 +171,17 @@ def test_no_cpu_flag_without_a_card_exits_naming_cuda():
     assert "'cuda'" in proc.stderr and "listening" not in proc.stdout
 
 
+def test_mixed_precision_reaches_the_model():
+    """--mixed_precision serves the model in bf16 over fp32 weights."""
+    args = serve_cli.build_parser().parse_args(
+        ["--cpu", "--small", "--synthetic_init", "--mixed_precision"])
+    serve_cli._refuse_unported(args)
+    cfg, model = serve_cli._load(args, torch.device("cpu"))
+    assert cfg.mixed_precision and model.compute_dtype == torch.bfloat16
+    assert {p.dtype for p in model.parameters()} == {torch.float32}
+
+
 @pytest.mark.parametrize("flags, message", [
-    (["--mixed_precision"], "ROADMAP A2"),
     (["--data_parallel", "2"], "ROADMAP A12"),
     (["--strict"], "ROADMAP A13"),
     (["--fused_update", "--corr_impl", "local"], "requires --corr_impl"),

@@ -117,11 +117,38 @@ def test_cli_restore_ckpt_from_checkpoint_and_state_dict(chairs_env, capsys):
         train_cli.main(BASE + ["--name", "c", "--restore_ckpt", "orbax_run"])
 
 
+@pytest.mark.parametrize("flags, field, value", [
+    (["--mixed_precision"], "mixed_precision", True),
+    (["--precision", "bf16"], "mixed_precision", True),
+    (["--remat"], "remat", True),
+    (["--remat_lookup"], "remat_lookup", True),
+])
+def test_precision_and_remat_flags_reach_the_model(flags, field, value):
+    """The JAX CLI's precision and remat flags resolve into the model the
+    trainer builds (train_model_config: --precision bf16 turns on mixed
+    precision, as JAX's make_train_step does)."""
+    from dexiraft_tpu_torch.train.state import train_model_config
+    args = train_cli.build_parser().parse_args(BASE + flags)
+    train_cli.refuse_unported(args)
+    cfg, tc = train_cli.resolve_configs(args)
+    assert getattr(train_model_config(cfg, tc), field) == value
+    if "--precision" in flags:
+        assert tc.precision == "bf16" and not cfg.mixed_precision
+
+
+def test_cli_trains_in_bf16_under_remat(chairs_env):
+    """One real step with --precision bf16 --remat: the checkpoint's
+    weights and moments are fp32 and the logged loss is finite."""
+    train_cli.main(BASE + ["--name", "bf16", "--num_steps", "1",
+                           "--precision", "bf16", "--remat"])
+    payload = ckpt.load_payload("checkpoints/bf16")
+    assert payload["configs"]["train"]["precision"] == "bf16"
+    assert payload["configs"]["raft"]["remat"] is True
+    assert {v.dtype for v in payload["model"].values()
+            if v.is_floating_point()} == {torch.float32}
+
+
 @pytest.mark.parametrize("flags, item", [
-    (["--mixed_precision"], "A2"),
-    (["--precision", "bf16"], "A2"),
-    (["--remat"], "A10"),
-    (["--remat_lookup"], "A10"),
     (["--fsdp", "2"], "A12"),
     (["--elastic"], "A12"),
     (["--join", "host1"], "A12"),

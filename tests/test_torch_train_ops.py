@@ -340,11 +340,17 @@ def test_refusals():
     with pytest.raises(ValueError, match="inference format"):
         m(x, x, test_mode=False)
     cfg, tc = raft_v1(corr_impl="local"), TrainConfig()
-    for bad, item in ((dict(precision="bf16"), "A2"),
-                      (dict(remat="per_iter"), "A10"),
-                      (dict(remat="dots_saveable"), "A10")):
-        with pytest.raises(ValueError, match=item):
-            make_train_step(cfg, dataclasses.replace(tc, **bad))
+    # bf16 and both remat modes are ported: the step builds, and a state
+    # from another config is refused by name
+    for ok in (dict(precision="bf16"), dict(remat="per_iter"),
+               dict(remat="dots_saveable")):
+        assert callable(make_train_step(cfg, dataclasses.replace(tc, **ok)))
+    state = create_state(cfg, tc, device="cpu")
+    with pytest.raises(ValueError, match="train_model_config"):
+        make_train_step(cfg, dataclasses.replace(tc, precision="bf16"))(
+            state, {})
+    with pytest.raises(ValueError, match="remat must be"):
+        make_train_step(cfg, dataclasses.replace(tc, remat="sometimes"))
     with pytest.raises(ValueError, match="A12"):
         make_train_step(cfg, tc, mesh=object())
     with pytest.raises(ValueError, match="A12"):
