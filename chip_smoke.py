@@ -187,6 +187,21 @@ Phases, one JSON line each:
               epochs x 3 steps at batch 2, 176x176, two checkpoints),
               then --test --test_pich --gt_root on 4 images of 720x1280
               (per-image ms, ODS/OIS/AP, the PNGs)
+  ddp         data-parallel training, v1 on B1 at the chairs crop,
+              global batch 4, on the train_cli phase's synthetic tree:
+              one process and two ranks on the card (torchrun, gloo)
+              for 4 steps, per-step losses within 1e-4 relative, the
+              states at steps 2 and 4 within 7e-5 and 3e-4 relative L2
+              and each BatchNorm running stat on its own, 12 B1
+              launches a step on each rank; rank 1 alone SIGTERMed after
+              step 2:
+              both stop at step 2 with one checkpoint, and a 2-rank
+              --resume logs the uninterrupted 2-rank run's losses within
+              1e-5 relative; two ranks with --stall_timeout 20, rank 1
+              SIGSTOPped after step 1: rank 0 exits 98 within 50 s with
+              a dump naming the step and the region; a 1-rank NCCL
+              group: an all_reduce and one synced-BatchNorm step against
+              the one-process step
   6 times     CUDA-event medians: v1 and v5 forward ms at 440x1024, B=1
               (TF32 off and PyTorch's default, and the main paths under
               the eval step's arithmetic), v5's DexiNed and prelude
@@ -197,12 +212,17 @@ Phases, one JSON line each:
               torch.profiler breakdowns of v1 fused, v5
               pallas fused, v5 pallas lookup and v5 flash fused (the main
               path, B1 on the model's coords)
+  processes   the processes found below the smoke after each phase (none
+              should be), each SIGKILLed, reaped and named on stderr: the
+              smoke is the subreaper of all it starts, so the children of
+              a SIGKILLed rank or replica come back to it and are stopped
 Then the {"kernels": [...]} line (each entry with its launches on the
 slices' paths, the service's, the eval phase's, the router phase's and
 the mixed phase's for B1 as serve_launches, eval_launches,
 router_launches and mixed_launches, the train, train_precision_remat and
-records phases' counted steps as train_launches, and the dexined phase's
-as dexined_launches), the nvidia-smi line, and last
+records phases' counted steps as train_launches, the dexined phase's
+as dexined_launches, and the ddp phase's runs, every rank's, as
+ddp_launches), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed phase exits non-zero.
 """
 
@@ -278,6 +298,95 @@ def emit(obj) -> None:
 def fail(msg: str) -> int:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     return 1
+
+
+# ---- the processes the smoke starts ----
+
+STRAYS: list = []  # {"after": phase, "pid", "cmd"} of each stray stopped
+
+
+def adopt_orphans() -> bool:
+    """Make this process the subreaper of everything it starts (Linux
+    prctl PR_SET_CHILD_SUBREAPER): a descendant whose parent dies, a
+    SIGKILLed rank's or a replica's, is re-parented here and not to
+    init, so stop_strays finds it. False where the call is refused."""
+    import ctypes
+
+    try:
+        return ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0) == 0
+    except (OSError, AttributeError):
+        return False
+
+
+def descendants() -> list:
+    """(pid, state, command line) of every process below this one, by
+    /proc's parent links, parents before their children."""
+    children = {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+            with open(f"/proc/{name}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue  # it ended while we looked
+        children.setdefault(int(ppid), []).append((int(name), state,
+                                                   cmd.strip()))
+    out, todo = [], [os.getpid()]
+    while todo:
+        for proc in children.get(todo.pop(0), []):
+            out.append(proc)
+            todo.append(proc[0])
+    return out
+
+
+def stop_strays(after: str) -> list:
+    """SIGKILL and reap every process still below this one once a phase
+    has ended, where none should be left; each is recorded in STRAYS
+    and named on stderr. -> the strays' records."""
+    import signal
+
+    found = []
+    for _ in range(50):
+        live = [p for p in descendants() if p[1] != "Z"]
+        for pid, _, cmd in live:
+            if all(s["pid"] != pid for s in found):
+                found.append({"after": after, "pid": pid, "cmd": cmd[:300]})
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        while True:  # reap whatever has ended below us
+            try:
+                if os.waitpid(-1, os.WNOHANG)[0] == 0:
+                    break
+            except ChildProcessError:
+                break
+        if not live:
+            break
+        time.sleep(0.1)
+    for s in found:
+        print(f"chip_smoke: stray process after {after}, stopped: "
+              f"{s['pid']} {s['cmd']}", file=sys.stderr, flush=True)
+    STRAYS.extend(found)
+    return found
+
+
+def contained(phase):
+    """``phase``, then stop_strays: no process outlives the phase that
+    started it."""
+    import functools
+
+    @functools.wraps(phase)
+    def run(*args, **kwargs):
+        try:
+            return phase(*args, **kwargs)
+        finally:
+            stop_strays(phase.__name__)
+
+    return run
 
 
 def nvidia_smi_line() -> str:
@@ -2599,14 +2708,29 @@ def phase_eval(torch, ck, dev, card, root) -> dict:
     return rec
 
 
-def _child(args, env, timeout=420):
-    proc = subprocess.run([sys.executable, "-m", "dexiraft_tpu_torch"] + args,
-                          env=env, capture_output=True, text=True,
-                          timeout=timeout)
+def _start_child(args, env) -> subprocess.Popen:
+    """python -m dexiraft_tpu_torch ``args`` in a child, started."""
+    return subprocess.Popen([sys.executable, "-m", "dexiraft_tpu_torch"]
+                            + args, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _finish_child(proc, timeout=420) -> str:
+    """Wait for a child of _start_child; it must exit 0. -> its stdout."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
     if proc.returncode != 0:
-        raise AssertionError(f"{args[0]} exited {proc.returncode}: "
-                             f"{proc.stdout[-2000:]} {proc.stderr[-3000:]}")
-    return proc.stdout
+        raise AssertionError(f"{proc.args[3]} exited {proc.returncode}: "
+                             f"{out[-2000:]} {err[-3000:]}")
+    return out
+
+
+def _child(args, env, timeout=420):
+    return _finish_child(_start_child(args, env), timeout)
 
 
 def phase_eval_cli(torch, card, root, ev, mixed_rms_px) -> dict:
@@ -2616,7 +2740,9 @@ def phase_eval_cli(torch, card, root, ev, mixed_rms_px) -> dict:
     B1 on the card): exit 0, its clean and final EPEs equal phase eval's
     per-image run within TOL_EVAL_PATHS_PX (and the printed rounding);
     then python -m dexiraft_tpu_torch viz over that submission: one PNG
-    per .flo, each decoding (read_png) to flow_to_image of its .flo."""
+    per .flo, each decoding (read_png) to flow_to_image of its .flo.
+    Beside the fp32 child, the same evaluation with --mixed_precision:
+    each EPE within the argued bound of the fp32 child's."""
     import re
 
     from dexiraft_tpu_torch.data.flow_io import read_flo
@@ -2630,6 +2756,10 @@ def phase_eval_cli(torch, card, root, ev, mixed_rms_px) -> dict:
                PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
                                                              ""))
     t0 = time.perf_counter()
+    # the mixed-precision child (below) runs beside the fp32 one
+    mixed_child = _start_child(["eval", "--variant", "v5", "--model",
+                                weights, "--dataset", "sintel",
+                                "--mixed_precision"], env)
     out = _child(["eval", "--variant", "v5", "--model", weights,
                   "--dataset", "sintel", "--submission", "sintel",
                   "--warm_start", "--output", out_dir], env)
@@ -2639,9 +2769,9 @@ def phase_eval_cli(torch, card, root, ev, mixed_rms_px) -> dict:
     want = ev["metrics"]["per_image"]["sintel"]
     diff = {k: abs(printed.get(k, np.inf) - want[k])
             for k in ("clean", "final")}
-    t0 = time.perf_counter()
+    t1 = time.perf_counter()
     viz_out = _child(["viz", "--input", out_dir], env)
-    viz_s = time.perf_counter() - t0
+    viz_s = time.perf_counter() - t1
     flos = sorted(os.path.join(d, f) for d, _, fs in os.walk(out_dir)
                   for f in fs if f.endswith(".flo"))
     pngs_equal = [np.array_equal(read_png(f[:-4] + ".png"),
@@ -2651,9 +2781,7 @@ def phase_eval_cli(torch, card, root, ev, mixed_rms_px) -> dict:
     # endpoint distance of the two flows <= their RMS distance, taken as
     # MIXED_A x JAX's bf16 error x the RMS of v5's fp32 flow_up (phase
     # mixed, the same weights at the same geometry), plus the rounding
-    t0 = time.perf_counter()
-    mixed_out = _child(["eval", "--variant", "v5", "--model", weights,
-                        "--dataset", "sintel", "--mixed_precision"], env)
+    mixed_out = _finish_child(mixed_child)
     mixed_s = time.perf_counter() - t0
     mixed_epe = {m.group(1): float(m.group(2)) for m in re.finditer(
         r"Validation \((\w+)\) EPE: ([\d.]+)", mixed_out)}
@@ -2726,7 +2854,7 @@ def time_forwards(torch, models, paths, x1, x2, rec, prefix) -> None:
             for path in paths:
                 ts = sorted(cuda_times_ms(
                     lambda: models[path](x1, x2, iters=ITERS),
-                    reps=FORWARD_REPS, warmup=2))
+                    reps=FORWARD_REPS, warmup=1))
                 name = f"{prefix}forward_ms_{bh}x{bw}_{path}_{key}"
                 rec[name] = statistics.median(ts)
                 rec[name + "_min_max"] = [ts[0], ts[-1]]
@@ -3380,11 +3508,11 @@ def phase_dexined(torch, ck, dev, card) -> dict:
     state holds the step and the gradients its size); the cofusion
     head's forward on the card against the CPU's
     (within TOL_DEXINED_FORWARD of the largest logit); no corr kernel
-    launched. Then the CLI in children: --train --epochs 2
+    launched. The CLI in children: --train --epochs 2
     --steps_per_epoch 3 --batch_size 2 --img_size 176 (two checkpoints,
-    finite losses), then --test --test_pich --gt_root over the 4 test
-    images (per-image ms at 720x1280, ODS/OIS/AP with the dilation
-    matching, every PNG written)."""
+    finite losses), beside the held steps, then --test --test_pich
+    --gt_root over the 4 test images (per-image ms at 720x1280, ODS/OIS/AP
+    with the dilation matching, every PNG written)."""
     import re
     import tempfile
 
@@ -3434,6 +3562,18 @@ def phase_dexined(torch, ck, dev, card) -> dict:
         del model, opt, step, x, y
         torch.cuda.empty_cache()
         lap("train_timed")
+        # the CLI's --train child (below) runs beside the held steps; the
+        # timed step above ran alone
+        env = dict(os.environ)
+        ckpt = os.path.join(root, "ck")
+        t_cli = time.perf_counter()
+        # batch 2 at 176x176: the child's first step searches cuDNN's
+        # algorithms for its shapes again, and batch 8's step was timed
+        # above
+        cli_train = _start_child(["dexined", "--train", "--data_root", root,
+                                  "--epochs", "2", "--steps_per_epoch", "3",
+                                  "--batch_size", "2", "--img_size", "176",
+                                  "--checkpoint", ckpt], env)
 
         # one step on the card against the same step on the CPU, same
         # weights and batch. At these random weights the fp32 gradients
@@ -3529,18 +3669,9 @@ def phase_dexined(torch, ck, dev, card) -> dict:
             raise AssertionError(f"dexined: corr kernels launched "
                                  f"{rec['launches']}")
 
-        # the CLI in children: train, then test
-        env = dict(os.environ)
-        ckpt = os.path.join(root, "ck")
-        t0 = time.perf_counter()
-        # batch 2 at 176x176: the child's first step searches cuDNN's
-        # algorithms for its shapes again, and batch 8's step was timed
-        # above
-        out = _child(["dexined", "--train", "--data_root", root,
-                      "--epochs", "2", "--steps_per_epoch", "3",
-                      "--batch_size", "2", "--img_size", "176",
-                      "--checkpoint", ckpt], env)
-        rec["cli_train_s"] = time.perf_counter() - t0
+        # the CLI in children: train (started above), then test
+        out = _finish_child(cli_train)
+        rec["cli_train_s"] = time.perf_counter() - t_cli
         cli_losses = [float(v) for v in re.findall(r"Loss: (\S+)", out)]
         steps = sorted(int(d) for d in os.listdir(ckpt) if d.isdigit())
         rec["cli_train"] = {"losses": cli_losses, "checkpoints": steps,
@@ -3576,6 +3707,393 @@ def phase_dexined(torch, ck, dev, card) -> dict:
     return rec
 
 
+# ---- ddp: multi-process data-parallel training on one card ----
+
+DDP_STEPS = 4                # global batch DDP_BATCH, chairs crop, v1 on B1
+DDP_BATCH = 4
+DDP_STALL_TIMEOUT = 20.0     # --stall_timeout of the stalled run
+TOL_DDP_LOSS_REL = 1e-4      # 2-rank vs 1-process per-step losses
+# 2-rank vs 1-process states, relative L2, from the two runs' checkpoints
+# at steps 2 and DDP_STEPS. They are not bitwise equal even where the
+# losses are: a conv bias that feeds a BatchNorm has a gradient of pure
+# rounding noise, and Adam's first updates, ~lr x sign(gradient), turn it
+# into a +-lr step that differs between the runs. Each bound is 3-4x the
+# larger of two readings (H100, PERF.md).
+# every floating tensor together, at step 2: read 2.23e-5, 2.25e-5
+TOL_DDP_STATE2_REL_L2 = 7e-5
+# ... and at step DDP_STEPS: read 8.68e-5, 8.68e-5 (8.66e-5, 8.70e-5
+# before); the per-step spread of the card's own step grows through Adam
+TOL_DDP_STATE_REL_L2 = 3e-4
+# each BatchNorm running mean and variance on its own: local statistics
+# (a rank's 2 rows, not the global 4) would move them by the spread
+# between the batch's halves. The means carry the biases' +-lr steps,
+# the variances do not. Read: step 2 means 3.00e-5, 3.00e-5, variances
+# 2.44e-7, 2.44e-7; step 4 means 4.97e-4, 5.46e-4, variances 1.21e-5,
+# 1.19e-5
+TOL_DDP_BN_REL_L2 = {(2, "running_mean"): 1e-4, (2, "running_var"): 1e-6,
+                     (DDP_STEPS, "running_mean"): 2e-3,
+                     (DDP_STEPS, "running_var"): 5e-5}
+# the 1-rank NCCL step against the one-process step: one step, 1.3e-6 read
+TOL_DDP_NCCL_STATE_REL_L2 = 1e-4
+DDP_CLI = ["--stage", "chairs", "--corr_impl", "flash", "--fused_update",
+           "--batch_size", str(DDP_BATCH), "--sum_freq", "1",
+           "--num_workers", "2", "--val_freq", "1000", "--log_dir", "runs"]
+
+
+def launch_ranks(cwd, env, world, extra, per_rank=None,
+                 stderr=subprocess.PIPE):
+    """``world`` ranks of python -m dexiraft_tpu_torch train, each with
+    torchrun's variables, all on cuda:0 (so the backend is gloo)."""
+    port = free_ports(1)[0]
+    procs = []
+    for r in range(world):
+        renv = dict(env, RANK=str(r), WORLD_SIZE=str(world),
+                    LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world),
+                    MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "dexiraft_tpu_torch", "train"] + DDP_CLI
+            + ["--device", "cuda:0"] + extra + (per_rank or {}).get(r, []),
+            cwd=cwd, env=renv, stdout=subprocess.PIPE, stderr=stderr,
+            text=True))
+    return procs
+
+
+def finish(procs, what, timeout=600):
+    """Wait for ``procs``; every one must exit 0. -> their stdouts."""
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=timeout)
+            outs.append(out)
+            if p.returncode != 0:
+                raise AssertionError(f"ddp: {what} exited {p.returncode}: "
+                                     f"{out[-2000:]} {err[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def run_launches(outs):
+    """Each process's ``[kernels] launches`` line of its stdout."""
+    found = []
+    for out in outs:
+        found += [json.loads(line.split("launches ", 1)[1])
+                  for line in out.splitlines()
+                  if line.startswith("[kernels] launches ")]
+    return found
+
+
+def run_losses(root, name):
+    with open(os.path.join(root, "runs", name, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    return {r["step"]: r["loss"] for r in rows if "loss" in r}
+
+
+def saved_model(root, name, step) -> dict:
+    """The model state dict of run ``name``'s checkpoint at ``step``."""
+    from dexiraft_tpu_torch.train import checkpoint as ckpt
+
+    return ckpt.load_payload(os.path.join(root, "checkpoints", name),
+                             step=step)["model"]
+
+
+def flat_state(torch, sd):
+    """Every floating tensor of a state dict, joined, in fp64."""
+    return torch.cat([v.double().reshape(-1) for v in sd.values()
+                      if v.is_floating_point()])
+
+
+def state_parity(torch, ours: dict, ref: dict) -> dict:
+    """``ours`` against ``ref``: bitwise, relative L2 over every floating
+    tensor, each BatchNorm running stat's own relative L2, and whether
+    the BatchNorm step counts agree."""
+    stats = [k for k in ref if "running_" in k]
+    return {"bitwise": all(torch.equal(v, ours[k]) for k, v in ref.items()),
+            "rel_l2": rel_l2(flat_state(torch, ours), flat_state(torch, ref)),
+            "bn_tensors": len(stats),
+            "bn_rel_l2": {k: rel_l2(ours[k].double(), ref[k].double())
+                          for k in stats},
+            "bn_counts_equal": all(
+                torch.equal(ours[k], v) for k, v in ref.items()
+                if k.endswith("num_batches_tracked"))}
+
+
+def nccl_check(torch, dev) -> dict:
+    """A 1-rank NCCL process group on the card (parallel.distributed.
+    initialize under torchrun's variables): an all_reduce, and one
+    data-parallel v1 train step on B1 (synced BatchNorm, the gradient
+    all-reduce) against the one-process step on the same weights and
+    batch. The variables are restored and the group destroyed after."""
+    from dexiraft_tpu_torch.config import TrainConfig, raft_v1
+    from dexiraft_tpu_torch.models.raft import RAFT
+    from dexiraft_tpu_torch.ops import corr_kernels as ck
+    from dexiraft_tpu_torch.parallel import distributed, make_train_mesh
+    from dexiraft_tpu_torch.train.state import create_state
+    from dexiraft_tpu_torch.train.step import make_train_step
+
+    names = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+             "MASTER_ADDR", "MASTER_PORT")
+    saved = {k: os.environ.get(k) for k in names}
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                      LOCAL_WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(free_ports(1)[0]))
+    try:
+        world = distributed.initialize("cuda")
+        t = torch.arange(4.0, device=world.device)
+        torch.distributed.all_reduce(t)
+        reduced = t.tolist()
+        cfg = raft_v1(corr_impl="flash", fused_update=True)
+        tc = TrainConfig(batch_size=2, num_steps=100)
+        batch = train_batch(torch, world.device, 2, seed=7)
+        weights = create_state(cfg, tc, device=world.device).model.state_dict()
+        out = {}
+        for name, mesh in (("nccl", make_train_mesh(2, world)),
+                           ("one_process", None)):
+            model = RAFT(cfg)
+            model.load_state_dict(weights)
+            state = create_state(cfg, tc, device=world.device, model=model)
+            ck.reset_launches()
+            state, m = make_train_step(cfg, tc, mesh=mesh)(state, batch)
+            torch.cuda.synchronize()
+            out[name] = {"loss": float(m["loss"]), "epe": float(m["epe"]),
+                         "finite": bool(m["state_finite"]),
+                         "b1": ck.LAUNCHES["flash_fused_step"],
+                         "state": torch.cat([
+                             v.double().reshape(-1) for v in
+                             state.model.state_dict().values()
+                             if v.is_floating_point()])}
+        backend = world.backend
+    finally:
+        distributed.teardown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    a, b = out["nccl"], out["one_process"]
+    return {"backend": backend, "all_reduce": reduced,
+            "loss": [a["loss"], b["loss"]], "epe": [a["epe"], b["epe"]],
+            "loss_rel_diff": abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+            "state_rel_l2": rel_l2(a["state"], b["state"]),
+            "finite": a["finite"] and b["finite"],
+            "b1_launches": [a["b1"], b["b1"]]}
+
+
+def phase_ddp(torch, dev, card) -> dict:
+    """Data-parallel training (parallel/, the synced train step, the
+    coordinator, preemption and the hang watchdog) on one card: two
+    ranks share cuda:0 (so the process group's backend is gloo), v1 on
+    B1 at the chairs crop, global batch DDP_BATCH, on phase_train_cli's
+    synthetic FlyingChairs tree (20 training pairs, 384x512).
+      * parity: one process (--device cuda) and two ranks under torchrun
+        (python -m torch.distributed.run --standalone --nproc_per_node 2
+        ... --device cuda:0), DDP_STEPS steps, beside the preempted pair
+        below: per-step losses within TOL_DDP_LOSS_REL relative; from
+        both runs' checkpoints (--val_freq 2), the states at step 2
+        within TOL_DDP_STATE2_REL_L2 relative L2 and at step DDP_STEPS
+        within TOL_DDP_STATE_REL_L2, each BatchNorm running mean and
+        variance at both steps on its own within TOL_DDP_BN_REL_L2, equal
+        BatchNorm step counts; each rank's B1 launches 12 a step;
+      * preemption: rank 1 alone takes a SIGTERM after step 2 (--chaos
+        sigterm@2): both ranks stop at step 2, exit 0, one checkpoint
+        (step 2); a 2-rank --resume, started as soon as they end, takes
+        steps 3-4, and the run's log (steps 1-4) holds the uninterrupted
+        2-rank run's losses within TOL_RESUME_REL;
+      * stall: beside the parity runs, two ranks with --stall_timeout
+        DDP_STALL_TIMEOUT; rank 1 is SIGSTOPped at its step-1 log line:
+        rank 0 exits 98 within the timeout + 30 s, its dump naming the
+        step and the region, and rank 1 is SIGKILLed;
+      * nccl: a 1-rank NCCL group in this process (nccl_check)."""
+    import re
+    import signal
+    import tempfile
+    import threading
+
+    from dexiraft_tpu_torch.data.synthetic import write_chairs_tree
+
+    rec = {"phase": "ddp", "card": card, "batch": DDP_BATCH,
+           "steps": DDP_STEPS}
+    seconds = rec["seconds"] = {}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        t1 = time.perf_counter()
+        seconds[name] = t1 - t0
+        t0 = t1
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_") as tmp:
+        write_chairs_tree(tmp, n_train=20, n_val=4, hw=(384, 512), seed=0)
+        env = dict(os.environ, DEXIRAFT_DATA_DIR=tmp, OMP_NUM_THREADS="2",
+                   PYTHONUNBUFFERED="1",
+                   PYTHONPATH=REPO + os.pathsep + os.environ.get(
+                       "PYTHONPATH", ""))
+        steps = ["--num_steps", str(DDP_STEPS)]
+        # the parity runs checkpoint at step 2 too
+        every2 = steps + ["--val_freq", "2"]
+        started = []
+        try:
+            one = subprocess.Popen(
+                [sys.executable, "-m", "dexiraft_tpu_torch", "train"]
+                + DDP_CLI + every2 + ["--name", "one", "--device", "cuda"],
+                cwd=tmp, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+            started.append(one)
+            pair = subprocess.Popen(
+                [sys.executable, "-m", "torch.distributed.run",
+                 "--standalone", "--nproc_per_node", "2", "-m",
+                 "dexiraft_tpu_torch", "train"] + DDP_CLI + every2
+                + ["--name", "pair", "--device", "cuda:0"],
+                cwd=tmp, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+            started.append(pair)
+            # beside them the preempted pair (rank 1's SIGTERM stops both
+            # at step 2) and the stalled pair
+            pre = launch_ranks(tmp, env, 2, steps + ["--name", "pre",
+                                                     "--coord_every", "2"],
+                               {1: ["--chaos", "sigterm@2"]})
+            started += pre
+            stall = launch_ranks(tmp, env, 2, [
+                "--num_steps", "200", "--name", "stall", "--stall_timeout",
+                str(DDP_STALL_TIMEOUT)], stderr=subprocess.STDOUT)
+            started += stall
+            stopped = {}
+
+            def watch_rank1():
+                for line in stall[1].stdout:
+                    if line.startswith("[     1,"):
+                        os.kill(stall[1].pid, signal.SIGSTOP)
+                        stopped["t"] = time.perf_counter()
+                        break
+
+            watcher = threading.Thread(target=watch_rank1, daemon=True)
+            watcher.start()
+            outs = finish(pre, "preempted ranks")
+            pre_ckpts = sorted(os.listdir(os.path.join(tmp, "checkpoints",
+                                                       "pre")))
+            lap("preempt")
+            # the resume, as soon as the preempted pair has saved
+            res = launch_ranks(tmp, env, 2, steps + ["--name", "pre",
+                                                     "--resume"])
+            started += res
+            err0 = stall[0].communicate(timeout=600)[0]
+            t_exit = time.perf_counter()
+            os.kill(stall[1].pid, signal.SIGKILL)
+            stall[1].wait()
+            watcher.join(timeout=10)
+            out_one, out_pair = finish([one, pair], "parity runs")
+            lap("parity_and_stall")
+            outs_res = finish(res, "resumed ranks")
+            lap("resume")
+        finally:
+            for p in started:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        rec["backend_line"] = [line for line in out_pair.splitlines()
+                               if line.startswith("[dist] ")]
+        one_l, pair_l = run_losses(tmp, "one"), run_losses(tmp, "pair")
+        rec["losses_one_process"], rec["losses_two_ranks"] = one_l, pair_l
+        rec["loss_rel_diff"] = {s: abs(pair_l[s] - one_l[s]) / abs(one_l[s])
+                                for s in one_l if s in pair_l}
+        rec["state"] = {step: state_parity(torch,
+                                           saved_model(tmp, "pair", step),
+                                           saved_model(tmp, "one", step))
+                        for step in (2, DDP_STEPS)}
+        rec["launches_one_process"] = run_launches([out_one])
+        rec["launches_per_rank"] = run_launches([out_pair])
+        # the logger's per-step rate (--sum_freq 1; both ranks' lines in
+        # the pair's): the card's own numbers, with up to seven processes
+        # sharing it
+        rec["steps_per_s"] = {
+            name: [float(v) for v in re.findall(r"\(([\d.]+) steps/s\)",
+                                                out)]
+            for name, out in (("one_process", out_one),
+                              ("two_ranks", out_pair))}
+        rec["preempt"] = {
+            "stopped_at_2": ["Preempted at step 2" in o for o in outs],
+            "sigterm_seen": ["received SIGTERM" in o for o in outs],
+            "checkpoints": pre_ckpts,
+            "launches_per_rank": run_launches(outs)}
+        dump = [line for line in err0.splitlines() if "STALL" in line]
+        rec["stall"] = {
+            "rank0_exit": stall[0].returncode,
+            "seconds_after_sigstop": (t_exit - stopped["t"]
+                                      if "t" in stopped else None),
+            "stall_line": dump[:1],
+            "dump_has_stacks": "most recent call first" in err0,
+            "rank1_exit": stall[1].returncode}
+        res_l = run_losses(tmp, "pre")
+        rec["resume"] = {
+            "resumed_at_2": ["Resumed full state at step 2" in o
+                             for o in outs_res],
+            "losses": res_l,
+            "rel_diff": {s: abs(res_l[s] - pair_l[s]) / abs(pair_l[s])
+                         for s in res_l},
+            "launches_per_rank": run_launches(outs_res)}
+        lap("read")
+    rec["nccl"] = nccl_check(torch, dev)
+    lap("nccl")
+    rec["seconds"]["total"] = sum(seconds.values())
+    b1 = {"two_ranks": [x["flash_fused_step"]
+                        for x in rec["launches_per_rank"]],
+          "preempt": [x["flash_fused_step"]
+                      for x in rec["preempt"]["launches_per_rank"]],
+          "resume": [x["flash_fused_step"]
+                     for x in rec["resume"]["launches_per_rank"]]}
+    rec["b1_launches"] = b1
+    runs = (rec["launches_per_rank"] + rec["preempt"]["launches_per_rank"]
+            + rec["resume"]["launches_per_rank"])
+    launches = {k: sum(x[k] for x in runs) for k in runs[0]}
+    launches["flash_fused_step"] += rec["nccl"]["b1_launches"][0]
+    rec["launches"] = launches
+    emit(rec)
+    st, nc, sp = rec["stall"], rec["nccl"], rec["state"]
+    if not (sorted(one_l) == sorted(pair_l) == list(range(1, DDP_STEPS + 1))
+            and all(np.isfinite(list(pair_l.values())))
+            and max(rec["loss_rel_diff"].values()) <= TOL_DDP_LOSS_REL
+            and sp[2]["rel_l2"] <= TOL_DDP_STATE2_REL_L2
+            and sp[DDP_STEPS]["rel_l2"] <= TOL_DDP_STATE_REL_L2
+            and all(x["bn_tensors"] > 0 and x["bn_counts_equal"]
+                    for x in sp.values())
+            and all(v <= TOL_DDP_BN_REL_L2[step, k.rsplit(".", 1)[1]]
+                    for step, x in sp.items()
+                    for k, v in x["bn_rel_l2"].items())
+            and any("backend=gloo world=2" in x for x in rec["backend_line"])
+            and b1["two_ranks"] == [12 * DDP_STEPS] * 2
+            and [x["flash_fused_step"] for x in
+                 rec["launches_one_process"]] == [12 * DDP_STEPS]
+            and rec["preempt"]["stopped_at_2"] == [True, True]
+            and rec["preempt"]["sigterm_seen"] == [False, True]
+            and rec["preempt"]["checkpoints"] == ["2"]
+            and b1["preempt"] == [24, 24]
+            and rec["resume"]["resumed_at_2"] == [True, True]
+            and sorted(res_l) == list(range(1, DDP_STEPS + 1))
+            and max(rec["resume"]["rel_diff"].values()) <= TOL_RESUME_REL
+            and b1["resume"] == [24, 24]
+            and st["rank0_exit"] == 98
+            and st["seconds_after_sigstop"] is not None
+            and st["seconds_after_sigstop"] <= DDP_STALL_TIMEOUT + 30
+            and st["stall_line"] and "step+data at step" in st["stall_line"][0]
+            and st["dump_has_stacks"]
+            and nc["backend"] == "nccl" and nc["all_reduce"] == [0, 1, 2, 3]
+            and nc["finite"] and nc["b1_launches"] == [12, 12]
+            and nc["loss_rel_diff"] <= TOL_DDP_LOSS_REL
+            and nc["state_rel_l2"] <= TOL_DDP_NCCL_STATE_REL_L2
+            and not any(v for k, v in launches.items()
+                        if k != "flash_fused_step")):
+        raise AssertionError(f"ddp: {rec}")
+    return rec
+
+
+# every phase: no process outlives the phase that started it
+for _name in [n for n in globals() if n.startswith("phase_")]:
+    globals()[_name] = contained(globals()[_name])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -3593,6 +4111,7 @@ def main(argv=None) -> int:
         return fail(f"no dexiraft_tpu_torch package beside {__file__}: run "
                     "from a checkout of the repository")
     sys.path.insert(0, REPO)
+    adopted = adopt_orphans()
 
     from dexiraft_tpu_torch.config import raft_v1, raft_v5
     from dexiraft_tpu_torch.ops import corr_kernels as ck
@@ -3679,6 +4198,9 @@ def main(argv=None) -> int:
     # DexiNed workload (no corr kernel)
     router = phase_router(torch, dev, smi)
     dexined = phase_dexined(torch, ck, dev, smi)
+    # data-parallel training on two ranks sharing the card, and a 1-rank
+    # NCCL group (A12's first half)
+    ddp = phase_ddp(torch, dev, smi)
     times = phase_times(torch, ck, gen, dev, v1_models, v5_models, smi)
 
     pc = "dexiraft_tpu/ops/pallas_corr.py"
@@ -3714,6 +4236,11 @@ def main(argv=None) -> int:
                                    + demo["launches"][entry["name"]]
                                    + recs["launches"][entry["name"]])
         entry["dexined_launches"] = dexined["launches"][entry["name"]]
+        # every rank's launches in the ddp phase's runs
+        entry["ddp_launches"] = ddp["launches"][entry["name"]]
+    # the processes every phase left behind, each stopped after it
+    stop_strays("main")
+    emit({"phase": "processes", "subreaper": adopted, "strays": STRAYS})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -3729,4 +4256,8 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        stop_strays("exit")
+    sys.exit(code)

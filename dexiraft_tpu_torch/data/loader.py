@@ -76,6 +76,26 @@ def world_compatible(batch_size: int, process_count: int) -> Optional[str]:
     return None
 
 
+def rank_rows(batch_size: int, microbatches: int, process_index: int,
+              process_count: int) -> np.ndarray:
+    """The rows of each global batch that host ``process_index`` reads
+    when the port's data-parallel step (parallel/layout.py) cuts the
+    batch into ``microbatches`` runs of consecutive rows and shards each
+    run over the hosts, as JAX's sharded step does: the
+    process_index-th block of every run, in run order. Raises when the
+    runs do not divide over the hosts."""
+    micro = batch_size // microbatches
+    if batch_size % microbatches or micro % process_count:
+        raise ValueError(
+            f"global batch {batch_size} in {microbatches} microbatch(es) "
+            f"of {micro} must divide over {process_count} hosts")
+    block = micro // process_count
+    return np.concatenate([
+        np.arange(k * micro + process_index * block,
+                  k * micro + (process_index + 1) * block)
+        for k in range(microbatches)])
+
+
 def _stack(samples) -> Batch:
     keys = [k for k in samples[0] if k != "extra_info"]
     return {k: np.stack([s[k] for s in samples]) for k in keys}
@@ -288,6 +308,7 @@ class Loader:
         prefetch: int = 4,
         process_index: int = 0,
         process_count: int = 1,
+        microbatches: int = 1,
         worker_mode: str = "thread",
         mp_start_method: str = "fork",
         max_retries: int = 3,
@@ -296,6 +317,10 @@ class Loader:
         if batch_size % process_count:
             raise ValueError(
                 f"global batch {batch_size} must divide over {process_count} hosts")
+        # one microbatch (the default) is the contiguous per-host slice
+        self._rows = (rank_rows(batch_size, microbatches, process_index,
+                                process_count)
+                      if microbatches > 1 and process_count > 1 else None)
         self.dataset = dataset
         self.global_batch = batch_size
         self.local_batch = batch_size // process_count
@@ -424,8 +449,11 @@ class Loader:
                               * self.global_batch
                               if drop_last else len(order))
                     for b0 in range(skip, usable, self.global_batch):
-                        lo = b0 + self.process_index * self.local_batch
-                        ids = order[lo:lo + self.local_batch]
+                        if self._rows is None:
+                            lo = b0 + self.process_index * self.local_batch
+                            ids = order[lo:lo + self.local_batch]
+                        else:
+                            ids = order[b0:b0 + self.global_batch][self._rows]
                         if len(ids) == 0:
                             continue
                         # tagged with the batch's (epoch, offset) so the

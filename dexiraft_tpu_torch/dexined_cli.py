@@ -19,8 +19,10 @@ and the inverted fused map at the source resolution, with per-image
 timing (main.py:133-147), the channel-swap ensemble (``--test_pich``) and
 ODS/OIS/AP against ``--gt_root``.
 
-``--stall_timeout`` other than 0 is refused: the hang watchdog is ROADMAP
-A12.
+``--stall_timeout`` arms the hang watchdog (resilience/watchdog.py) over
+every training step but the first (its cuDNN searches): a step that makes
+no progress for that many seconds dumps the step and every thread's stack
+and exits 98.
 """
 
 from __future__ import annotations
@@ -79,7 +81,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the JAX package's upsampler implementations, one "
                         "linear map: both build the port's transposed conv")
     p.add_argument("--stall_timeout", type=float, default=0.0,
-                   help="nonzero is refused: ROADMAP A12")
+                   help="hang watchdog: a training step making no "
+                        "progress for this many seconds dumps live "
+                        "stacks and exits 98 (0 = disabled)")
     p.add_argument("--test_pich", action="store_true",
                    help="channel-swap ensemble test (reference testPich, "
                         "main.py:149-187): second forward on the BGR-swapped "
@@ -194,7 +198,7 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer
 
 def train(args) -> None:
     from dexiraft_tpu_torch.device import resolve_device
-    from dexiraft_tpu_torch.train import checkpoint as ckpt_io
+    from dexiraft_tpu_torch.resilience.watchdog import HangWatchdog
     from dexiraft_tpu_torch.train.guard import DivergenceGuard
     from dexiraft_tpu_torch.train.state import TrainState
 
@@ -212,13 +216,26 @@ def train(args) -> None:
     state = TrainState(step=0, model=model, optimizer=optimizer,
                        generator=torch.Generator(device=dev).manual_seed(
                            args.seed))
-
-    n = len(dataset)
-    steps_per_epoch = args.steps_per_epoch or max(n // args.batch_size, 1)
     # finiteness-only: healthy BDCN multiscale losses run in the
     # thousands, so no magnitude threshold
     guard = DivergenceGuard(threshold=float("inf"),
                             max_rollbacks=args.max_rollbacks)
+    # hang watchdog: a stalled step dumps live stacks and exits 98 (inert
+    # at 0); stopped WITH the loop, also on the error path, so a still-
+    # armed watchdog never replaces the real traceback with a stall report
+    wd = HangWatchdog(args.stall_timeout,
+                      label=f"dexined[{args.dataset}]").start()
+    try:
+        _train_epochs(args, dataset, dev, step, state, guard, wd)
+    finally:
+        wd.stop()
+
+
+def _train_epochs(args, dataset, dev, step, state, guard, wd) -> None:
+    from dexiraft_tpu_torch.train import checkpoint as ckpt_io
+
+    n = len(dataset)
+    steps_per_epoch = args.steps_per_epoch or max(n // args.batch_size, 1)
     # only checkpoints written by THIS run are valid rollback targets —
     # --checkpoint defaults to a constant dir, and splicing a previous
     # experiment's weights into this one would be silent corruption
@@ -231,6 +248,9 @@ def train(args) -> None:
             ids = order[(b * args.batch_size) % n:][:args.batch_size]
             if len(ids) < args.batch_size:
                 ids = order[:args.batch_size]
+            if epoch or b:
+                # never armed over the first step (cuDNN's searches)
+                wd.arm(epoch * steps_per_epoch + b + 1)
             samples = [dataset.sample(int(i), np.random.default_rng(
                 (args.seed, epoch, int(i)))) for i in ids]
             images = to_nchw(np.stack([s["images"] for s in samples]), dev)
@@ -240,6 +260,9 @@ def train(args) -> None:
                 print(f"{time.ctime()} Epoch: {epoch} Sample {b}/"
                       f"{steps_per_epoch} Loss: {float(loss):.4f}",
                       flush=True)
+            # disarmed AFTER the cadence sync above: the step returns at
+            # launch, and float(loss) is where a wedged step blocks
+            wd.disarm()
 
         state.step = (epoch + 1) * steps_per_epoch
         # epoch-end divergence guard: the last-batch loss catches poison
@@ -355,9 +378,6 @@ def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     if not (args.train or args.test):
         raise SystemExit("need --train or --test")
-    if args.stall_timeout != 0.0:
-        raise SystemExit("dexined: --stall_timeout is not ported yet "
-                         "(the hang watchdog, ROADMAP A12)")
     if args.train:
         train(args)
     if args.test:

@@ -32,6 +32,12 @@ GRUs' gates use :func:`sigmoid`, which rounds where jax.nn.sigmoid does.
 batch norm in fp32 outputs, differ between the CPU and CUDA, and round at
 other places than flax; and it is thread-local state, while the engines
 run the model on ``DeviceThread``s of their own.
+
+Data-parallel training (:func:`set_data_mesh`) gives every BatchNorm and
+channel dropout the data axis: BatchNorm then normalises with the
+statistics of the global microbatch, as under JAX's data-sharded step,
+and dropout draws the global microbatch's masks and keeps this rank's
+rows.
 """
 
 from __future__ import annotations
@@ -86,18 +92,71 @@ class _Fp32Norm(ComputeDtype):
         return super().forward(x.to(torch.float32)).to(dt)
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over the ranks; the backward sums the gradient over the ranks
+    too, so each rank's backward carries every rank's terms."""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+
+        t = t.clone()
+        dist.all_reduce(t)
+        return t
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+
+        g = g.clone()
+        dist.all_reduce(g)
+        return g
+
+
+def _global_var_mean(x: torch.Tensor, mesh) -> "tuple[torch.Tensor, ...]":
+    """The biased per-channel (var, mean) of the global batch whose rows
+    ``x`` (N, C, H, W) holds on rank ``mesh.rank``: each rank's count,
+    mean and sum of squared deviations, gathered by one differentiable
+    all-reduce (each rank fills its own row of a zero table) and merged
+    by Chan's parallel rule, which stays as exact as a two-pass variance
+    whatever the channel's mean."""
+    var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+    n = float(x.shape[0] * x.shape[2] * x.shape[3])
+    row = torch.cat([mean.new_full((1,), n), mean, var * n])
+    table = _AllReduceSum.apply(F.pad(
+        row[None], (0, 0, mesh.rank, mesh.size - 1 - mesh.rank)))
+    c = mean.numel()
+    counts, means, m2 = table[:, :1], table[:, 1:c + 1], table[:, c + 1:]
+    total = counts.sum()
+    gmean = (counts * means).sum(0) / total
+    gm2 = m2.sum(0) + (counts * (means - gmean).square()).sum(0)
+    return gm2 / total, gmean
+
+
 class _FlaxBatchNorm2d(nn.BatchNorm2d):
+    #: the data axis (a grouped parallel.World) whose global microbatch
+    #: the training-mode statistics cover; None: this process's rows
+    mesh = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.mesh is not None:
+            var, mean = _global_var_mean(x, self.mesh)
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            if self.mesh is None:
+                var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
             self.running_var.mul_(1.0 - m).add_(var, alpha=m)
             self.num_batches_tracked.add_(1)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                            self.eps)
+        if self.mesh is None:
+            return F.batch_norm(x, None, None, self.weight, self.bias, True,
+                                0.0, self.eps)
+        shape = (1, -1, 1, 1)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean.reshape(shape)) * scale.reshape(shape)
+                + self.bias.reshape(shape))
 
 
 class BatchNorm2d(_Fp32Norm, _FlaxBatchNorm2d):
@@ -128,6 +187,18 @@ def sigmoid(x: torch.Tensor) -> torch.Tensor:
     return 1 / (1 + torch.exp(-x))
 
 
+def set_data_mesh(model: nn.Module, mesh, micro: int = 0) -> nn.Module:
+    """Give every BatchNorm and channel dropout of ``model`` the data axis
+    ``mesh`` (a grouped parallel.World; None: this process's rows only)
+    and the row count ``micro`` of this rank's microbatch."""
+    for m in model.modules():
+        if isinstance(m, (_FlaxBatchNorm2d, ChannelDropout)):
+            m.mesh = mesh
+        if isinstance(m, ChannelDropout):
+            m.micro = micro
+    return model
+
+
 def set_compute_dtype(model: nn.Module, dtype: Optional[torch.dtype]
                       ) -> nn.Module:
     """Give every conv and norm of ``model`` the compute dtype ``dtype``
@@ -149,13 +220,28 @@ class ChannelDropout(nn.Module):
         super().__init__()
         self.p = p
         self.generator: Optional[torch.Generator] = None
+        # the data axis (a grouped parallel.World) and the rows of this
+        # rank's microbatch (set_data_mesh)
+        self.mesh = None
+        self.micro = 0
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p <= 0.0:
             return x
         keep = 1.0 - self.p
-        u = torch.rand((x.shape[0], x.shape[1], 1, 1), device=x.device,
-                       generator=self.generator)
+        n, c = x.shape[:2]
+        if self.mesh is None:
+            u = torch.rand((n, c, 1, 1), device=x.device,
+                           generator=self.generator)
+        else:
+            # x stacks n // micro chunks (frame 1's rows, then frame 2's,
+            # ...), each this rank's block of the global chunk: draw the
+            # global batch's masks and keep that block of every chunk
+            size = self.mesh.size
+            u = torch.rand((n * size, c, 1, 1), device=x.device,
+                           generator=self.generator)
+            u = u.view(n // self.micro, size, self.micro, c, 1, 1)[
+                :, self.mesh.rank].reshape(n, c, 1, 1)
         return torch.where(u < keep, x / keep, 0.0)
 
     def extra_repr(self) -> str:

@@ -164,6 +164,7 @@ def restore_verified(
     step: Optional[int] = None,
     verbose: bool = True,
     clean_debris: bool = False,
+    delete_bad: bool = True,
 ) -> Tuple[Any, int, Dict[str, Any]]:
     """Restore the newest step (<= ``step`` if given) that passes
     verification into ``template`` (a TrainState, in place), falling back
@@ -175,6 +176,9 @@ def restore_verified(
     its own run): a reader must never delete what may be another
     process's in-flight flush. Readers still get the debris REPORTED,
     so a crashed run's leftovers are visible wherever they are seen.
+
+    delete_bad=False leaves the steps that fail verification in place
+    (a data-parallel run's non-writing ranks: rank 0 deletes them).
 
     Raises CheckpointIntegrityError when every candidate fails —
     crashing with the full skip list beats silently training from a
@@ -211,14 +215,15 @@ def restore_verified(
                       f"previous step", flush=True)
             continue
         state, extra = ckpt.apply_payload(template, payload)
-        for bad, _ in skipped:
+        for bad, _ in (skipped if delete_bad else ()):
             # remove what failed verification: a damaged step left behind
             # would stay the directory's newest until training re-saves
             # that step number (see module docstring)
             ckpt.delete_step(directory, bad)
         if skipped and verbose:
             print(f"[resilience] restored step {s} after skipping "
-                  f"{len(skipped)} bad step(s) (now deleted): "
+                  f"{len(skipped)} bad step(s)"
+                  f"{' (now deleted)' if delete_bad else ''}: "
                   f"{[b for b, _ in skipped]}", flush=True)
         return state, s, extra
     raise CheckpointIntegrityError(

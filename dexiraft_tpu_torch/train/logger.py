@@ -14,10 +14,25 @@ from __future__ import annotations
 
 import json
 import os
+import sys
 import time
+import types
 from typing import Dict, Optional
 
 import torch
+
+
+def _tensorboard_without_tensorflow() -> None:
+    """Have TensorBoard's writer use its own file API, not TensorFlow's.
+
+    The writer reaches files through ``tensorboard.compat.tf``, which
+    imports TensorFlow wherever it is installed: ~15 s of CPU at the start
+    of every process that logs. A module named ``tensorboard.compat.notf``
+    selects TensorBoard's stub instead (``tensorboard/compat/__init__.py``),
+    which writes the same event files. No effect once ``tf`` has resolved
+    in this process."""
+    sys.modules.setdefault("tensorboard.compat.notf",
+                           types.ModuleType("tensorboard.compat.notf"))
 
 
 def _to_host(values: list) -> list:
@@ -60,6 +75,7 @@ class Logger:
             self._jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a")
             if tensorboard:
                 try:
+                    _tensorboard_without_tensorflow()
                     from torch.utils.tensorboard import SummaryWriter
 
                     self._tb = SummaryWriter(log_dir)

@@ -1,7 +1,8 @@
 """The train step and the test-mode steps the inference engines drive.
 
 Counterpart of ``make_train_step``, ``make_eval_step``, ``make_encode_step``
-and ``make_refine_step`` in ``dexiraft_tpu/train/step.py``, on one device.
+and ``make_refine_step`` in ``dexiraft_tpu/train/step.py``, on one device;
+the train step also runs data-parallel over ranks (its ``mesh=``).
 PyTorch runs eagerly, so there is nothing to compile: a test-mode step
 moves host arrays to the device, runs the model under
 ``torch.inference_mode()`` and returns device tensors; the train step runs
@@ -26,11 +27,16 @@ from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dexiraft_tpu_torch.config import RAFTConfig, TrainConfig
 from dexiraft_tpu_torch.device import resolve_device
+from dexiraft_tpu_torch.models.layers import set_data_mesh
 from dexiraft_tpu_torch.models.raft import RAFT
-from dexiraft_tpu_torch.ops.losses import sequence_loss
+from dexiraft_tpu_torch.ops.losses import (METRIC_KEYS, metrics_from_sums,
+                                           sequence_loss_sums)
+from dexiraft_tpu_torch.parallel.distributed import World
+from dexiraft_tpu_torch.parallel.layout import local_rows
 from dexiraft_tpu_torch.train.state import TrainState, train_model_config
 
 # The eval step's convolutions: fp32 (TF32 off). On an H100 at 440x1024,
@@ -269,10 +275,31 @@ def _state_tensors(state: TrainState):
 
 
 def _add_noise(image: torch.Tensor, stdv: torch.Tensor,
-               generator: torch.Generator) -> torch.Tensor:
-    """Gaussian noise at ``stdv``, clipped to [0, 255]."""
-    noise = torch.randn(image.shape, device=image.device, generator=generator)
+               generator: torch.Generator,
+               rows: Optional[torch.Tensor] = None,
+               batch: int = 0) -> torch.Tensor:
+    """Gaussian noise at ``stdv``, clipped to [0, 255]. ``rows``: the
+    image holds those rows of a global batch of ``batch`` rows; the
+    global batch's noise is drawn and its ``rows`` kept, so every rank
+    draws what one process draws."""
+    shape = image.shape if rows is None else (batch,) + image.shape[1:]
+    noise = torch.randn(shape, device=image.device, generator=generator)
+    if rows is not None:
+        noise = noise[rows.to(image.device)]
     return (image + stdv * noise).clamp(0.0, 255.0)
+
+
+def _all_reduce_grads_(model: RAFT, size: int) -> None:
+    """Average the gradients over the ``size`` ranks: one all-reduce of
+    one flat buffer."""
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat)
+    flat.div_(size)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
 
 
 def make_train_step(cfg: RAFTConfig, tc: TrainConfig, mesh=None,
@@ -294,6 +321,20 @@ def make_train_step(cfg: RAFTConfig, tc: TrainConfig, mesh=None,
     parameters, BatchNorm stats and Adam moments).
 
     Dropout masks and noise are drawn from ``state.generator``.
+
+    ``mesh`` (a grouped ``parallel.World``, as ``parallel.make_train_mesh``
+    returns it): the data-parallel step, which computes what one process
+    computes at the global batch. ``batch`` holds this rank's rows of the
+    global batch: the rank-th block of each microbatch
+    (``parallel.local_rows``; ``Loader(..., microbatches=accum_steps)``
+    reads them). The noise and
+    dropout masks of the global batch are drawn on every rank (their
+    generators stay equal) and each keeps its rows; BatchNorm normalises
+    with the global microbatch's statistics (``models.layers.
+    set_data_mesh``); the gradients are averaged over the ranks before
+    the clip and AdamW; the loss is the mean of the ranks' losses (equal
+    row counts), EPE and the px rates are reduced as sums over valid
+    pixels, and state_finite is false if it is false on any rank.
     ``edge_sum_fusion`` (v1): the model runs on the image pair and on the
     edge pair, and the per-iteration flows are summed. ``freeze_bn``: every
     BatchNorm runs on its running stats.
@@ -305,8 +346,8 @@ def make_train_step(cfg: RAFTConfig, tc: TrainConfig, mesh=None,
     stats stay fp32, with no loss scaling (bf16 has fp32's exponent
     range), as in JAX.
 
-    Refused, with the ROADMAP item that ports them: a mesh or
-    ``compute_sharding="halo"`` (A12).
+    Refused, with the ROADMAP item that ports them: any other mesh
+    (fsdp, seq) and ``compute_sharding="halo"`` (A12).
     """
     if tc.precision not in ("fp32", "bf16"):
         raise ValueError(f"precision must be fp32|bf16, got {tc.precision!r}")
@@ -316,10 +357,12 @@ def make_train_step(cfg: RAFTConfig, tc: TrainConfig, mesh=None,
         raise ValueError(f"compute_sharding must be fence|halo, "
                          f"got {compute_sharding!r}")
     cfg = train_model_config(cfg, tc)
-    if mesh is not None or compute_sharding == "halo":
-        raise ValueError("a device mesh and compute_sharding='halo' are not "
-                         "ported to PyTorch yet (ROADMAP A12); the port "
-                         "trains on one device")
+    if compute_sharding == "halo" or not (
+            mesh is None or isinstance(mesh, World) and mesh.grouped):
+        raise ValueError("fsdp/seq meshes and compute_sharding='halo' are "
+                         "not ported to PyTorch yet (ROADMAP A12); the port "
+                         "trains data-parallel over a process group "
+                         "(parallel.make_train_mesh's World)")
     if tc.edge_sum_fusion and (cfg.variant != "raft" or cfg.embed_dexined):
         raise ValueError(
             "edge_sum_fusion is the v1 (plain 'raft') training fusion — "
@@ -354,44 +397,63 @@ def make_train_step(cfg: RAFTConfig, tc: TrainConfig, mesh=None,
         if not isinstance(valid, torch.Tensor):
             valid = torch.from_numpy(np.ascontiguousarray(valid))
         b["valid"] = valid.to(dev, torch.float32, non_blocking=True)
+        accum = tc.accum_steps
+        n = b["image1"].shape[0]
+        if n % accum:
+            raise ValueError(
+                f"batch {n} not divisible by accum_steps {accum}")
+        ranks = 1 if mesh is None else mesh.size
+        rows = local_rows(n * ranks, accum, mesh)
+        set_data_mesh(model, mesh, n // accum)
         with eval_arithmetic(TRAIN_TF32):
             if tc.add_noise:
                 stdv = torch.rand((), device=dev, generator=gen) * 5.0
-                b["image1"] = _add_noise(b["image1"], stdv, gen)
-                b["image2"] = _add_noise(b["image2"], stdv, gen)
+                b["image1"] = _add_noise(b["image1"], stdv, gen, rows,
+                                         n * ranks)
+                b["image2"] = _add_noise(b["image2"], stdv, gen, rows,
+                                         n * ranks)
             model.train()
             if tc.freeze_bn:
                 model.freeze_bn()
-            accum = tc.accum_steps
-            n = b["image1"].shape[0]
-            if n % accum:
-                raise ValueError(
-                    f"batch {n} not divisible by accum_steps {accum}")
             micro = n // accum
             opt.zero_grad(set_to_none=True)
-            losses, seq_metrics = [], []
+            losses, seq_sums = [], []
             for i in range(accum):
                 mb = {k: v[i * micro:(i + 1) * micro] for k, v in b.items()
                       if v is not None}
                 with torch.enable_grad():
                     preds = forward(model, mb)
-                    loss, metrics = sequence_loss(preds, mb["flow"],
-                                                  mb["valid"], tc.gamma)
+                    loss, sums = sequence_loss_sums(preds, mb["flow"],
+                                                    mb["valid"], tc.gamma)
                     loss.backward()
                 losses.append(loss.detach())
-                seq_metrics.append({k: v.detach() for k, v in metrics.items()})
+                seq_sums.append(sums.detach())
             if accum > 1:
                 for p in model.parameters():
                     if p.grad is not None:
                         p.grad.div_(accum)
+            if mesh is not None:
+                _all_reduce_grads_(model, mesh.size)
             lr = opt.current_lr()
             opt.step()
             state.step += 1
-            out = {k: torch.stack([m[k] for m in seq_metrics]).mean()
-                   for k in seq_metrics[0]}
-            out["loss"] = torch.stack(losses).mean()
+            finite = all_finite(_state_tensors(state))
+            losses, seq_sums = torch.stack(losses), torch.stack(seq_sums)
+            if mesh is not None:
+                # one all-reduce: the ranks' losses, metric sums and
+                # non-finite verdicts
+                vec = torch.cat([losses, seq_sums.reshape(-1),
+                                 (~finite).to(torch.float32).reshape(1)])
+                dist.all_reduce(vec)
+                losses = vec[:accum] / mesh.size
+                seq_sums = vec[accum:-1].reshape(accum, -1)
+                finite = vec[-1] == 0
+            per_micro = [metrics_from_sums(sums) for sums in seq_sums]
+            out = {k: torch.stack([m[k] for m in per_micro]).mean()
+                   for k in METRIC_KEYS}
+            out["loss"] = losses.mean()
             out["lr"] = lr
-            out["state_finite"] = all_finite(_state_tensors(state))
+            out["state_finite"] = finite
         return state, out
 
     return step

@@ -1,12 +1,13 @@
-"""Training CLI of the PyTorch port, on one device.
+"""Training CLI of the PyTorch port, on one device or data-parallel.
 
   python -m dexiraft_tpu_torch train --stage chairs --name raft-chairs \\
       --variant v1
   python -m dexiraft_tpu_torch train --preset standard --stage things \\
       --restore_ckpt checkpoints/raft-chairs
+  torchrun --nproc_per_node 2 -m dexiraft_tpu_torch train --stage chairs
 
 Counterpart of ``dexiraft_tpu/train_cli.py``: the same flags, defaults and
-preset resolution (``resolve_configs``), and its loop on one device:
+preset resolution (``resolve_configs``), and its loop:
 fetch_dataset -> Loader -> prefetch to the device -> create_state -> train
 step -> Logger -> DivergenceGuard -> every ``--val_freq`` steps a
 checkpoint, retention's GC (``--keep``, ``--keep_best``) and the
@@ -42,9 +43,28 @@ draws nothing from the train state's generator.
 ``--mixed_precision`` (or ``--precision bf16``, which implies it) trains
 the model in bf16 over fp32 parameters; ``--remat`` and ``--remat_lookup``
 recompute each iteration (or only its lookup) in the backward, as the JAX
-CLI's flags do. Refused, each naming the ROADMAP item that ports it:
-``--fsdp``, ``--elastic``, ``--join`` and a nonzero ``--stall_timeout``
-(A12); ``--strict`` (A13).
+CLI's flags do.
+
+Under torchrun (``parallel.distributed.initialize``, before anything
+touches a card) each rank trains on its rows of the global batch
+``--batch_size`` through the data-parallel step (``make_train_step(...,
+mesh=)``), which computes what one process computes at that batch. Every
+failure verdict is collective, over ``resilience.coord.Coordinator``:
+the guard's rollback (and its agreed target step), the resume step
+(``agree_step`` over the verified restore), and preemption, polled
+every ``--coord_every`` steps (one rank's SIGTERM stops every rank at
+the same step, with one emergency checkpoint). Rank 0 writes the
+checkpoints, ``retention.json`` and the logs, and runs validation; the
+other ranks wait at a coordinator barrier. ``--coord_timeout_s`` bounds
+every consensus round but the wait for rank 0's validation, which only
+the watchdog's validation window bounds (nothing with the watchdog off),
+as JAX's ranks validate with no consensus deadline. ``--stall_timeout``
+arms the hang watchdog (``resilience.watchdog``): a step, barrier or
+save that makes no progress for that long (10x for checkpoint and
+validation windows) dumps the step, the region and every thread's stack
+and exits 98; ``--straggler_factor`` x the step-time EWMA warns first.
+Refused, each naming the ROADMAP item that ports it: ``--fsdp``,
+``--elastic`` and ``--join`` (A12); ``--strict`` (A13).
 ``--restore_ckpt`` takes a checkpoint of this trainer or a state-dict file
 (the bridge's layout); an orbax directory is refused (A10). PyTorch runs
 eagerly, so ``--compile_cache`` has nothing to cache and only says so.
@@ -57,7 +77,6 @@ import dataclasses
 import json
 import os
 import os.path as osp
-import signal
 import sys
 from typing import Dict
 
@@ -192,10 +211,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "SIGTERM) or kill_mid_flush@N (the next checkpoint "
                         "write exits the process before its commit)")
     p.add_argument("--stall_timeout", type=float, default=0.0,
-                   help="nonzero is refused: ROADMAP A12")
-    p.add_argument("--straggler_factor", type=float, default=10.0)
-    p.add_argument("--coord_every", type=int, default=10)
-    p.add_argument("--coord_timeout_s", type=float, default=600.0)
+                   help="hang watchdog: a step making no progress for this "
+                        "many seconds dumps live stacks and exits 98 "
+                        "(0 = disabled)")
+    p.add_argument("--straggler_factor", type=float, default=10.0,
+                   help="warn when a step runs this many times the "
+                        "step-time EWMA")
+    p.add_argument("--coord_every", type=int, default=10,
+                   help="multi-rank: poll the collective preemption verdict "
+                        "every N steps")
+    p.add_argument("--coord_timeout_s", type=float, default=600.0,
+                   help="multi-rank: seconds a consensus round waits for "
+                        "a silent peer (not the wait for rank 0's "
+                        "validation)")
     p.add_argument("--elastic", action="store_true",
                    help="refused: ROADMAP A12")
     p.add_argument("--min_hosts", type=int, default=1)
@@ -204,7 +232,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--strict", action="store_true",
                    help="refused: ROADMAP A13")
     p.add_argument("--device", default="cuda",
-                   help="'cuda' (default) or 'cpu'")
+                   help="'cuda' (default; under torchrun cuda:LOCAL_RANK), "
+                        "'cuda:N' (every rank on card N) or 'cpu'")
     return p
 
 
@@ -214,7 +243,6 @@ def refuse_unported(args) -> None:
         (args.fsdp is not None, "--fsdp", "A12"),
         (args.elastic, "--elastic", "A12"),
         (args.join is not None, "--join", "A12"),
-        (args.stall_timeout != 0.0, "--stall_timeout", "A12"),
         (args.strict, "--strict", "A13"),
     )
     for bad, flag, item in refused:
@@ -223,9 +251,13 @@ def refuse_unported(args) -> None:
                              f"(ROADMAP {item}); use the JAX package "
                              "(python -m dexiraft_tpu train) for it")
     if args.coord_every < 1:
-        raise SystemExit("train: --coord_every must be >= 1")
+        raise SystemExit("train: --coord_every must be >= 1 (it is a step "
+                         "modulus; the preemption broadcast keeps the ranks "
+                         "exiting together)")
     if args.coord_timeout_s <= 0:
-        raise SystemExit("train: --coord_timeout_s must be > 0")
+        raise SystemExit("train: --coord_timeout_s must be > 0 (a consensus "
+                         "round with no timeout hangs on the first dead "
+                         "peer)")
 
 
 def resolve_configs(args) -> "tuple[RAFTConfig, TrainConfig]":
@@ -280,36 +312,6 @@ def resolve_configs(args) -> "tuple[RAFTConfig, TrainConfig]":
     return cfg, dataclasses.replace(base, **overrides)
 
 
-class _Preemption:
-    """SIGTERM/SIGINT set a flag the loop reads at step boundaries; a
-    second signal aborts at once."""
-
-    def __init__(self):
-        self.signum = None
-        self._previous = {}
-
-    def _handle(self, signum, frame):
-        if self.signum is not None:
-            raise SystemExit(f"second {signal.Signals(signum).name} during "
-                             "preemption handling")
-        self.signum = signum
-        print(f"[preempt] received {signal.Signals(signum).name}; finishing "
-              "the current step", flush=True)
-
-    def __enter__(self):
-        for s in (signal.SIGTERM, signal.SIGINT):
-            try:
-                self._previous[s] = signal.signal(s, self._handle)
-            except ValueError:  # not the main thread: stay inert
-                pass
-        return self
-
-    def __exit__(self, *exc):
-        for s, prev in self._previous.items():
-            signal.signal(s, prev)
-        return False
-
-
 def _make_validators(model_fn, dev):
     """run(name) -> that set's metric dict, from its validator over the
     CURRENT model (``model_fn()``) at ``_VAL_ITERS[name]`` iterations.
@@ -360,8 +362,10 @@ def _open_records(args, tc: TrainConfig):
     return records
 
 
-def train(cfg: RAFTConfig, tc: TrainConfig, args) -> None:
-    """The training loop (module docstring)."""
+def train(cfg: RAFTConfig, tc: TrainConfig, args, world=None) -> None:
+    """The training loop (module docstring). ``world``: this process's
+    ``parallel.World`` (``initialize()``'s; None: a single process on
+    ``--device``)."""
     import torch
 
     from dexiraft_tpu_torch.data.datasets import fetch_dataset
@@ -369,23 +373,37 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args) -> None:
     from dexiraft_tpu_torch.data.prefetch import DevicePrefetcher
     from dexiraft_tpu_torch.device import resolve_device
     from dexiraft_tpu_torch.ops import corr_kernels
+    from dexiraft_tpu_torch.parallel import World, make_train_mesh
+    from dexiraft_tpu_torch.resilience.coord import Coordinator
+    from dexiraft_tpu_torch.resilience.preemption import PreemptionHandler
     from dexiraft_tpu_torch.resilience.retention import RetentionPolicy
     from dexiraft_tpu_torch.resilience.stream import (LoaderKindMismatch,
                                                       StreamPosition,
                                                       position_extra,
                                                       position_from_extra)
     from dexiraft_tpu_torch.resilience.verify import restore_verified
+    from dexiraft_tpu_torch.resilience.watchdog import HangWatchdog
     from dexiraft_tpu_torch.train import checkpoint as ckpt
     from dexiraft_tpu_torch.train.guard import DivergenceGuard
     from dexiraft_tpu_torch.train.logger import Logger
     from dexiraft_tpu_torch.train.state import create_state, param_count
     from dexiraft_tpu_torch.train.step import make_train_step
 
-    dev = resolve_device(args.device)
+    if world is None:
+        world = World(0, 1, 0, resolve_device(args.device))
+    dev = world.device
+    # rank 0 writes the checkpoints, retention.json and the logs, and
+    # validates; every rank restores and trains
+    writer = world.rank == 0
+    try:
+        mesh = make_train_mesh(tc.batch_size, world, tc.accum_steps)
+    except ValueError as e:
+        raise SystemExit(f"train: {e}")
     np.random.seed(tc.seed)
     ckpt_dir = osp.join(args.output, tc.name)
     if args.compile_cache or args.compile_cache_dir:
         print("[cache] nothing to cache: the PyTorch port runs eagerly")
+    # every rank builds the same seeded state (and generator)
     state = create_state(cfg, tc, device=dev)
     print(f"Parameter Count: {param_count(state.model)}")
     # which data plane feeds this run, stamped into every checkpoint (kind
@@ -399,15 +417,57 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args) -> None:
     # position of the NEXT global batch to consume
     stream = StreamPosition()
     last_saved = None
-    if args.resume and ckpt.latest_step(ckpt_dir) is not None:
+    # rank consensus (resilience.coord): identity on one process, one
+    # store round per decision across ranks, so every failure verdict
+    # below (divergence, preemption, resume step) is the SAME on every
+    # rank and no rank rolls back or exits alone into a hung collective
+    coord = Coordinator(size=world.size, index=world.rank,
+                        timeout_s=args.coord_timeout_s)
+    # hang watchdog: started BEFORE the first consensus round, so a peer
+    # dying during the startup restore is bounded like any other hang
+    # (inert at --stall_timeout 0)
+    wd = HangWatchdog(args.stall_timeout,
+                      straggler_factor=args.straggler_factor,
+                      label=f"train[{tc.name}]").start()
+    wd.arm(0, "coord-warmup", steady=False)
+    try:
+        coord.warmup()
+    finally:
+        wd.disarm()
+    # the resume decision is collective: a rank that skipped agree_step
+    # would strand its peers mid-round, and a run where only some ranks
+    # see checkpoints refuses rather than splicing a stale directory in
+    have_ckpt = args.resume and ckpt.latest_step(ckpt_dir) is not None
+    all_have = args.resume and not coord.any_flag(not have_ckpt)
+    have_any = args.resume and coord.any_flag(have_ckpt)
+    if have_any and not all_have:
+        raise SystemExit(
+            f"[resume] checkpoints under {ckpt_dir} are visible to "
+            f"{'this rank' if have_ckpt else 'a peer rank'} but not to "
+            "every rank; give every rank the same checkpoint directory, "
+            "or drop --resume and use a fresh --name/--output")
+    extras: Dict[int, dict] = {}
+
+    def restore(bound):
+        """The verified restore at or below ``bound``; the writer alone
+        sweeps a crashed flush's debris and deletes what fails."""
+        st, step, extra = restore_verified(ckpt_dir, state, step=bound,
+                                           clean_debris=writer,
+                                           delete_bad=writer)
+        extras[step] = extra
+        return st, step
+
+    if all_have:
         # verified restore: a truncated/non-finite newest step falls back
-        # to the previous one; this trainer owns the directory, so the
-        # debris of a crash mid-flush is swept
-        state, last_saved, extra = restore_verified(ckpt_dir, state,
-                                                    clean_debris=True)
+        # to the previous one; agree_step pins every rank to the SAME step
+        wd.arm(0, "resume-restore", steady=False)
         try:
-            pos = position_from_extra(extra, last_saved, seed=tc.seed,
-                                      loader_kind=loader_kind,
+            state, last_saved = coord.agree_step(restore, None)
+        finally:
+            wd.disarm()
+        try:
+            pos = position_from_extra(extras[last_saved], last_saved,
+                                      seed=tc.seed, loader_kind=loader_kind,
                                       fingerprint=fingerprint)
         except LoaderKindMismatch as e:
             raise SystemExit(f"[resume] {e}")
@@ -424,8 +484,12 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args) -> None:
         print(f"Partial restore from {args.restore_ckpt} "
               f"({len(skipped)} keys fresh)")
 
+    # each rank reads its rows of every global batch: the rank-th block
+    # of each microbatch (parallel.layout)
     loader_kwargs = dict(seed=tc.seed, num_workers=args.num_workers,
-                         worker_mode=args.worker_mode, mp_start_method="spawn")
+                         worker_mode=args.worker_mode, mp_start_method="spawn",
+                         process_index=world.rank, process_count=world.size,
+                         microbatches=tc.accum_steps)
     if records is not None:
         from dexiraft_tpu_torch.data.records import RecordLoader
 
@@ -440,34 +504,45 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args) -> None:
         print(f"Training with {len(dataset)} image pairs")
         loader = Loader(dataset, tc.batch_size, **loader_kwargs)
     per_epoch = max(len(loader), 1)
-    step_fn = make_train_step(cfg, tc)
-    logger = Logger(tc.sum_freq, log_dir=osp.join(args.log_dir, tc.name),
-                    model_iters=tc.iters, pipeline_stats=loader.stats)
+    step_fn = make_train_step(cfg, tc, mesh=mesh)
+    logger = Logger(tc.sum_freq,
+                    log_dir=osp.join(args.log_dir, tc.name) if writer
+                    else None,
+                    tensorboard=writer, model_iters=tc.iters,
+                    pipeline_stats=loader.stats)
     total_steps = state.step
     logger.rewind(total_steps)
     guard = DivergenceGuard(args.guard_threshold, args.max_rollbacks)
     configs = {"raft": cfg, "train": tc}
     # bound to ckpt_dir: --keep_best scores persist in
     # <ckpt_dir>/retention.json, so a resumed run still knows the best step
-    retention = RetentionPolicy(args.keep, args.keep_best, directory=ckpt_dir)
+    retention = RetentionPolicy(args.keep, args.keep_best,
+                                directory=ckpt_dir if writer else None)
     validate = _make_validators(lambda: state.model, dev)
 
     def save(step: int, block: bool = False) -> None:
+        """Rank 0 hands the checkpoint to its flush (``block``: and waits
+        for the commit); then every rank meets at a barrier, so no rank
+        runs ahead of a save (or past an emergency save's commit)."""
         nonlocal last_saved
-        info = ckpt.wait_pending(ckpt_dir)
-        _note_flush(info)
-        # GC before the new flush is handed off; the rollback target stays
-        retention.apply(ckpt_dir, protect=(last_saved,))
-        extra = position_extra(stream, seed=tc.seed, loader_kind=loader_kind,
-                               fingerprint=fingerprint)
-        ckpt.save_checkpoint(ckpt_dir, state, step=step, block=False,
-                             extra=extra, configs=configs)
-        if block:
+        if writer:
             info = ckpt.wait_pending(ckpt_dir)
             _note_flush(info)
-            if info and info["error"]:
-                raise RuntimeError(f"checkpoint flush of step {step} failed: "
-                                   f"{info['error']}")
+            # GC before the new flush is handed off; the rollback target
+            # stays
+            retention.apply(ckpt_dir, protect=(last_saved,))
+            extra = position_extra(stream, seed=tc.seed,
+                                   loader_kind=loader_kind,
+                                   fingerprint=fingerprint)
+            ckpt.save_checkpoint(ckpt_dir, state, step=step, block=False,
+                                 extra=extra, configs=configs)
+            if block:
+                info = ckpt.wait_pending(ckpt_dir)
+                _note_flush(info)
+                if info and info["error"]:
+                    raise RuntimeError(f"checkpoint flush of step {step} "
+                                       f"failed: {info['error']}")
+        coord.barrier(f"save@{step}")
         last_saved = step
 
     def _note_flush(info) -> None:
@@ -490,12 +565,16 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args) -> None:
     prof = None
     metrics = None
     preempted = False
+    first_iteration = True
     batches = DevicePrefetcher(
         loader.batches(start_epoch=stream.epoch, start_offset=stream.offset),
         dev,
         depth=tc.prefetch_depth, pipeline_stats=loader.stats)
+    preempt = PreemptionHandler()
     try:
-        with _Preemption() as preempt:
+        with preempt:
+            # not armed over the first iteration: its cuDNN searches and
+            # kernel builds would trip a step-sized timeout
             for batch in batches:
                 if prof is None and prof_start <= total_steps < prof_stop:
                     prof = torch.profiler.profile(activities=(
@@ -514,7 +593,8 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args) -> None:
                 if prof is not None and total_steps >= prof_stop:
                     prof.__exit__(None, None, None)
                     path = osp.join(args.log_dir, tc.name, "profile",
-                                    "trace.json")
+                                    f"trace_rank{world.rank}.json"
+                                    if world.size > 1 else "trace.json")
                     os.makedirs(osp.dirname(path), exist_ok=True)
                     prof.export_chrome_trace(path)
                     prof, prof_start = None, -1
@@ -524,39 +604,93 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args) -> None:
                         total_steps % args.guard_every == 0
                         or total_steps % tc.val_freq == 0):
                     loss_v = float(metrics["loss"])
+                    # state_finite is the step's post-update verdict over
+                    # every rank (the loss certifies only the pre-update
+                    # parameters)
                     state_ok = bool(metrics["state_finite"])
-                    if guard.poisoned(loss_v, state_ok):
+                    poisoned_here = guard.poisoned(loss_v, state_ok)
+                    # a poisoned verdict on ANY rank rolls back ALL ranks
+                    if coord.any_flag(poisoned_here):
+                        # the agreed target: the newest step every rank
+                        # has saved (-1: nothing saved yet, which aborts)
+                        agreed = coord.min_int(
+                            last_saved if last_saved is not None else -1)
+                        target = None if agreed < 0 else agreed
                         msg = guard.consume_rollback(
-                            loss_v, state_ok, f"step {total_steps}",
-                            last_saved, ckpt_dir=ckpt_dir)
-                        _note_flush(ckpt.wait_pending(ckpt_dir))
-                        # verified: a damaged target falls back further
-                        state, last_saved, _ = restore_verified(
-                            ckpt_dir, state, step=last_saved,
-                            clean_debris=True)
+                            loss_v, state_ok, f"step {total_steps}"
+                            + ("" if poisoned_here
+                               else " (verdict from a peer rank)"),
+                            target, ckpt_dir=ckpt_dir)
+                        wd.disarm(feed_ewma=False)
+                        wd.arm(total_steps, "rollback-restore", steady=False)
+                        if writer:
+                            _note_flush(ckpt.wait_pending(ckpt_dir))
+                        # the target's flush has committed before any
+                        # rank reads it
+                        coord.barrier(f"rollback@{total_steps}")
+                        # verified: a damaged target falls back further,
+                        # and the ranks re-agree until they hold one step
+                        state, last_saved = coord.agree_step(restore,
+                                                             target)
                         print(f"[guard] loss {loss_v:.4g} "
-                              f"(state_finite={state_ok}) at step "
-                              f"{total_steps}; {msg}; restored step "
-                              f"{last_saved}")
+                              f"(state_finite={state_ok}, poisoned_here="
+                              f"{poisoned_here}) at step {total_steps}; "
+                              f"{msg}; restored step {last_saved}")
                         total_steps = state.step
                         logger.rewind(total_steps)
                         metrics = None
+                        wd.disarm(feed_ewma=False)
+                        wd.arm(total_steps + 1, "step+data")
                         continue
 
-                if preempt.signum is not None:
+                # preemption is a COLLECTIVE verdict: one rank's SIGTERM
+                # stops every rank at the same step. One process: the
+                # local flag every step; ranks: one store round every
+                # --coord_every steps
+                if coord.size == 1:
+                    stop_now = preempt.triggered
+                else:
+                    stop_now = (total_steps % args.coord_every == 0
+                                and coord.any_flag(preempt.triggered))
+                if stop_now:
                     preempted = True
+                    wd.disarm(feed_ewma=False)
+                    wd.arm(total_steps, "emergency-save", steady=False)
                     if args.on_preempt == "save":
-                        save(total_steps, block=True)
-                        print(f"[preempt] checkpoint: {ckpt_dir} step "
-                              f"{total_steps}; resume with --resume")
+                        poisoned = False
+                        if not args.no_guard and metrics is not None:
+                            poisoned = guard.poisoned(
+                                float(metrics["loss"]),
+                                bool(metrics["state_finite"]))
+                        # one rank's poison vetoes the save everywhere
+                        if coord.any_flag(poisoned):
+                            print(f"[preempt] state at step {total_steps} "
+                                  f"is poisoned; NOT saving — latest good "
+                                  f"checkpoint remains step {last_saved}")
+                        else:
+                            save(total_steps, block=True)
+                            print(f"[preempt] emergency checkpoint: "
+                                  f"{ckpt_dir} step {total_steps} (data "
+                                  f"stream epoch {stream.epoch}, batch "
+                                  f"{stream.offset}); resume with --resume")
+                    else:
+                        print(f"[preempt] --on_preempt abort: stopping "
+                              f"without saving (latest checkpoint: step "
+                              f"{last_saved})")
                     break
-                if total_steps % tc.val_freq == 0:
+                in_val_window = total_steps % tc.val_freq == 0
+                if in_val_window:
+                    # the step part of this iteration is done: the
+                    # (sanctioned, slow) checkpoint+validation window
+                    wd.disarm(feed_ewma=not first_iteration)
+                    wd.arm(total_steps, "checkpoint+validation",
+                           steady=False)
                     save(total_steps)
-                    if tc.validation:
+                    if writer and tc.validation:
                         # barrier before validation: --keep_best must not
                         # rank a step whose flush then fails
                         _note_flush(ckpt.wait_pending(ckpt_dir))
-                    for vname in tc.validation:
+                    for vname in (tc.validation if writer else ()):
                         results = validate(vname)
                         logger.write_dict(results, step=total_steps)
                         # the first EPE-like scalar of the first set ranks
@@ -567,12 +701,28 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args) -> None:
                             if epe_keys:
                                 retention.note_score(total_steps,
                                                      results[epe_keys[0]])
+                    if tc.validation:
+                        # the other ranks wait out rank 0's validation
+                        # (a full Sintel pass outlasts --coord_timeout_s):
+                        # no consensus deadline; the window armed above
+                        # bounds it at 10x --stall_timeout
+                        coord.barrier(f"validation@{total_steps}",
+                                      bounded=False)
                 if total_steps >= tc.num_steps:
                     break
+                # close this iteration's window (a validation window and
+                # the first, partial one stay out of the step-time EWMA)
+                # and open the next, which also covers the batch fetch
+                if not first_iteration or in_val_window:
+                    wd.disarm(feed_ewma=not in_val_window)
+                wd.arm(total_steps + 1, "step+data")
+                first_iteration = False
     finally:
         batches.close()
         if prof is not None:
             prof.__exit__(None, None, None)
+        # the monitor must not outlive the loop: what follows is host I/O
+        wd.stop()
     final_ok = not preempted
     if final_ok and not args.no_guard and metrics is not None:
         loss_v = float(metrics["loss"])
@@ -584,8 +734,11 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args) -> None:
                   f"latest good checkpoint remains step {last_saved}")
     if final_ok and last_saved != total_steps:
         save(total_steps, block=True)
-    else:
+    elif writer:
         _note_flush(ckpt.wait_pending(ckpt_dir))
+    if wd.enabled and wd.straggler_warnings:
+        print(f"[watchdog] {wd.straggler_warnings} straggler warning(s) "
+              f"this run (EWMA step {wd.ewma_s:.2f}s)")
     logger.close()
     print(f"[prefetch] {batches.summary()}")
     # this process's kernel launches (the train step's forward on B1 at
@@ -594,16 +747,23 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args) -> None:
     if loader.stats.faults:
         print(f"[pipeline] {loader.stats.summary()}")
     if preempted:
-        print(f"Preempted at step {total_steps} -> {ckpt_dir}")
+        print(f"Preempted at step {total_steps} ({preempt.signal_name}) "
+              f"-> {ckpt_dir}")
     else:
         print(f"Done: {total_steps} steps -> {ckpt_dir}")
 
 
 def main(argv=None) -> None:
+    from dexiraft_tpu_torch.parallel import distributed
+
     args = build_parser().parse_args(argv)
     refuse_unported(args)
     cfg, tc = resolve_configs(args)
-    train(cfg, tc, args)
+    # joins torchrun's process group before anything touches a card (a
+    # single process without torchrun's environment)
+    world = distributed.initialize(args.device)
+    train(cfg, tc, args, world)
+    distributed.teardown()
 
 
 if __name__ == "__main__":

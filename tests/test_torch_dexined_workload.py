@@ -15,7 +15,7 @@
 - Data and metrics: the datasets' samples bit for bit (one seed, one
   sample), the metrics' counts and scores exactly.
 - The CLI in-process on the CPU: train, then test, the file layout, the
-  guard's rollback, and ``--stall_timeout`` refused.
+  guard's rollback, and ``--stall_timeout`` accepted.
 """
 
 import os
@@ -420,8 +420,50 @@ def test_cli_guard_rolls_back_then_aborts(biped_tree, tmp_path, monkeypatch):
     assert ckpt_io.all_steps(str(ckpt)) == [1]
 
 
-def test_cli_refuses_stall_timeout_and_needs_a_mode(biped_tree):
-    with pytest.raises(SystemExit, match="A12"):
-        cli.main(_train_args(biped_tree, "unused", "--stall_timeout", "1"))
+def test_cli_refuses_stall_timeout_and_needs_a_mode(biped_tree, monkeypatch):
+    """``--stall_timeout`` is ported (the hang watchdog) and no longer
+    refused: it reaches the trainer; a run needs a mode."""
+    seen = []
+    monkeypatch.setattr(cli, "train", lambda args: seen.append(args))
+    cli.main(_train_args(biped_tree, "unused", "--stall_timeout", "1"))
+    assert seen[0].stall_timeout == 1.0
     with pytest.raises(SystemExit, match="--train or --test"):
         cli.main(["--data_root", str(biped_tree)])
+
+
+def test_cli_train_arms_the_watchdog_from_step_2(biped_tree, tmp_path,
+                                                 monkeypatch):
+    """``--train --stall_timeout``: the hang watchdog runs over the loop,
+    armed over every step but the first (cuDNN's searches) and disarmed
+    after each, and is stopped with the loop. Its exit is injected, so a
+    fire would be recorded rather than end the process."""
+    from dexiraft_tpu_torch.resilience import watchdog
+
+    events, exits = [], []
+
+    class Recording(watchdog.HangWatchdog):
+        def __init__(self, timeout_s, **kw):
+            super().__init__(timeout_s, exit_fn=exits.append, **kw)
+            events.append(("new", timeout_s))
+
+        def arm(self, step, region="step", steady=True):
+            events.append(("arm", step))
+            super().arm(step, region, steady)
+
+        def disarm(self, feed_ewma=True):
+            events.append(("disarm", self._armed is not None))
+            return super().disarm(feed_ewma)
+
+        def stop(self):
+            events.append(("stop", self._thread is not None))
+            super().stop()
+            events.append(("stopped", self._thread is None))
+
+    monkeypatch.setattr(watchdog, "HangWatchdog", Recording)
+    cli.main(_train_args(biped_tree, tmp_path / "ck", "--epochs", "1",
+                         "--stall_timeout", "120"))
+    assert events == [("new", 120.0), ("disarm", False),
+                      ("arm", 2), ("disarm", True),
+                      ("stop", True), ("stopped", True)]
+    assert exits == []
+    assert ckpt_io.all_steps(str(tmp_path / "ck")) == [2]

@@ -198,8 +198,10 @@ def test_resolve_corr_impl():
 def test_package_imports_no_jax():
     """The port's package, model, engine, kernel, bridge, splat, session,
     video, scheduler, server, router, trainer, data, records, native
-    decode, eval, resilience, DexiNed workload and CLI modules, and the
-    lock-registry fixture of its tests, load neither
+    decode, eval, resilience (coordinator, watchdog, preemption, the
+    collective trace), data-parallel, DexiNed workload and CLI modules,
+    and the lock-registry fixture and data-parallel child of its tests,
+    load neither
     jax/flax/optax/orbax nor any dexiraft_tpu module, nor an image library
     (PIL, cv2, imageio: the port decodes PNG itself) (a subprocess: this
     test process has jax loaded by conftest)."""
@@ -250,7 +252,15 @@ def test_package_imports_no_jax():
         "import dexiraft_tpu_torch.dexined, dexiraft_tpu_torch.dexined.data\n"
         "import dexiraft_tpu_torch.dexined.metrics\n"
         "import dexiraft_tpu_torch.dexined_cli\n"
+        "import dexiraft_tpu_torch.parallel\n"
+        "import dexiraft_tpu_torch.parallel.distributed\n"
+        "import dexiraft_tpu_torch.parallel.layout\n"
+        "import dexiraft_tpu_torch.resilience.coord\n"
+        "import dexiraft_tpu_torch.resilience.watchdog\n"
+        "import dexiraft_tpu_torch.resilience.preemption\n"
+        "import dexiraft_tpu_torch.analysis.collective_trace\n"
         "sys.path.insert(0, 'tests')\n"
+        "import torch_parallel_child\n"
         "import test_torch_lock_registry\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'dexiraft_tpu', "

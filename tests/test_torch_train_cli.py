@@ -152,7 +152,7 @@ def test_cli_trains_in_bf16_under_remat(chairs_env):
     (["--fsdp", "2"], "A12"),
     (["--elastic"], "A12"),
     (["--join", "host1"], "A12"),
-    (["--stall_timeout", "30"], "A12"),
+    (["--fsdp", "auto"], "A12"),
     (["--strict"], "A13"),
 ])
 def test_refused_flags_name_their_item(flags, item):
@@ -163,10 +163,12 @@ def test_refused_flags_name_their_item(flags, item):
 @pytest.mark.parametrize("flags", [
     ["--chaos", "sigterm@3"],
     ["--records_dir", "packs"],
+    ["--stall_timeout", "30", "--straggler_factor", "5"],
 ])
 def test_records_dir_and_chaos_are_ported(flags):
     """No longer refused: the flags parse and pass the refusal gate (the
-    runs themselves are in tests/test_torch_resilience.py)."""
+    runs themselves are in tests/test_torch_resilience.py and, for the
+    hang watchdog, tests/test_torch_coord.py)."""
     args = train_cli.build_parser().parse_args(BASE + flags)
     train_cli.refuse_unported(args)
 
@@ -255,6 +257,35 @@ def test_cli_without_a_card_exits_naming_cuda(chairs_env):
     assert proc.returncode != 0 and "'cuda'" in proc.stderr
 
 
+def test_logger_writes_tensorboard_without_tensorflow(tmp_path):
+    """The Logger's TensorBoard scalars are written through TensorBoard's
+    own file API: TensorFlow is not imported (it costs every logging
+    process ~15 s where it is installed), and the event file reads back
+    every scalar (a subprocess: this one may hold TensorFlow already)."""
+    code = (
+        "import json, sys\n"
+        "from dexiraft_tpu_torch.train.logger import Logger\n"
+        "log = Logger(sum_freq=2, log_dir=sys.argv[1])\n"
+        "for v in (1.0, 3.0, 5.0, 7.0):\n"
+        "    log.push({'loss': v})\n"
+        "log.write_dict({'chairs': 0.5}, step=4)\n"
+        "log.close()\n"
+        "tf_imported = 'tensorflow' in sys.modules\n"
+        "from tensorboard.backend.event_processing.event_accumulator "
+        "import EventAccumulator\n"
+        "ev = EventAccumulator(sys.argv[1])\n"
+        "ev.Reload()\n"
+        "print(json.dumps([tf_imported] + [[[e.step, e.value] for e in "
+        "ev.Scalars(k)] for k in ('loss', 'chairs')]))\n")
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          env=dict(os.environ, PYTHONPATH=REPO),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    tf_imported, loss, chairs = json.loads(proc.stdout.splitlines()[-1])
+    assert not tf_imported
+    assert loss == [[2, 2.0], [4, 6.0]] and chairs == [[4, 0.5]]
+
+
 def test_checkpoint_round_trip_and_async_flush(tmp_path):
     cfg = raft_v1(small=True, corr_impl="local", dropout=0.2)
     tc = TrainConfig(iters=2, batch_size=2, num_steps=20)
@@ -304,4 +335,8 @@ def test_trainer_locks_are_ranked():
     from dexiraft_tpu_torch.serve.locks import LOCK_ORDER
     assert LOCK_ORDER.index("train.checkpoint.pending") < LOCK_ORDER.index(
         "data.loader.pool")
-    assert LOCK_ORDER[-2:] == ("train.checkpoint.pending", "data.loader.pool")
+    # the collective flight recorder's ring is the leaf, as in JAX
+    assert LOCK_ORDER[-3:] == ("train.checkpoint.pending", "data.loader.pool",
+                               "resilience.trace.ring")
+    assert LOCK_ORDER.index("resilience.watchdog.armed") < LOCK_ORDER.index(
+        "train.checkpoint.pending")
