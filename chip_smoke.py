@@ -63,7 +63,13 @@ Phases, one JSON line each:
               paths through make_eval_step with TF32 convolutions on
               (PyTorch's default flags) and off, and with the step's
               default, against the TF32-off plain-lookup path, <= 1e-2 px
-              for the default; the global flags as they were
+              for the default; the global flags as they were; then, on
+              v1's main path, strict mode (analysis.guards.strict_mode):
+              an implicit .item() raises inside the region and
+              guards.fetch of the same tensor passes, a warm forward on B1
+              passes with its 32 launches, a new shape after mark_warm()
+              makes check() raise, and the sync mode is the caller's
+              again after the region
   mixed       mixed precision (bf16 over fp32 weights, B1 in fp32): v1's
               and v5's flash fused paths at 440x1024, B=1, 32 iterations
               through make_eval_step, fp32 and bf16: ms per forward
@@ -98,8 +104,9 @@ Phases, one JSON line each:
               dropped on drain; requests/s, p50/p99 latency, fetch and
               dispatch seconds (and engine.stream at inflight 1 and 2),
               carry bytes, device memory
-  serve_cli   the CLI in a child process (v1, --warmup 440x1024): 2
-              requests, then SIGTERM, exit 0 within 60 s
+  serve_cli   the CLI in a child process (v1, --warmup 440x1024,
+              --strict): 2 requests (200, no drift, no
+              RecompileBudgetExceeded), then SIGTERM, exit 0 within 60 s
   eval        v5 on B1, seed-0 weights, over synthetic trees written by
               the port's codecs (Sintel training 2 scenes x 3 frames of
               436x1024, clean and final, PNG rows in all five filters;
@@ -115,8 +122,9 @@ Phases, one JSON line each:
               each, the host PNG decode ms of one frame
   eval_cli    python -m dexiraft_tpu_torch eval --variant v5 --model <the
               eval phase's weights> --dataset sintel --submission sintel
-              --warm_start in a child: its EPEs equal the in-process
-              per-image run's within 1e-3 px; then viz over that
+              --warm_start --strict in a child: its EPEs equal the
+              in-process (non-strict) per-image run's within 1e-3 px, no
+              drift; then viz over that
               submission: each PNG decodes to flow_to_image of its .flo;
               then eval --mixed_precision --dataset sintel in a child:
               its EPEs within the argued bf16 bound of the fp32 child's
@@ -149,8 +157,9 @@ Phases, one JSON line each:
               with --validation chairs --keep_best --keep 1 (a chairs EPE
               logged at 3 and 6, retention.json with both, the best step
               kept beside the newest), then --resume from a copy of step
-              3: the resumed run starts at step 3 and logs the full run's
-              losses within 1e-5 relative
+              3 with --strict: the resumed run starts at step 3, logs the
+              full (non-strict) run's losses within 1e-5 relative and
+              reports no drift
   records     the packed-record plane on the train_cli phase's tree: the
               native decode library built from native/dexiraft_native.cpp
               and bit-equal to the pure-Python codecs on every file, host
@@ -216,6 +225,12 @@ Phases, one JSON line each:
               should be), each SIGKILLed, reaped and named on stderr: the
               smoke is the subreaper of all it starts, so the children of
               a SIGKILLed rank or replica come back to it and are stopped
+  strict      strict mode's checks, gathered: the in-process region's (tf32
+              above: the implicit sync that raised, the fetch, the warm
+              B1 forward, the new shape's check, the restored mode), the
+              strict serve_cli, eval_cli and train_cli children, this
+              process's compile and sync-window counts (guards.counts())
+              and the in-process checks' seconds
 Then the {"kernels": [...]} line (each entry with its launches on the
 slices' paths, the service's, the eval phase's, the router phase's and
 the mixed phase's for B1 as serve_launches, eval_launches,
@@ -283,6 +298,7 @@ SINTEL_BUCKET = (440, 1024)
 
 
 RECORDS: list = []  # every emitted line, for --out
+STRICT: dict = {}   # strict mode's checks, gathered from the phases
 T0 = time.perf_counter()
 
 
@@ -932,6 +948,63 @@ def phase_tf32(torch, dev, model_name, model, batch) -> dict:
         raise AssertionError(f"{model_name}: the eval step's default "
                              f"arithmetic (tf32={EVAL_TF32}) is "
                              f"{diff['default']} px from the plain path")
+    return rec
+
+
+def strict_region_checks(torch, ck, dev, model, batch) -> dict:
+    """Strict mode on the card, over ``model`` (v1's main path, B1) and
+    ``batch`` (phase_slice's Sintel-bucket pair): inside
+    guards.strict_mode() an implicit .item() on a CUDA tensor raises and
+    guards.fetch of it passes; a forward at a warm shape passes with
+    ITERS B1 launches per item batch; after mark_warm() a forward at a
+    new shape makes check() raise RecompileBudgetExceeded; the sync
+    debug mode is the caller's again after the region."""
+    from dexiraft_tpu_torch.analysis import guards
+    from dexiraft_tpu_torch.train.step import make_eval_step
+
+    t0 = time.perf_counter()
+    im1, im2, _ = batch
+    step = make_eval_step(model, ITERS, dev)
+    step(im1, im2)                       # this step's search: the warm-up
+    torch.cuda.synchronize()
+    mode_before = torch.cuda.get_sync_debug_mode()
+    x = torch.arange(4.0, device=dev)
+    rec = {"phase": "tf32", "check": "strict mode, v1 on B1"}
+    with guards.strict_mode(label="smoke", device=dev) as watch:
+        try:
+            x.sum().item()
+            rec["implicit_item_raised"] = None
+        except RuntimeError as e:
+            rec["implicit_item_raised"] = str(e).splitlines()[0][:160]
+        rec["fetched"] = float(guards.fetch(x.sum()))
+        ck.reset_launches()
+        low, up = step(im1, im2)
+        rec["warm_forward_finite"] = bool(np.isfinite(
+            guards.fetch(up)).all())
+        rec["warm_forward_b1_launches"] = ck.LAUNCHES["flash_fused_step"]
+        watch.check()                    # a warm shape: no compile
+        rec["warm_forward_drift"] = watch.drift
+        watch.mark_warm()
+        step(im1[:, :-8], im2[:, :-8])   # 432x1024: a new shape
+        rec["new_shape_drift"] = watch.drift
+        try:
+            watch.check()
+            rec["new_shape_check_raised"] = False
+        except guards.RecompileBudgetExceeded:
+            rec["new_shape_check_raised"] = True
+        watch.mark_warm()                # expected: the region exits clean
+    rec["sync_mode_before_after"] = [mode_before,
+                                     torch.cuda.get_sync_debug_mode()]
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    STRICT["region"] = {k: v for k, v in rec.items() if k != "phase"}
+    if (rec["implicit_item_raised"] is None or rec["fetched"] != 6.0
+            or not rec["warm_forward_finite"]
+            or rec["warm_forward_b1_launches"] != ITERS
+            or rec["warm_forward_drift"] != 0
+            or not rec["new_shape_check_raised"]
+            or rec["sync_mode_before_after"][1] != mode_before):
+        raise AssertionError(f"strict: {rec}")
     return rec
 
 
@@ -1716,10 +1789,11 @@ def phase_serve(torch, ck, dev) -> dict:
 
 def phase_serve_cli(torch) -> dict:
     """``python -m dexiraft_tpu_torch serve --synthetic_init --variant v1
-    --port 0 --warmup 440x1024`` in a child process: its ``listening on``
-    line, 2 POSTed pairs (200, flows of the input's shape, finite), the
-    child's device memory (its /stats), then SIGTERM: exit 0 within 60
-    s."""
+    --port 0 --warmup 440x1024 --strict`` in a child process: its
+    ``listening on`` line, 2 POSTed pairs (200, flows of the input's
+    shape, finite), the child's device memory (its /stats), then SIGTERM:
+    exit 0 within 60 s, both requests served, no drift warning and no
+    RecompileBudgetExceeded in its log."""
     import re
     import signal
     import threading
@@ -1728,7 +1802,7 @@ def phase_serve_cli(torch) -> dict:
 
     cmd = [sys.executable, "-m", "dexiraft_tpu_torch", "serve",
            "--synthetic_init", "--variant", "v1", "--port", "0",
-           "--warmup", SERVE_CLI_GEOM]
+           "--warmup", SERVE_CLI_GEOM, "--strict"]
     t0 = time.perf_counter()
     child = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT, text=True)
@@ -1778,8 +1852,15 @@ def phase_serve_cli(torch) -> dict:
             child.kill()
             child.wait()
     rec["log_tail"] = lines[-6:]
+    log = "\n".join(lines)
+    rec["strict_clean"] = ("[guards]" not in log
+                           and "RecompileBudgetExceeded" not in log
+                           and bool(re.search(r"2 served, 0 shed, 0 failed",
+                                              log)))
+    STRICT["serve_cli"] = {"strict": True, "clean": rec["strict_clean"],
+                           "flows": rec["flows"]}
     emit(rec)
-    if rc != 0:
+    if rc != 0 or not rec["strict_clean"]:
         raise AssertionError(f"serve_cli: exit {rc}: {lines[-20:]}")
     return rec
 
@@ -2170,8 +2251,10 @@ def phase_train_cli(torch, card) -> dict:
     --keep_best --keep 1): each checkpoint logs a chairs EPE,
     retention.json holds the scores of steps 3 and 6, and the best step
     survives GC beside the newest. Then --resume from a copy of the step-3
-    checkpoint, without validation: the resumed run starts at step 3 and
-    its losses match the full run's within TOL_RESUME_REL."""
+    checkpoint, without validation and with --strict (strict mode armed
+    after its first step): the resumed run starts at step 3, its losses
+    match the full (non-strict) run's within TOL_RESUME_REL, and it
+    prints no drift warning."""
     import shutil
     import tempfile
 
@@ -2200,7 +2283,7 @@ def phase_train_cli(torch, card) -> dict:
                 rows = [json.loads(line) for line in f]
             return ({r["step"]: r["loss"] for r in rows if "loss" in r},
                     {r["step"]: r["chairs"] for r in rows if "chairs" in r},
-                    proc.stdout, time.perf_counter() - t0)
+                    proc.stdout + proc.stderr, time.perf_counter() - t0)
 
         full, epe, out_full, s_full = run(
             "full", ["--validation", "chairs", "--keep_best", "--keep", "1"])
@@ -2210,7 +2293,8 @@ def phase_train_cli(torch, card) -> dict:
         kept = ckpt.all_steps(full_dir)
         shutil.copytree(os.path.join(full_dir, "3"),
                         os.path.join(tmp, "checkpoints", "resumed", "3"))
-        resumed, _, out_res, s_res = run("resumed", ["--resume"])
+        resumed, _, out_res, s_res = run("resumed", ["--resume",
+                                                     "--strict"])
     rel = {s: abs(resumed[s] - full[s]) / abs(full[s]) for s in resumed}
     best = min(epe, key=epe.get) if epe else None
     rec = {"phase": "train_cli", "card": card, "full_losses": full,
@@ -2218,7 +2302,11 @@ def phase_train_cli(torch, card) -> dict:
            "resumed_from_step_3": "Resumed full state at step 3" in out_res,
            "chairs_epe": epe, "retention_scores": scores,
            "kept_steps": kept, "best_step": best,
-           "seconds": [s_full, s_res], "tol_rel": TOL_RESUME_REL}
+           "seconds": [s_full, s_res], "tol_rel": TOL_RESUME_REL,
+           "resumed_strict_no_drift": "[guards]" not in out_res}
+    STRICT["train_cli"] = {"strict": "resumed", "max_rel_diff": max(
+        rel.values()) if rel else None,
+        "no_drift": rec["resumed_strict_no_drift"]}
     emit(rec)
     if (sorted(full) != [1, 2, 3, 4, 5, 6] or sorted(resumed) != [4, 5, 6]
             or not rec["resumed_from_step_3"]
@@ -2227,7 +2315,7 @@ def phase_train_cli(torch, card) -> dict:
             or sorted(epe) != [3, 6]
             or not all(np.isfinite(list(epe.values())))
             or sorted(scores) != [3, 6] or best not in kept
-            or 6 not in kept):
+            or 6 not in kept or not rec["resumed_strict_no_drift"]):
         raise AssertionError(f"train_cli: {rec}")
     return rec
 
@@ -2736,9 +2824,11 @@ def _child(args, env, timeout=420):
 def phase_eval_cli(torch, card, root, ev, mixed_rms_px) -> dict:
     """python -m dexiraft_tpu_torch eval --variant v5 --model <phase
     eval's seed-0 weights as a state-dict file> --dataset sintel
-    --submission sintel --warm_start in a child process (corr_impl auto:
-    B1 on the card): exit 0, its clean and final EPEs equal phase eval's
-    per-image run within TOL_EVAL_PATHS_PX (and the printed rounding);
+    --submission sintel --warm_start --strict in a child process
+    (corr_impl auto: B1 on the card; every forward in a strict region):
+    exit 0, no drift, its clean and final EPEs equal phase eval's
+    (non-strict) per-image run within TOL_EVAL_PATHS_PX (and the printed
+    rounding);
     then python -m dexiraft_tpu_torch viz over that submission: one PNG
     per .flo, each decoding (read_png) to flow_to_image of its .flo.
     Beside the fp32 child, the same evaluation with --mixed_precision:
@@ -2760,9 +2850,19 @@ def phase_eval_cli(torch, card, root, ev, mixed_rms_px) -> dict:
     mixed_child = _start_child(["eval", "--variant", "v5", "--model",
                                 weights, "--dataset", "sintel",
                                 "--mixed_precision"], env)
-    out = _child(["eval", "--variant", "v5", "--model", weights,
-                  "--dataset", "sintel", "--submission", "sintel",
-                  "--warm_start", "--output", out_dir], env)
+    proc = _start_child(["eval", "--variant", "v5", "--model", weights,
+                         "--dataset", "sintel", "--submission", "sintel",
+                         "--warm_start", "--output", out_dir, "--strict"],
+                        env)
+    try:
+        out, err = proc.communicate(timeout=420)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"eval --strict exited {proc.returncode}: "
+                             f"{out[-2000:]} {err[-3000:]}")
     eval_s = time.perf_counter() - t0
     printed = {m.group(1): float(m.group(2)) for m in re.finditer(
         r"Validation \((\w+)\) EPE: ([\d.]+)", out)}
@@ -2795,12 +2895,18 @@ def phase_eval_cli(torch, card, root, ev, mixed_rms_px) -> dict:
            "epe_diff_px": diff, "auto_resolved": "[eval] corr_impl auto -> "
            "flash + fused_update" in out,
            "flo_files": len(flos), "pngs_equal": sum(pngs_equal),
-           "viz_lines": viz_out.count(" -> "), "seconds": [eval_s, viz_s]}
+           "viz_lines": viz_out.count(" -> "), "seconds": [eval_s, viz_s],
+           "strict_no_drift": "[guards]" not in err}
+    STRICT["eval_cli"] = {"strict": True, "epe": printed,
+                          "in_process_epe": rec["in_process_epe"],
+                          "epe_diff_px": diff,
+                          "no_drift": rec["strict_no_drift"]}
     emit(rec)
     # the printed EPE is rounded to 3 decimals
     if (max(diff.values()) > TOL_EVAL_PATHS_PX + 5e-4 or len(flos) != 8
             or not all(pngs_equal) or not rec["auto_resolved"]
-            or not max(mixed_diff.values()) <= mixed_bound):
+            or not max(mixed_diff.values()) <= mixed_bound
+            or not rec["strict_no_drift"]):
         raise AssertionError(f"eval_cli: {rec}")
     return rec
 
@@ -4157,6 +4263,8 @@ def main(argv=None) -> int:
     # the eval step's own arithmetic, on each model's main path
     phase_tf32(torch, dev, "v1", v1_models["fused"], v1_batch)
     phase_tf32(torch, dev, "v5", v5_models["flash_fused"], v5_batch)
+    # strict mode (A13's runtime guards) on v1's main path
+    strict_region_checks(torch, ck, dev, v1_models["fused"], v1_batch)
     # mixed precision on the main paths
     mixed = phase_mixed(torch, ck, dev, smi,
                         {"v1": v1_models, "v5": v5_models},
@@ -4238,6 +4346,10 @@ def main(argv=None) -> int:
         entry["dexined_launches"] = dexined["launches"][entry["name"]]
         # every rank's launches in the ddp phase's runs
         entry["ddp_launches"] = ddp["launches"][entry["name"]]
+    # strict mode's checks: the in-process region's and the children's
+    from dexiraft_tpu_torch.analysis import guards
+
+    emit({"phase": "strict", **STRICT, "counts": guards.counts()})
     # the processes every phase left behind, each stopped after it
     stop_strays("main")
     emit({"phase": "processes", "subreaper": adopted, "strays": STRAYS})

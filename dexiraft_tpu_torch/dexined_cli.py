@@ -38,6 +38,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from dexiraft_tpu_torch.analysis import guards
 from dexiraft_tpu_torch.dexined.data import (DATASET_INFO, BipedDataset,
                                              TestDataset)
 from dexiraft_tpu_torch.dexined.losses import weighted_multiscale_loss
@@ -258,10 +259,11 @@ def _train_epochs(args, dataset, dev, step, state, guard, wd) -> None:
             loss, state_ok = step(images, labels)
             if b % 5 == 0:
                 print(f"{time.ctime()} Epoch: {epoch} Sample {b}/"
-                      f"{steps_per_epoch} Loss: {float(loss):.4f}",
+                      f"{steps_per_epoch} Loss: "
+                      f"{float(guards.fetch(loss)):.4f}",
                       flush=True)
             # disarmed AFTER the cadence sync above: the step returns at
-            # launch, and float(loss) is where a wedged step blocks
+            # launch, and the fetch is where a wedged step blocks
             wd.disarm()
 
         state.step = (epoch + 1) * steps_per_epoch
@@ -269,7 +271,8 @@ def _train_epochs(args, dataset, dev, step, state, guard, wd) -> None:
         # introduced BEFORE that batch's update; state_ok (the post-update
         # state) catches the final batch's own update poisoning the state
         # the save would persist
-        loss_h, ok_h = float(loss), bool(state_ok)
+        loss_h, ok_h = guards.fetch((loss, state_ok))
+        loss_h, ok_h = float(loss_h), bool(ok_h)
         if not args.no_guard and guard.poisoned(loss_h, ok_h):
             rollback_msg = guard.consume_rollback(
                 loss_h, ok_h, f"epoch {epoch}", last_saved,

@@ -73,8 +73,10 @@ def forward_interpolate(flow: torch.Tensor) -> torch.Tensor:
     # (seed_x, seed_y, value_x, value_y) per fine cell
     points = torch.cat([x1f.reshape(-1, 1), y1f.reshape(-1, 1),
                         flow.reshape(-1, 2)], dim=1)
+    # the sentinel as a python scalar: a 0-d tensor built on the device
+    # would be a blocking host->device copy
     seed = torch.where((winner >= 0)[:, None], points[winner.clamp(min=0)],
-                       torch.tensor(_FAR, device=dev)).reshape(hs, ws, 4)
+                       _FAR).reshape(hs, ws, 4)
 
     ysf, xsf = torch.meshgrid(
         torch.arange(hs, dtype=torch.float32, device=dev),

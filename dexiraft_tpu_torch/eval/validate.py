@@ -28,18 +28,17 @@ from __future__ import annotations
 from typing import Callable, Dict, Iterator, Tuple
 
 import numpy as np
-import torch
 
+from dexiraft_tpu_torch.analysis import guards
 from dexiraft_tpu_torch.data.padder import InputPadder
 
 EvalFn = Callable[..., Tuple[np.ndarray, np.ndarray]]
 
 
 def _fetch(x) -> np.ndarray:
-    """The one device->host copy of a flow (numpy passes through)."""
-    if isinstance(x, torch.Tensor):
-        return x.cpu().numpy()
-    return np.asarray(x)
+    """The one device->host copy of a flow (numpy passes through), an
+    explicit sync (analysis.guards.fetch)."""
+    return np.asarray(guards.fetch(x))
 
 
 def _epe(pred: np.ndarray, gt: np.ndarray) -> np.ndarray:

@@ -16,9 +16,13 @@ directory of the port's trainer, loaded with strict=True. The device is
 naming it. ``--corr_impl auto`` is the fused B1 kernel on the card.
 
 ``--mixed_precision`` runs the model in bf16 over its fp32 weights, as
-the JAX CLI's flag does. Refused, each naming the ROADMAP item that
-ports it: ``--data_parallel`` > 0 (A12), ``--strict`` (A13), an orbax
-``--model`` directory (A10). PyTorch runs eagerly, so
+the JAX CLI's flag does. ``--strict`` runs every evaluation and submission
+in one ``analysis.guards.strict_mode`` region: on a card an implicit host
+sync raises (on the CPU only the recompile half is armed), and a compile
+on a geometry already seen fails the run (``_strict_wrap``, or the
+engine's check on a searched bucket). Refused, each naming the ROADMAP
+item that ports it: ``--data_parallel`` > 0 (A12), an orbax ``--model``
+directory (A10). PyTorch runs eagerly, so
 ``--scan_unroll`` changes nothing and only says so. v2/v3 take their edge
 frames from the data, which the validators never pass: they fail with the
 model's ValueError, as in the JAX package.
@@ -111,7 +115,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data_parallel", type=int, default=0,
                    help="nonzero is refused: ROADMAP A12")
     p.add_argument("--strict", action="store_true",
-                   help="refused: ROADMAP A13")
+                   help="run evaluation inside analysis.guards."
+                        "strict_mode: an implicit host sync raises (on a "
+                        "card; on the CPU only the recompile half is "
+                        "armed) and a compile on an already-seen geometry "
+                        "fails the run")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="'cuda' (default) or 'cpu'")
     return p
@@ -121,7 +129,6 @@ def refuse_unported(args) -> None:
     """Exit naming the ROADMAP item of the first flag the port lacks."""
     refused = (
         (args.data_parallel > 0, "--data_parallel", "A12"),
-        (args.strict, "--strict", "A13"),
     )
     for bad, flag, item in refused:
         if bad:
@@ -211,16 +218,44 @@ def _sink_summary(sink) -> dict:
     }
 
 
-def _make_engine(args, eval_fn, dev, mode, warm_start=False):
+def _make_engine(args, eval_fn, dev, mode, warm_start=False, watch=None):
     """The engine over ``eval_fn`` on ``dev``; a warm-start engine keeps
-    each row's carry on the device (ServeConfig.device_carry)."""
+    each row's carry on the device (ServeConfig.device_carry). ``watch``:
+    the strict region's, which the engine's expected bucket searches
+    re-baseline."""
     from dexiraft_tpu_torch.serve.engine import InferenceEngine, ServeConfig
 
-    return InferenceEngine(
+    engine = InferenceEngine(
         eval_fn,
         ServeConfig.from_args(args, mode=mode, warm_start=warm_start,
                               device_carry=warm_start),
         device=dev)
+    if watch is not None:
+        engine.watch = watch
+    return engine
+
+
+def _strict_wrap(eval_fn, watch):
+    """Per-geometry compile absorption for the per-image eval loops: the
+    first call on an input signature is an expected search (it
+    re-baselines the watch); a repeat signature that compiled anyway is
+    drift, and the watch raises."""
+    import numpy as np
+
+    seen = set()
+
+    def wrapped(im1, im2, flow_init=None):
+        sig = (np.shape(im1), np.shape(im2),
+               None if flow_init is None else tuple(flow_init.shape))
+        out = eval_fn(im1, im2, flow_init=flow_init)
+        if sig in seen:
+            watch.check()
+        else:
+            seen.add(sig)
+            watch.mark_warm()
+        return out
+
+    return wrapped
 
 
 def main(argv=None) -> None:
@@ -238,13 +273,28 @@ def main(argv=None) -> None:
         print(f"[eval] --scan_unroll {args.scan_unroll} changes nothing: "
               "the PyTorch port runs eagerly", flush=True)
     cfg, model = load_model(args, dev)
-    if args.adaptive_iters:
-        _adaptive_sweep(args, cfg, model, dev)
-        return
-    _run_eval(args, model, dev)
+    import contextlib
+
+    from dexiraft_tpu_torch.analysis import guards
+
+    region = contextlib.ExitStack()
+    watch = None
+    if args.strict:
+        # one strict region over every eval and submission below: an
+        # implicit host sync raises at the offending call, and the
+        # region's exit check fails the run on any compile the
+        # per-geometry absorption (_strict_wrap, the engine's mark_warm)
+        # did not expect
+        watch = region.enter_context(guards.strict_mode(label="eval",
+                                                        device=dev))
+    with region:
+        if args.adaptive_iters:
+            _adaptive_sweep(args, cfg, model, dev)
+            return
+        _run_eval(args, model, dev, watch)
 
 
-def _run_eval(args, model, dev) -> None:
+def _run_eval(args, model, dev, watch=None) -> None:
     from dexiraft_tpu_torch.train.step import make_eval_step
 
     if args.dataset:
@@ -258,9 +308,12 @@ def _run_eval(args, model, dev) -> None:
         sink: list = []
         if _serving(args):
             mode = "kitti" if args.dataset in ("kitti", "hd1k") else "sintel"
-            engine = _make_engine(args, eval_fn, dev, mode)
-        elif args.adaptive:
-            eval_fn = _adaptive_pair_view(eval_fn, sink)
+            engine = _make_engine(args, eval_fn, dev, mode, watch=watch)
+        else:
+            if args.adaptive:
+                eval_fn = _adaptive_pair_view(eval_fn, sink)
+            if watch is not None:
+                eval_fn = _strict_wrap(eval_fn, watch)
         run_validation(args.dataset, eval_fn, dataset,
                        batch_size=args.batch_size, engine=engine)
         if engine is not None:
@@ -282,10 +335,12 @@ def _run_eval(args, model, dev) -> None:
         eval_fn = make_eval_step(model, iters=args.iters or 32, device=dev,
                                  adaptive=args.adaptive)
         engine = (_make_engine(args, eval_fn, dev, "sintel",
-                               warm_start=args.warm_start)
+                               warm_start=args.warm_start, watch=watch)
                   if _serving(args) else None)
         if engine is None and args.adaptive:
             eval_fn = _adaptive_pair_view(eval_fn)
+        if engine is None and watch is not None:
+            eval_fn = _strict_wrap(eval_fn, watch)
         create_sintel_submission(
             eval_fn,
             output_path=args.output or "sintel_submission",
@@ -297,10 +352,12 @@ def _run_eval(args, model, dev) -> None:
 
         eval_fn = make_eval_step(model, iters=args.iters or 24, device=dev,
                                  adaptive=args.adaptive)
-        engine = (_make_engine(args, eval_fn, dev, "kitti")
+        engine = (_make_engine(args, eval_fn, dev, "kitti", watch=watch)
                   if _serving(args) else None)
         if engine is None and args.adaptive:
             eval_fn = _adaptive_pair_view(eval_fn)
+        if engine is None and watch is not None:
+            eval_fn = _strict_wrap(eval_fn, watch)
         create_kitti_submission(
             eval_fn,
             output_path=args.output or "kitti_submission",

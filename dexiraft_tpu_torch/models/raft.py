@@ -81,6 +81,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from dexiraft_tpu_torch.analysis import guards
 from dexiraft_tpu_torch.config import PORTED_CORR_IMPLS, RAFTConfig
 from dexiraft_tpu_torch.device import resolve_device
 from dexiraft_tpu_torch.models.dexined import DexiNed, stack_edge_maps
@@ -435,7 +436,10 @@ class RAFT(nn.Module):
         iters_used = torch.zeros(b, dtype=torch.int32, device=dev)
         final_delta = torch.zeros(b, dtype=torch.float32, device=dev)
         for it in range(budget):
-            if it and it % exit_check_every == 0 and bool(done.all()):
+            # the host reads the done mask on the exit-check cadence: an
+            # explicit, sanctioned sync (analysis.guards)
+            if (it and it % exit_check_every == 0
+                    and bool(guards.fetch(done.all()))):
                 break
             new_coords, new_net, new_mask = self._step(pyr, inp, base,
                                                        coords1, net, b)

@@ -7,7 +7,8 @@ together. No source includes a PyTorch header, so a build takes
 seconds. The build happens at first use, never at import (this module
 only computes paths until ``load_library`` is called), into
 ``dexiraft_tpu_torch/_build/``, keyed by a hash of the sources and flags
-so an edited source is rebuilt.
+so an edited source is rebuilt. Each build and each load counts as a
+compile to ``analysis.guards``.
 
 Build flags: ``-gencode=arch=compute_90a,code=sm_90a -O3`` (Hopper; the
 ``a`` target is the one that exposes wgmma and setmaxnreg).
@@ -30,6 +31,13 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _note(kind: str) -> None:
+    """A build or a load is a compile to the recompile guard."""
+    from dexiraft_tpu_torch.analysis import guards
+
+    guards.note_compile(kind)
 
 
 def find_nvcc() -> str:
@@ -91,6 +99,7 @@ def build_libraries(libraries: Mapping[str, Sequence[str]]) -> Dict[str, str]:
                                 f"{proc.returncode}):\n{' '.join(cmd)}\n{log}")
             else:
                 os.replace(tmp, paths[name])
+                _note("kernel_build")
         if failures:
             raise RuntimeError("\n".join(failures))
     finally:
@@ -114,4 +123,5 @@ def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
     lib = _loaded.get(name)
     if lib is None:
         lib = _loaded[name] = ctypes.CDLL(build_library(name, sources))
+        _note("kernel_load")
     return lib

@@ -48,13 +48,24 @@ budget. The adaptive loop reads its done mask on the host every
 iteration, so its eval_fn returns only when the batch is nearly done:
 the in-flight window hides nothing there.
 
-Not ported: the JAX engine's data-parallel mesh (ROADMAP A12) and its
-strict recompile guard (A13); both are refused.
+Recompile guard (analysis.guards): the engine holds ``watch``, a
+RecompileWatch shared with the streaming engine where there is one. A
+fresh (bucket, warm-start) signature's dispatch runs inside
+``watch.sanctioned()`` and marks the watch warm after it (its cuDNN search
+is expected); a dispatch on a searched signature that still compiled is
+drift: ``ServeConfig(strict=True)`` raises RecompileBudgetExceeded, the
+default warns once. Fetches go through ``guards.fetch`` and host carry
+rows up through ``guards.put``, so a dispatch runs clean under
+``guards.strict_mode``'s sync half.
+
+Not ported: the JAX engine's data-parallel mesh (ROADMAP A12); it is
+refused.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import time
 from typing import Any, Callable, Dict, Iterable, Iterator, List, NamedTuple, Optional, Tuple, Union
@@ -62,18 +73,12 @@ from typing import Any, Callable, Dict, Iterable, Iterator, List, NamedTuple, Op
 import numpy as np
 import torch
 
+from dexiraft_tpu_torch.analysis import guards
 from dexiraft_tpu_torch.data.padder import InputPadder
 from dexiraft_tpu_torch.profiling import ServeStats
 from dexiraft_tpu_torch.serve.buckets import BucketRegistry
 
 EvalFn = Callable[..., Tuple[Any, Any]]
-
-_STRICT_REFUSED = (
-    "strict=True is not supported by the PyTorch port yet: the JAX "
-    "engine's strict mode fails on an XLA retrace (analysis/guards.py "
-    "RecompileWatch), and the port's counterpart, a budget on CUDA-graph "
-    "recaptures and host syncs, is ROADMAP item A13")
-
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
@@ -86,7 +91,9 @@ class ServeConfig:
     inflight: int = 2
     # always pass a flow_init (zeros for cold items)
     warm_start: bool = False
-    # the JAX engine's recompile guard; refused (ROADMAP A13)
+    # a compile (cuDNN search, kernel build) on an already-searched
+    # signature raises RecompileBudgetExceeded instead of the default
+    # one-line drift warning (analysis.guards)
     strict: bool = False
     # flow_init rows may be device tensors and Result.flow_low stays on
     # the device (module docstring)
@@ -100,8 +107,6 @@ class ServeConfig:
             raise ValueError(f"batch_size must be >= 1, got {self.batch_size}")
         if self.inflight < 1:
             raise ValueError(f"inflight must be >= 1, got {self.inflight}")
-        if self.strict:
-            raise ValueError(_STRICT_REFUSED)
 
     @classmethod
     def from_args(cls, args, *, mode: str = "sintel",
@@ -169,12 +174,6 @@ class _Ticket(NamedTuple):
     staging: Any = None       # (key, pinned buffer) back to the pool
 
 
-def _host(x) -> np.ndarray:
-    if isinstance(x, np.ndarray):
-        return x
-    return x.detach().cpu().numpy()
-
-
 class InferenceEngine:
     """Bucketed, batched, pipelined driver of a test-mode forward step.
 
@@ -200,6 +199,9 @@ class InferenceEngine:
         self._zero_rows: Dict[Tuple[int, ...], torch.Tensor] = {}
         # pinned staging buffers by batch shape, free ones only
         self._pinned: Dict[Tuple[int, ...], List[torch.Tensor]] = {}
+        # recompile drift sentinel: a fresh signature is an expected
+        # search; a search on a searched signature is drift
+        self.watch = guards.RecompileWatch("serve")
 
     @property
     def _cuda(self) -> bool:
@@ -284,15 +286,21 @@ class InferenceEngine:
         inits = [it.get("flow_init") for _, it in group]
         will_fi = cfg.warm_start or any(x is not None for x in inits)
         fresh = self.registry.mark_searched((bucket, will_fi))
-        fi = self._assemble_fi(bucket, inits) if will_fi else None
-        t1 = time.perf_counter()
+        # the expected search of a fresh signature rides one sanctioned
+        # window: the watch is shared with the streaming engine, whose
+        # check on another thread must not read it as drift
+        win = (self.watch.sanctioned() if fresh
+               else contextlib.nullcontext())
         iters_used = final_delta = None
         try:
-            if cfg.adaptive:
-                flow_low, flow_up, iters_used, final_delta = self.eval_fn(
-                    buf[0], buf[1], fi, iter_budget)
-            else:
-                flow_low, flow_up = self.eval_fn(buf[0], buf[1], fi)
+            with win:
+                fi = self._assemble_fi(bucket, inits) if will_fi else None
+                t1 = time.perf_counter()
+                if cfg.adaptive:
+                    flow_low, flow_up, iters_used, final_delta = \
+                        self.eval_fn(buf[0], buf[1], fi, iter_budget)
+                else:
+                    flow_low, flow_up = self.eval_fn(buf[0], buf[1], fi)
         except BaseException:
             self._release(staging)
             raise
@@ -305,8 +313,14 @@ class InferenceEngine:
             # cuDNN's search runs inside this first call: compile_s only
             self.compile_s += t2 - t1
             self.stats.dispatch_s += t1 - t0
+            self.watch.mark_warm()
         else:
             self.stats.dispatch_s += t2 - t0
+            # a searched signature that still compiled is drift
+            if cfg.strict:
+                self.watch.check()
+            else:
+                self.watch.warn_if_drifted()
         self.stats.batches += 1
         self._inflight.append(_Ticket(
             flow_low, flow_up,
@@ -351,8 +365,7 @@ class InferenceEngine:
                 rows.append(init.to(dev))
             else:
                 self.stats.carry_h2d_bytes += init.nbytes
-                rows.append(torch.from_numpy(
-                    np.ascontiguousarray(init, np.float32)).to(dev))
+                rows.append(guards.put(np.asarray(init, np.float32), dev))
         rows += [zero] * (cfg.batch_size - len(rows))
         return torch.stack(rows)
 
@@ -369,19 +382,17 @@ class InferenceEngine:
         try:
             if ticket.event is not None:
                 # this batch's work only, not whatever was queued after it
-                ticket.event.synchronize()
+                with guards.sync_window():
+                    ticket.event.synchronize()
             if self.config.device_carry and isinstance(ticket.flow_low,
                                                        torch.Tensor):
                 low = ticket.flow_low      # the carry stays on the device
             else:
-                low = _host(ticket.flow_low)
+                low = guards.fetch(ticket.flow_low)
                 if self.config.warm_start:
                     self.stats.carry_d2h_bytes += low.nbytes
-            up = _host(ticket.flow_up)
-            iu = fd = None
-            if ticket.iters_used is not None:
-                iu = _host(ticket.iters_used)
-                fd = _host(ticket.final_delta)
+            up, iu, fd = guards.fetch((ticket.flow_up, ticket.iters_used,
+                                       ticket.final_delta))
         finally:
             self._release(ticket.staging)
         now = time.perf_counter()

@@ -43,6 +43,8 @@ LOCK_ORDER: Tuple[str, ...] = (
     "serve.video.stats",         # VideoEngine._stats_lock: chunk counters
     "serve.sessions.store",      # SessionStore._lock: flow-seed carry map
     "serve.sessions.device",     # DeviceSessionStore._lock: device carry map
+    "analysis.guards.watch",     # RecompileWatch._slock: sanctioned windows
+    "analysis.guards.listener",  # guards._lock: compile + sync-window counts
     "resilience.watchdog.armed", # HangWatchdog._lock: armed-region tuple
     "train.checkpoint.pending",  # checkpoint._LOCK: pending-flush registry
     "data.loader.pool",          # _PoolManager._lock: decode-pool generation

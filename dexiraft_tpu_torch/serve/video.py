@@ -21,21 +21,26 @@ f_1), ..., (f_{T-2}, f_{T-1})) and T-1 cold; a cold T=1 chunk yields no
 flow and only primes the carry. Frames go one at a time, so memory is
 constant in T; a bucket change mid-stream restarts that stream cold.
 
-The JAX engine also watches for XLA retraces (analysis/guards.py
-RecompileWatch, its ``strict`` mode). The port has no counterpart yet
-(ROADMAP A13), so ``strict=True`` is refused. ``warmup`` builds the
-kernels and warms cuDNN for each geometry. The chunk logic runs on numpy
-stubs without a model, as the JAX engine's does.
+Recompile guard (analysis.guards): a fresh bucket's frame loop (its
+encode/refine searches) runs inside ``watch.sanctioned()`` and marks the
+watch warm after it; a compile on a warm bucket is drift, which
+``strict=True`` raises and the default warns about once. Pass the pair
+engine's ``watch`` so that the two share one baseline: the counter is
+process-wide. Flows come back through ``guards.fetch``. ``warmup``
+builds the kernels and warms cuDNN for each geometry. The chunk logic
+runs on numpy stubs without a model, as the JAX engine's does.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import time
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
+from dexiraft_tpu_torch.analysis import guards
 from dexiraft_tpu_torch.data.padder import InputPadder
 from dexiraft_tpu_torch.serve.buckets import bucket_shape
 from dexiraft_tpu_torch.serve.locks import OrderedLock
@@ -51,12 +56,6 @@ _PCTL_WINDOW = 4096  # bounded latency window
 class StreamOverloaded(RuntimeError):
     """Raised at admission when too many chunks are already queued on the
     engine lock."""
-
-
-def _to_host(x) -> np.ndarray:
-    if isinstance(x, np.ndarray):
-        return x
-    return x.detach().cpu().numpy()
 
 
 class ChunkResult(NamedTuple):
@@ -91,6 +90,7 @@ class VideoEngine:
         max_pending_chunks: int = 8,
         adaptive: bool = False,
         strict: bool = False,
+        watch: Optional[guards.RecompileWatch] = None,
     ):
         if max_chunk_frames < 1:
             raise ValueError(
@@ -98,13 +98,6 @@ class VideoEngine:
         if max_pending_chunks < 1:
             raise ValueError(
                 f"max_pending_chunks must be >= 1, got {max_pending_chunks}")
-        if strict:
-            raise ValueError(
-                "strict=True is not supported by the PyTorch port yet: the "
-                "JAX engine's strict mode fails on an XLA retrace "
-                "(analysis/guards.py RecompileWatch), and the port's "
-                "counterpart, a budget on CUDA-graph recaptures and host "
-                "syncs, is ROADMAP item A13")
         self.encode_fn = encode_fn
         self.refine_fn = refine_fn
         # identity splat: the raw flow_low seeds the next pair (stub tests);
@@ -121,6 +114,10 @@ class VideoEngine:
         # adaptive contract: refine_fn returns (flow_low, flow_up,
         # iters_used, final_delta) and rides its full iteration budget
         self.adaptive = adaptive
+        # a compile on a warm bucket raises (strict) or warns once
+        self.strict = strict
+        self.watch = watch if watch is not None else guards.RecompileWatch(
+            "video")
         # ranked as in LOCK_ORDER: a chunk's frame loop (_lock) nests the
         # stats lock and the session store's; stats get their own lock so
         # a scrape never waits for a live chunk
@@ -223,30 +220,39 @@ class VideoEngine:
 
             flows: List[np.ndarray] = []
             chunk_iters: List[int] = []
-            for i in range(t_frames):
-                t0 = time.perf_counter()
-                padded = padder.pad(np.asarray(frames[i], np.float32))[0][None]
-                feats = self.encode_fn(self.put(padded))
-                if feats_prev is not None:
-                    if flow_init is None:
-                        flow_init = self._zero_flow_init(h8, w8)
-                    if self.adaptive:
-                        flow_low, flow_up, pair_iters, pair_delta = \
-                            self.refine_fn(feats_prev, feats, flow_init)
-                        iu = int(_to_host(pair_iters)[0])
-                        fd = float(_to_host(pair_delta)[0])
-                    else:
-                        flow_low, flow_up = self.refine_fn(
-                            feats_prev, feats, flow_init)
-                    flow_init = self.splat_fn(flow_low)
-                    flows.append(padder.unpad(_to_host(flow_up)[0]))
-                    with self._stats_lock:
-                        self.flow_latency_s.append(time.perf_counter() - t0)
+            with self._stats_lock:
+                fresh = bucket not in self._warm_buckets
+            # a fresh bucket's searches ride a sanctioned window, so the
+            # pair dispatcher's check on the shared watch (another thread)
+            # does not read them as drift
+            win = (self.watch.sanctioned() if fresh
+                   else contextlib.nullcontext())
+            with win:
+                for i in range(t_frames):
+                    t0 = time.perf_counter()
+                    padded = padder.pad(
+                        np.asarray(frames[i], np.float32))[0][None]
+                    feats = self.encode_fn(self.put(padded))
+                    if feats_prev is not None:
+                        if flow_init is None:
+                            flow_init = self._zero_flow_init(h8, w8)
+                        out = self.refine_fn(feats_prev, feats, flow_init)
+                        flow_init = self.splat_fn(out[0])
+                        # one fetch per pair: the flow, and the adaptive
+                        # loop's (1,) counts with it
+                        up, *gated = guards.fetch(out[1:])
                         if self.adaptive:
-                            chunk_iters.append(iu)
-                            self.iters_used.append(iu)
-                            self.final_delta.append(fd)
-                feats_prev = feats
+                            iu = int(gated[0][0])
+                            fd = float(gated[1][0])
+                        flows.append(padder.unpad(up[0]))
+                        with self._stats_lock:
+                            self.flow_latency_s.append(
+                                time.perf_counter() - t0)
+                            if self.adaptive:
+                                chunk_iters.append(iu)
+                                self.iters_used.append(iu)
+                                self.final_delta.append(fd)
+                    feats_prev = feats
 
             if session_id is not None and self.sessions is not None:
                 self.sessions.put(
@@ -263,6 +269,13 @@ class VideoEngine:
                 else:
                     self.cold_chunks += 1
                 self._warm_buckets.add(bucket)
+            if fresh:
+                # the expected searches of a new bucket: past them
+                self.watch.mark_warm()
+            elif self.strict:
+                self.watch.check()
+            else:
+                self.watch.warn_if_drifted()
         mean_iters = (sum(chunk_iters) / len(chunk_iters)
                       if chunk_iters else None)
         return ChunkResult(flows, warm, bucket, t_frames, mean_iters)

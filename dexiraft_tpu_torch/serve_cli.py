@@ -26,8 +26,13 @@ writes and ``load_raft_pth`` reads; a ``module.`` prefix and a
 ``state_dict`` wrapper are stripped), or a checkpoint directory of the
 port's trainer (its newest step's model), loaded with ``strict=True``.
 ``--mixed_precision`` serves the model in bf16 over its fp32 weights.
-Refused, each naming its ROADMAP item: an orbax checkpoint directory
-(A10), ``--data_parallel`` > 0 (A12) and ``--strict`` (A13). The JAX CLI's XLA flags (``--compile_cache_dir``,
+``--strict`` serves inside ``analysis.guards.strict_mode`` from the end of
+the warm-up: on a card an implicit host sync raises (on the CPU only the
+recompile half is armed), a compile on a searched bucket fails its
+request (the pair and streaming engines share one RecompileWatch), and the
+lock-order runtime raises on an inverted nesting. Refused, each naming its
+ROADMAP item: an orbax checkpoint directory (A10) and ``--data_parallel``
+> 0 (A12). The JAX CLI's XLA flags (``--compile_cache_dir``,
 ``--no_compile_cache``, ``--scan_unroll``) have no counterpart here.
 
 SIGTERM drains: admitted requests finish and flush before exit; a second
@@ -127,7 +132,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "cuDNN search each bucket's convs), e.g. "
                         "440x1024,376x1248")
     p.add_argument("--strict", action="store_true",
-                   help="refused: the strict guards are ROADMAP A13")
+                   help="serve inside analysis.guards.strict_mode after "
+                        "the warm-up: an implicit host sync raises (on a "
+                        "card; on the CPU only the recompile half is "
+                        "armed) and a compile on a searched bucket fails "
+                        "its request")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU (plain PyTorch versions of the "
                         "kernels); without it the service needs a card")
@@ -142,10 +151,6 @@ def _refuse_unported(args) -> None:
         raise SystemExit("serve: --data_parallel is not supported by the "
                          "PyTorch port yet (multi-GPU serving is ROADMAP "
                          "A12)")
-    if args.strict:
-        raise SystemExit("serve: --strict is not supported by the PyTorch "
-                         "port yet (the recompile/host-sync guards are "
-                         "ROADMAP A13)")
 
 
 # ---- multi-worker pool --------------------------------------------------
@@ -274,12 +279,15 @@ def _make_carry_fn(dev, device: bool = True):
     (--host_carry)."""
     import torch
 
+    from dexiraft_tpu_torch.analysis import guards
     from dexiraft_tpu_torch.eval.interpolate import forward_interpolate
 
     @torch.inference_mode()
     def carry(flow_low):
-        out = forward_interpolate(torch.as_tensor(flow_low, device=dev))
-        return out if device else out.cpu().numpy()
+        if not isinstance(flow_low, torch.Tensor):
+            flow_low = guards.put(flow_low, dev)
+        out = forward_interpolate(flow_low.to(dev))
+        return out if device else guards.fetch(out)
 
     return carry
 
@@ -288,8 +296,11 @@ def _warmup(engine, geometries, carry_fn=None, video=None) -> float:
     """Run each named bucket once before the listener opens: the first
     dispatch builds the kernels and lets cuDNN search the bucket's convs,
     which would otherwise land in a first request's latency. The carry
-    splat and the streaming engine run here too. Returns the pair
-    engine's first-dispatch seconds (its ``compile_s``, cuDNN's search)."""
+    splat and the streaming engine run here too, so a --strict service is
+    compile-flat from the first request; the adaptive engine's second
+    dispatch at another budget must ride the first one's searches (its
+    check raises otherwise). Returns the pair engine's first-dispatch
+    seconds (its ``compile_s``, cuDNN's search)."""
     import numpy as np
 
     for geom in geometries:
@@ -299,8 +310,10 @@ def _warmup(engine, geometries, carry_fn=None, video=None) -> float:
         (res,) = engine.run_batch([item])
         if carry_fn is not None:
             carry_fn(res.flow_low)
+            engine.watch.mark_warm()  # expected, not drift
         if engine.config.adaptive:
             (res2,) = engine.run_batch([item], iter_budget=1)
+            engine.watch.check()
             if res2.iters_used is None:
                 raise RuntimeError(
                     "adaptive engine returned no iters_used during "
@@ -313,8 +326,11 @@ def _warmup(engine, geometries, carry_fn=None, video=None) -> float:
     return search_s
 
 
-def _make_video_engine(args, cfg, model, dev, sessions_on):
-    """The streaming tier (serve/video.py), or None with a printed why."""
+def _make_video_engine(args, cfg, model, dev, sessions_on, watch=None):
+    """The streaming tier (serve/video.py), or None with a printed why.
+    ``watch``: the pair engine's, shared (the compile counter is
+    process-wide, so a separate watch would read one engine's expected
+    searches as the other's drift)."""
     why = None
     if args.stream_sessions_mb <= 0:
         why = "--stream_sessions_mb 0"
@@ -327,9 +343,9 @@ def _make_video_engine(args, cfg, model, dev, sessions_on):
         print(f"[serve] streaming endpoint disabled: {why}", flush=True)
         return None
 
-    import numpy as np
     import torch
 
+    from dexiraft_tpu_torch.analysis import guards
     from dexiraft_tpu_torch.eval.interpolate import forward_interpolate
     from dexiraft_tpu_torch.serve.sessions import DeviceSessionStore
     from dexiraft_tpu_torch.serve.video import VideoEngine
@@ -359,16 +375,25 @@ def _make_video_engine(args, cfg, model, dev, sessions_on):
         ttl_s=args.session_ttl_s, max_sessions=1024)
     return VideoEngine(
         encode_step, refine_fn, splat, sessions=store,
-        put=lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev),
+        put=lambda x: guards.put(x, dev),
         mode=args.mode, bucket_multiple=args.bucket_multiple,
-        max_chunk_frames=args.stream_chunk_frames, adaptive=args.adaptive)
+        max_chunk_frames=args.stream_chunk_frames, adaptive=args.adaptive,
+        strict=args.strict, watch=watch)
 
 
 def _serve_one(args) -> None:
+    import contextlib
+
+    from dexiraft_tpu_torch.analysis import guards
     from dexiraft_tpu_torch.ops import corr_kernels
+    from dexiraft_tpu_torch.serve import locks
     from dexiraft_tpu_torch.serve.engine import InferenceEngine
     from dexiraft_tpu_torch.serve.server import FlowService
 
+    if args.strict:
+        # the lock-order runtime raises at an inverted nesting or a
+        # re-entry instead of counting it
+        locks.set_strict(True)
     dev = _device(args)
     cfg, model = _load(args, dev)
     # one resident copy of the weights: the pair step and the streaming
@@ -383,7 +408,8 @@ def _serve_one(args) -> None:
         device=dev)
     carry_fn = (_make_carry_fn(dev, device=device_carry)
                 if sessions_on else None)
-    video = _make_video_engine(args, cfg, model, dev, sessions_on)
+    video = _make_video_engine(args, cfg, model, dev, sessions_on,
+                               watch=engine.watch)
     if args.warmup:
         search_s = _warmup(engine, args.warmup.split(","), carry_fn, video)
         print(f"[serve] warmup: {engine.registry.searches} signature(s) "
@@ -391,6 +417,15 @@ def _serve_one(args) -> None:
               f"{' (+streaming)' if video is not None else ''}", flush=True)
     # /stats' kernel_launches counts traffic: the warm-up's are not
     corr_kernels.reset_launches()
+    region = contextlib.ExitStack()
+    if args.strict:
+        # the region's watch becomes the engines' (marked warm at entry,
+        # after the warm-up); its exit check is the service's verdict
+        watch = region.enter_context(guards.strict_mode(label="serve",
+                                                        device=dev))
+        engine.watch = watch
+        if video is not None:
+            video.watch = watch
 
     service = FlowService(
         engine,
@@ -402,6 +437,12 @@ def _serve_one(args) -> None:
         request_timeout_s=args.request_timeout_s,
         reuse_port=args.reuse_port,
         video=video)
+    with region:
+        _run_service(args, cfg, dev, engine, service, sessions_on)
+
+
+def _run_service(args, cfg, dev, engine, service, sessions_on) -> None:
+    """Start the service, wait for its stop, print the summary."""
     service.install_signal_handlers()
     service.start()
     worker = os.environ.get("DEXIRAFT_SERVE_WORKER")

@@ -21,6 +21,8 @@ from typing import Dict, Optional
 
 import torch
 
+from dexiraft_tpu_torch.analysis import guards
+
 
 def _tensorboard_without_tensorflow() -> None:
     """Have TensorBoard's writer use its own file API, not TensorFlow's.
@@ -37,12 +39,12 @@ def _tensorboard_without_tensorflow() -> None:
 
 def _to_host(values: list) -> list:
     """A window of scalars (python numbers or 0-d tensors on any device)
-    -> python floats, with one copy per device."""
+    -> python floats, with one explicit copy (analysis.guards.fetch)."""
     tensors = [v for v in values if isinstance(v, torch.Tensor)]
     if not tensors:
         return [float(v) for v in values]
-    fetched = iter(torch.stack([t.detach().to(torch.float64).reshape(())
-                                for t in tensors]).cpu().tolist())
+    fetched = iter(guards.fetch(torch.stack(
+        [t.detach().to(torch.float64).reshape(()) for t in tensors])).tolist())
     return [next(fetched) if isinstance(v, torch.Tensor) else float(v)
             for v in values]
 

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from dexiraft_tpu_torch.analysis import guards
 from dexiraft_tpu_torch.config import RAFTConfig, TrainConfig
 from dexiraft_tpu_torch.device import resolve_device
 from dexiraft_tpu_torch.models.layers import set_data_mesh
@@ -139,6 +140,13 @@ def _nhwc(*tensors: torch.Tensor):
     return tuple(t.permute(0, 2, 3, 1) for t in tensors)
 
 
+def _signature(*arrays) -> tuple:
+    """(shape, dtype) of each array or tensor (None passes): the part of a
+    step's compile key that the inputs give (analysis.guards)."""
+    return tuple(None if a is None else (tuple(a.shape), str(a.dtype))
+                 for a in arrays)
+
+
 def make_eval_step(model: RAFT, iters: int = 24,
                    device: Union[str, torch.device] = "cuda",
                    tf32: bool = EVAL_TF32, adaptive: bool = False
@@ -160,8 +168,14 @@ def make_eval_step(model: RAFT, iters: int = 24,
     dev = resolve_device(device)
     model = model.to(dev).eval()
     to_dev = _nchw(dev)
+    # this step's compile keys (analysis.guards): a new step searches anew,
+    # as a new jitted function compiles anew; cuDNN searches per thread
+    token, per_thread = object(), dev.type == "cuda"
 
     def run(image1, image2, flow_init, edges1, edges2, **kw):
+        guards.note_new_key("eval_step", (
+            token, _signature(image1, image2, flow_init, edges1, edges2),
+            tf32, iters, adaptive, model.cfg.mixed_precision), per_thread)
         with eval_arithmetic(tf32):
             out = model(to_dev(image1), to_dev(image2), iters=iters,
                         flow_init=to_dev(flow_init), test_mode=True,
@@ -200,9 +214,13 @@ def make_encode_step(model: RAFT, device: Union[str, torch.device] = "cuda"
     dev = resolve_device(device)
     model = model.to(dev).eval()
     to_dev = _nchw(dev)
+    token, per_thread = object(), dev.type == "cuda"
 
     @torch.inference_mode()
     def encode(frame, edges=None) -> Features:
+        guards.note_new_key("encode", (token, _signature(frame, edges),
+                                       EVAL_TF32, model.cfg.mixed_precision),
+                            per_thread)
         with eval_arithmetic(EVAL_TF32):
             return model.encode_frame(to_dev(frame), to_dev(edges))
 
@@ -225,6 +243,7 @@ def make_refine_step(model: RAFT, iters: int = 24,
     dev = resolve_device(device)
     model = model.to(dev).eval()
     to_dev = _nchw(dev)
+    token, per_thread = object(), dev.type == "cuda"
 
     @torch.inference_mode()
     def refine(features1: Features, features2: Features, flow_init=None,
@@ -242,6 +261,10 @@ def make_refine_step(model: RAFT, iters: int = 24,
         if adaptive:
             kw = dict(adaptive=True, iter_budget=None if iter_budget is None
                       else int(iter_budget))
+        guards.note_new_key("refine", (
+            token, _signature(*(features1[k] for k in sorted(features1))),
+            _signature(fi), EVAL_TF32, iters, adaptive,
+            model.cfg.mixed_precision), per_thread)
         with eval_arithmetic(EVAL_TF32):
             out = model.refine(features1, features2, iters, fi, **kw)
         return _nhwc(*out[:2]) + tuple(out[2:])
@@ -367,6 +390,7 @@ def make_train_step(cfg: RAFTConfig, tc: TrainConfig, mesh=None,
         raise ValueError(
             "edge_sum_fusion is the v1 (plain 'raft') training fusion — "
             "the model itself consumes edges in the other variants")
+    token = object()
 
     def forward(model: RAFT, mb: Dict[str, torch.Tensor]) -> torch.Tensor:
         if tc.edge_sum_fusion:
@@ -389,6 +413,11 @@ def make_train_step(cfg: RAFTConfig, tc: TrainConfig, mesh=None,
                              "train_model_config(cfg, tc))")
         dev = state.device
         to_dev = _nchw(dev)
+        guards.note_new_key("train_step", (
+            token, tuple((k, _signature(v)) for k, v in sorted(batch.items())
+                         if v is not None),
+            TRAIN_TF32, tc.precision, tc.remat, cfg.remat_lookup, tc.iters,
+            tc.accum_steps), dev.type == "cuda")
         b = dict(batch)
         for key in ("image1", "image2", "flow", "edges1", "edges2"):
             if b.get(key) is not None:

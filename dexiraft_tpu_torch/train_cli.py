@@ -63,8 +63,15 @@ arms the hang watchdog (``resilience.watchdog``): a step, barrier or
 save that makes no progress for that long (10x for checkpoint and
 validation windows) dumps the step, the region and every thread's stack
 and exits 98; ``--straggler_factor`` x the step-time EWMA warns first.
-Refused, each naming the ROADMAP item that ports it: ``--fsdp``,
-``--elastic`` and ``--join`` (A12); ``--strict`` (A13).
+``--strict`` arms ``analysis.guards.strict_mode`` after the first step
+(its cuDNN searches and kernel builds are the warm-up): from then on an
+implicit host sync raises (on a card; a multi-rank run, whose gloo
+collectives pass through the host, and a CPU run arm only the recompile
+half) and a compile past the warm-up fails the run at the guard cadence
+and at the end. Checkpoint saves, restores and validation run in
+sanctioned windows, for compiles and syncs. Without ``--strict`` the same
+watch only warns, once. Refused, each naming the ROADMAP item that
+ports it: ``--fsdp``, ``--elastic`` and ``--join`` (A12).
 ``--restore_ckpt`` takes a checkpoint of this trainer or a state-dict file
 (the bridge's layout); an orbax directory is refused (A10). PyTorch runs
 eagerly, so ``--compile_cache`` has nothing to cache and only says so.
@@ -230,7 +237,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--join", default=None, metavar="NAME",
                    help="refused: ROADMAP A12")
     p.add_argument("--strict", action="store_true",
-                   help="refused: ROADMAP A13")
+                   help="arm analysis.guards.strict_mode after the first "
+                        "step: an implicit host sync raises (on one card; "
+                        "with several ranks, or on the CPU, only the "
+                        "recompile half is armed) and a compile past the "
+                        "warm-up fails the run")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; under torchrun cuda:LOCAL_RANK), "
                         "'cuda:N' (every rank on card N) or 'cpu'")
@@ -243,7 +254,6 @@ def refuse_unported(args) -> None:
         (args.fsdp is not None, "--fsdp", "A12"),
         (args.elastic, "--elastic", "A12"),
         (args.join is not None, "--join", "A12"),
-        (args.strict, "--strict", "A13"),
     )
     for bad, flag, item in refused:
         if bad:
@@ -366,8 +376,11 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args, world=None) -> None:
     """The training loop (module docstring). ``world``: this process's
     ``parallel.World`` (``initialize()``'s; None: a single process on
     ``--device``)."""
+    import contextlib
+
     import torch
 
+    from dexiraft_tpu_torch.analysis import guards
     from dexiraft_tpu_torch.data.datasets import fetch_dataset
     from dexiraft_tpu_torch.data.loader import Loader
     from dexiraft_tpu_torch.data.prefetch import DevicePrefetcher
@@ -525,6 +538,12 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args, world=None) -> None:
         for the commit); then every rank meets at a barrier, so no rank
         runs ahead of a save (or past an emergency save's commit)."""
         nonlocal last_saved
+        with sanctioned():
+            _save(step, block)
+        coord.barrier(f"save@{step}")
+        last_saved = step
+
+    def _save(step: int, block: bool) -> None:
         if writer:
             info = ckpt.wait_pending(ckpt_dir)
             _note_flush(info)
@@ -542,8 +561,19 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args, world=None) -> None:
                 if info and info["error"]:
                     raise RuntimeError(f"checkpoint flush of step {step} "
                                        f"failed: {info['error']}")
-        coord.barrier(f"save@{step}")
-        last_saved = step
+
+    @contextlib.contextmanager
+    def sanctioned():
+        """Host I/O (checkpoints, restores, validation): its compiles and
+        host syncs are expected, not steady-state drift."""
+        with (watch.sanctioned() if watch is not None
+              else contextlib.nullcontext()), guards.sync_window():
+            yield
+
+    def verdict():
+        """(loss, state_finite) of the last step, one explicit fetch."""
+        loss, ok = guards.fetch((metrics["loss"], metrics["state_finite"]))
+        return float(loss), bool(ok)
 
     def _note_flush(info) -> None:
         if info:
@@ -563,6 +593,11 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args, world=None) -> None:
 
     prof_start, prof_stop = args.profile_steps or (-1, -1)
     prof = None
+    # the recompile watch, from the end of the first step; under --strict
+    # the strict region (analysis.guards.strict_mode) holds it and arms
+    # the sync half (one process on a card)
+    watch = None
+    region = contextlib.ExitStack()
     metrics = None
     preempted = False
     first_iteration = True
@@ -572,7 +607,7 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args, world=None) -> None:
         depth=tc.prefetch_depth, pipeline_stats=loader.stats)
     preempt = PreemptionHandler()
     try:
-        with preempt:
+        with region, preempt:
             # not armed over the first iteration: its cuDNN searches and
             # kernel builds would trip a step-sized timeout
             for batch in batches:
@@ -584,6 +619,18 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args, world=None) -> None:
                     prof.__enter__()
                 state, metrics = step_fn(state, batch)
                 total_steps += 1
+                if watch is None:
+                    # the first step searched and built: the steady-state
+                    # contract holds from here
+                    label = f"train[{tc.name}]"
+                    if args.strict:
+                        watch = region.enter_context(guards.strict_mode(
+                            label=label, device=dev,
+                            transfer="allow" if world.size > 1
+                            else "disallow"))
+                    else:
+                        watch = guards.RecompileWatch(label)
+                        watch.mark_warm()
                 # advanced on consumption, never rewound by a rollback
                 stream = StreamPosition(*loader.positions.popleft()).advance(
                     1, per_epoch)
@@ -603,11 +650,10 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args, world=None) -> None:
                 if not args.no_guard and (
                         total_steps % args.guard_every == 0
                         or total_steps % tc.val_freq == 0):
-                    loss_v = float(metrics["loss"])
                     # state_finite is the step's post-update verdict over
                     # every rank (the loss certifies only the pre-update
                     # parameters)
-                    state_ok = bool(metrics["state_finite"])
+                    loss_v, state_ok = verdict()
                     poisoned_here = guard.poisoned(loss_v, state_ok)
                     # a poisoned verdict on ANY rank rolls back ALL ranks
                     if coord.any_flag(poisoned_here):
@@ -630,8 +676,9 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args, world=None) -> None:
                         coord.barrier(f"rollback@{total_steps}")
                         # verified: a damaged target falls back further,
                         # and the ranks re-agree until they hold one step
-                        state, last_saved = coord.agree_step(restore,
-                                                             target)
+                        with sanctioned():
+                            state, last_saved = coord.agree_step(restore,
+                                                                 target)
                         print(f"[guard] loss {loss_v:.4g} "
                               f"(state_finite={state_ok}, poisoned_here="
                               f"{poisoned_here}) at step {total_steps}; "
@@ -642,6 +689,14 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args, world=None) -> None:
                         wd.disarm(feed_ewma=False)
                         wd.arm(total_steps + 1, "step+data")
                         continue
+
+                # the recompile sentinel, on the guard's cadence: strict
+                # raises, the default warns once
+                if total_steps % args.guard_every == 0:
+                    if args.strict:
+                        watch.check()
+                    else:
+                        watch.warn_if_drifted()
 
                 # preemption is a COLLECTIVE verdict: one rank's SIGTERM
                 # stops every rank at the same step. One process: the
@@ -659,9 +714,7 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args, world=None) -> None:
                     if args.on_preempt == "save":
                         poisoned = False
                         if not args.no_guard and metrics is not None:
-                            poisoned = guard.poisoned(
-                                float(metrics["loss"]),
-                                bool(metrics["state_finite"]))
+                            poisoned = guard.poisoned(*verdict())
                         # one rank's poison vetoes the save everywhere
                         if coord.any_flag(poisoned):
                             print(f"[preempt] state at step {total_steps} "
@@ -691,7 +744,8 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args, world=None) -> None:
                         # rank a step whose flush then fails
                         _note_flush(ckpt.wait_pending(ckpt_dir))
                     for vname in (tc.validation if writer else ()):
-                        results = validate(vname)
+                        with sanctioned():
+                            results = validate(vname)
                         logger.write_dict(results, step=total_steps)
                         # the first EPE-like scalar of the first set ranks
                         # this checkpoint for --keep_best (lower = better)
@@ -725,8 +779,7 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args, world=None) -> None:
         wd.stop()
     final_ok = not preempted
     if final_ok and not args.no_guard and metrics is not None:
-        loss_v = float(metrics["loss"])
-        state_ok = bool(metrics["state_finite"])
+        loss_v, state_ok = verdict()
         if guard.poisoned(loss_v, state_ok):
             final_ok = False
             print(f"[guard] final state poisoned (loss {loss_v:.4g}, "
@@ -736,6 +789,13 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args, world=None) -> None:
         save(total_steps, block=True)
     elif writer:
         _note_flush(ckpt.wait_pending(ckpt_dir))
+    # the end-of-run verdict: strict fails the run on a compile the
+    # sanctioned windows did not absorb; the default warns once
+    if watch is not None:
+        if args.strict:
+            watch.check()
+        else:
+            watch.warn_if_drifted()
     if wd.enabled and wd.straggler_warnings:
         print(f"[watchdog] {wd.straggler_warnings} straggler warning(s) "
               f"this run (EWMA step {wd.ewma_s:.2f}s)")

@@ -74,6 +74,7 @@ def run_demo(steps: int = 200, batch: int = 4, size=(192, 256),
     step, "steps_per_s": the rate after the first step, "first_step_s"}."""
     import torch
 
+    from dexiraft_tpu_torch.analysis import guards
     from dexiraft_tpu_torch.config import TrainConfig, raft_v1
     from dexiraft_tpu_torch.device import resolve_device
     from dexiraft_tpu_torch.train.state import create_state, param_count
@@ -104,14 +105,15 @@ def run_demo(steps: int = 200, batch: int = 4, size=(192, 256),
         losses.append(m["loss"])
         epes.append(m["epe"])
         if i == 0:
-            float(m["loss"])
+            guards.fetch(m["loss"])
             first_step_s = time.perf_counter() - t_first
             t0 = time.perf_counter()
         if (i + 1) % 25 == 0 or i == steps - 1:
-            log(f"[{i + 1:5d}] loss {float(m['loss']):7.3f}  epe "
-                f"{float(m['epe']):6.3f}")
-    loss_v = torch.stack(losses).cpu().tolist()
-    epe_v = torch.stack(epes).cpu().tolist()
+            loss_i, epe_i = guards.fetch((m["loss"], m["epe"]))
+            log(f"[{i + 1:5d}] loss {float(loss_i):7.3f}  epe "
+                f"{float(epe_i):6.3f}")
+    loss_v, epe_v = guards.fetch((torch.stack(losses), torch.stack(epes)))
+    loss_v, epe_v = loss_v.tolist(), epe_v.tolist()
     rate = (steps - 1) / (time.perf_counter() - t0) if steps > 1 else 0.0
     return {"epe": epe_v, "loss": loss_v, "steps_per_s": rate,
             "first_step_s": first_step_s}

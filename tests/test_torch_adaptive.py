@@ -33,6 +33,7 @@ from dexiraft_tpu_torch.models.raft import RAFT
 from dexiraft_tpu_torch.serve.engine import InferenceEngine, ServeConfig
 from dexiraft_tpu_torch.train.step import make_eval_step, make_refine_step
 from test_torch_raft import _randomize
+from test_torch_train_ops import few_torch_threads  # noqa: F401
 
 H, W = 40, 56
 ITERS = 4
@@ -43,6 +44,12 @@ ITERS = 4
 MIXED = {"v1": (0.42, ((1, 2), (3, 4)), [1, ITERS]),
          "v5": (1.03, ((1, 2), (5, 6)), [ITERS, 1])}
 RTOL = {"v1": 5e-3, "v5": 1e-2}
+
+
+@pytest.fixture(autouse=True)
+def _two_threads(few_torch_threads):  # noqa: F811
+    """2 torch threads: the suite runs 6 workers at once on 8 cores."""
+    yield
 
 
 def _frame(seed):

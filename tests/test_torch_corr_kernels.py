@@ -31,9 +31,16 @@ from dexiraft_tpu.ops.pallas_corr import flash_local_corr_level as j_flash_level
 from dexiraft_tpu.ops.pallas_corr import fused_reference as j_fused_ref
 from dexiraft_tpu_torch.ops import corr_kernels as ck
 from dexiraft_tpu_torch.ops.local_corr import build_local_corr as t_build
+from test_torch_train_ops import few_torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-3
+
+
+@pytest.fixture(autouse=True)
+def _two_threads(few_torch_threads):  # noqa: F811
+    """2 torch threads: the suite runs 6 workers at once on 8 cores."""
+    yield
 
 
 @pytest.fixture(autouse=True)

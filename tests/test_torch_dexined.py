@@ -41,8 +41,15 @@ from dexiraft_tpu_torch.interop.jax_weights import (dexined_state_dict_from_jax,
 from dexiraft_tpu_torch.models.dexined import DexiNed, stack_edge_maps
 from dexiraft_tpu_torch.models.raft import RAFT
 from test_torch_raft import _images, _randomize
+from test_torch_train_ops import few_torch_threads  # noqa: F401
 
 RTOL, ATOL = 2e-3, 1e-5
+
+
+@pytest.fixture(autouse=True)
+def _two_threads(few_torch_threads):  # noqa: F811
+    """2 torch threads: the suite runs 6 workers at once on 8 cores."""
+    yield
 
 
 @pytest.fixture(scope="module")

@@ -17,6 +17,13 @@ from dexiraft_tpu_torch.models.raft import create_model
 from dexiraft_tpu_torch.serve.buckets import BucketRegistry, bucket_shape
 from dexiraft_tpu_torch.serve.engine import InferenceEngine, ServeConfig
 from dexiraft_tpu_torch.train.step import make_eval_step
+from test_torch_train_ops import few_torch_threads  # noqa: F401
+
+
+@pytest.fixture(autouse=True)
+def _two_threads(few_torch_threads):  # noqa: F811
+    """2 torch threads: the suite runs 6 workers at once on 8 cores."""
+    yield
 
 
 def _pair(h, w, seed):

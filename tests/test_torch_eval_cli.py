@@ -213,12 +213,54 @@ def test_eval_cli_mixed_precision_reaches_the_model(env, capsys):
 
 @pytest.mark.parametrize("flags, item", [
     (["--data_parallel", "2"], "A12"),
-    (["--strict"], "A13"),
 ])
 def test_eval_cli_refused_flags_name_their_item(env, flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
         eval_cli.main(["--device", "cpu", "--model", env.weights,
                        "--dataset", "chairs"] + flags)
+
+
+@pytest.mark.parametrize("flags", [[], ["--batch_size", "2"]])
+def test_eval_cli_strict_equals_default(env, capsys, flags):
+    """--strict (the recompile half on the CPU) gives the default run's
+    metrics, per image (_strict_wrap) and through the engine."""
+    base = _numbers(_run(env, capsys, "--dataset", "chairs", *flags))
+    out = _run(env, capsys, "--dataset", "chairs", "--strict", *flags)
+    assert _numbers(out) == base
+    assert "[guards]" not in capsys.readouterr().err
+
+
+def test_eval_cli_strict_fails_on_a_search_after_warm_up(env, capsys,
+                                                          monkeypatch):
+    """A step that searches again on a geometry it has already run fails a
+    strict run, as JAX's _strict_wrap does; a new geometry is absorbed."""
+    import dexiraft_tpu_torch.train.step as step_mod
+    from dexiraft_tpu_torch.analysis import guards
+
+    real = step_mod.make_eval_step
+
+    def searching_step(*a, **kw):
+        step = real(*a, **kw)
+
+        def run(*args, **kwargs):
+            guards.note_compile("eval_step")
+            return step(*args, **kwargs)
+
+        return run
+
+    monkeypatch.setattr(step_mod, "make_eval_step", searching_step)
+    _run(env, capsys, "--dataset", "chairs")        # default: runs
+    with pytest.raises(guards.RecompileBudgetExceeded, match="eval"):
+        _run(env, capsys, "--dataset", "chairs", "--strict")
+    watch = guards.RecompileWatch("wrap")
+    wrapped = eval_cli._strict_wrap(
+        lambda im1, im2, flow_init=None: guards.note_compile("eval_step"),
+        watch)
+    a, b = np.zeros((1, 8, 8, 3)), np.zeros((1, 16, 8, 3))
+    wrapped(a, a)
+    wrapped(b, b)                                    # a new geometry
+    with pytest.raises(guards.RecompileBudgetExceeded):
+        wrapped(a, a)                                # a repeat compiled
 
 
 def test_eval_cli_refuses_orbax_and_missing_models(env, tmp_path):

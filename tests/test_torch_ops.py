@@ -20,8 +20,15 @@ from dexiraft_tpu_torch.ops import grid as tgrid
 from dexiraft_tpu_torch.ops import local_corr as tlocal
 from dexiraft_tpu_torch.ops import quant as tquant
 from dexiraft_tpu_torch.ops import upsample as tup
+from test_torch_train_ops import few_torch_threads  # noqa: F401
 
 ATOL = 1e-5
+
+
+@pytest.fixture(autouse=True)
+def _two_threads(few_torch_threads):  # noqa: F811
+    """2 torch threads: the suite runs 6 workers at once on 8 cores."""
+    yield
 
 
 def _close(t, j, atol=ATOL):

@@ -36,8 +36,15 @@ from dexiraft_tpu_torch.ops import tiles
 from dexiraft_tpu_torch.ops.local_corr import build_local_corr as t_build
 from test_torch_corr_kernels import (FIELDS, REPO, _coords, _fold, _maxerr,
                                      _pyramids, _setup)
+from test_torch_train_ops import few_torch_threads  # noqa: F401
 
 TOL = 1e-3
+
+
+@pytest.fixture(autouse=True)
+def _two_threads(few_torch_threads):  # noqa: F811
+    """2 torch threads: the suite runs 6 workers at once on 8 cores."""
+    yield
 
 
 @pytest.fixture(autouse=True)

@@ -1,7 +1,7 @@
 """The whole slice: JAX RAFT v1 against the PyTorch port on the same weights.
 
-JAX side: ``RAFT(raft_v1(corr_impl="flash", fused_update=True)).apply``
-with the Pallas flash kernel in interpret mode
+JAX side: ``RAFT(raft_v1(corr_impl="flash", fused_update=True)).apply``,
+jitted, with the Pallas flash kernel in interpret mode
 (DEXIRAFT_PALLAS_INTERPRET=1). Port side: ``dexiraft_tpu_torch`` RAFT
 with the same config on the CPU (the kernel wrapper's plain version),
 loaded through ``raft_state_dict_from_jax``. Full width and small, at
@@ -33,10 +33,17 @@ from dexiraft_tpu.models.raft import RAFT as JRAFT
 from dexiraft_tpu_torch.config import raft_v1
 from dexiraft_tpu_torch.interop.jax_weights import raft_state_dict_from_jax
 from dexiraft_tpu_torch.models.raft import RAFT, create_model
+from test_torch_train_ops import few_torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL, ATOL = 5e-3, 1e-3
 ITERS = 4
+
+
+@pytest.fixture(autouse=True)
+def _two_threads(few_torch_threads):  # noqa: F811
+    """2 torch threads: the suite runs 6 workers at once on 8 cores."""
+    yield
 
 
 def _randomize(variables, seed):
@@ -94,10 +101,12 @@ def test_slice_matches_jax(variables, small, hw, monkeypatch):
     monkeypatch.setenv("DEXIRAFT_FLASH_ROWS", "8")
     v = variables[small]
     im1, im2 = _images(*hw, seed=hw[0])
-    j_low, j_up = JRAFT(j_raft_v1(small=small, corr_impl="flash",
-                                  fused_update=True)).apply(
-        v, jnp.asarray(im1), jnp.asarray(im2), iters=ITERS, train=False,
-        test_mode=True)
+    # jitted: the same function as the op-by-op apply (the interpreted
+    # kernel included), in a quarter of its time on the CPU
+    jm = JRAFT(j_raft_v1(small=small, corr_impl="flash", fused_update=True))
+    j_low, j_up = jax.jit(lambda v, a, b: jm.apply(
+        v, a, b, iters=ITERS, train=False, test_mode=True))(
+        v, jnp.asarray(im1), jnp.asarray(im2))
 
     model = RAFT(raft_v1(small=small, corr_impl="flash", fused_update=True))
     model.load_state_dict(raft_state_dict_from_jax(v, small=small), strict=True)
@@ -199,7 +208,8 @@ def test_package_imports_no_jax():
     """The port's package, model, engine, kernel, bridge, splat, session,
     video, scheduler, server, router, trainer, data, records, native
     decode, eval, resilience (coordinator, watchdog, preemption, the
-    collective trace), data-parallel, DexiNed workload and CLI modules,
+    collective trace), data-parallel, DexiNed workload, runtime guard,
+    linter and CLI modules,
     and the lock-registry fixture and data-parallel child of its tests,
     load neither
     jax/flax/optax/orbax nor any dexiraft_tpu module, nor an image library
@@ -259,6 +269,9 @@ def test_package_imports_no_jax():
         "import dexiraft_tpu_torch.resilience.watchdog\n"
         "import dexiraft_tpu_torch.resilience.preemption\n"
         "import dexiraft_tpu_torch.analysis.collective_trace\n"
+        "import dexiraft_tpu_torch.analysis.guards\n"
+        "import dexiraft_tpu_torch.analysis.synclint\n"
+        "import dexiraft_tpu_torch.analysis.threadlint\n"
         "sys.path.insert(0, 'tests')\n"
         "import torch_parallel_child\n"
         "import test_torch_lock_registry\n"

@@ -1,7 +1,7 @@
 """The v5 slice: JAX RAFT v5 against the PyTorch port on the same weights.
 
-JAX side: ``RAFT(raft_v5(corr_impl="pallas", fused_update=...)).apply``,
-the dual-stream Dexi-RAFT with its embedded DexiNed, on the per-pixel
+JAX side: ``RAFT(raft_v5(corr_impl="pallas", fused_update=...)).apply``
+(jitted), the dual-stream Dexi-RAFT with its embedded DexiNed, on the per-pixel
 Pallas kernels B3 (fused) and B4 (unfused) in interpret mode
 (DEXIRAFT_PALLAS_INTERPRET=1). Port side: ``dexiraft_tpu_torch`` RAFT with
 the same config on the CPU (the kernel wrappers' plain versions), loaded
@@ -38,9 +38,16 @@ from dexiraft_tpu_torch.models.raft import RAFT, create_model
 from dexiraft_tpu_torch.serve.engine import InferenceEngine, ServeConfig
 from dexiraft_tpu_torch.train.step import make_eval_step
 from test_torch_raft import _images, _randomize
+from test_torch_train_ops import few_torch_threads  # noqa: F401
 
 RTOL, ATOL = 1e-2, 1e-3
 ITERS = 4
+
+
+@pytest.fixture(autouse=True)
+def _two_threads(few_torch_threads):  # noqa: F811
+    """2 torch threads: the suite runs 6 workers at once on 8 cores."""
+    yield
 
 
 @pytest.fixture(scope="module")
@@ -70,6 +77,16 @@ def _port(state, **cfg):
     return model.eval()
 
 
+def _jax_forward(fused, variables, im1, im2, flow_init=None):
+    """The JAX v5 forward on the interpreted kernels, jitted: the same
+    function as the op-by-op apply in a quarter of its time on the CPU."""
+    jm = JRAFT(j_raft_v5(corr_impl="pallas", fused_update=fused))
+    fi = None if flow_init is None else jnp.asarray(flow_init)
+    return jax.jit(lambda v, a, b, f: jm.apply(
+        v, a, b, iters=ITERS, flow_init=f, train=False, test_mode=True))(
+        variables, jnp.asarray(im1), jnp.asarray(im2), fi)
+
+
 def _nchw(x):
     return torch.from_numpy(x).permute(0, 3, 1, 2)
 
@@ -88,10 +105,7 @@ def _check(low, up, j_low, j_up, b, hw):
 @pytest.mark.parametrize("fused", [True, False])
 def test_slice_matches_jax(variables, state, interpret, fused, hw):
     im1, im2 = _images(*hw, seed=hw[0] + 1)
-    j_low, j_up = JRAFT(j_raft_v5(corr_impl="pallas",
-                                  fused_update=fused)).apply(
-        variables, jnp.asarray(im1), jnp.asarray(im2), iters=ITERS,
-        train=False, test_mode=True)
+    j_low, j_up = _jax_forward(fused, variables, im1, im2)
     model = _port(state, corr_impl="pallas", fused_update=fused)
     with torch.inference_mode():
         low, up = model(_nchw(im1), _nchw(im2), iters=ITERS)
@@ -105,9 +119,7 @@ def test_flow_init_matches_jax(variables, state, interpret):
     im1, im2 = _images(*hw, seed=9)
     init = np.random.default_rng(9).normal(
         0, 1.5, (2, hw[0] // 8, hw[1] // 8, 2)).astype(np.float32)
-    j_low, j_up = JRAFT(j_raft_v5(corr_impl="pallas", fused_update=True)).apply(
-        variables, jnp.asarray(im1), jnp.asarray(im2), iters=ITERS,
-        flow_init=jnp.asarray(init), train=False, test_mode=True)
+    j_low, j_up = _jax_forward(True, variables, im1, im2, init)
     model = _port(state, corr_impl="pallas", fused_update=True)
     with torch.inference_mode():
         low, up = model(_nchw(im1), _nchw(im2), iters=ITERS,

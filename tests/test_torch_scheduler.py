@@ -23,12 +23,20 @@ from dexiraft_tpu.serve import QueueFull as JQueueFull
 from dexiraft_tpu.serve import Scheduler as JScheduler
 from dexiraft_tpu.serve import ServeConfig as JConfig
 from dexiraft_tpu.serve import SessionStore as JSessionStore
+from dexiraft_tpu_torch.analysis import guards
 from dexiraft_tpu_torch.serve import (InferenceEngine, QueueFull, Scheduler,
                                       SchedulerClosed, ServeConfig,
                                       SessionStore)
+from test_torch_train_ops import few_torch_threads  # noqa: F401
 
 SERVICE_S = 0.030   # fake-clock seconds one stub batch takes
 FULL = 32
+
+
+@pytest.fixture(autouse=True)
+def _two_threads(few_torch_threads):  # noqa: F811
+    """2 torch threads: the suite runs 6 workers at once on 8 cores."""
+    yield
 
 
 class FakeClock:
@@ -265,10 +273,32 @@ def test_engine_inflight_window_and_search_accounting():
     assert eng.stats.frames == 0 and eng.compile_s == 0.0
     list(eng.stream([_item()]))
     assert eng.registry.searches == 1          # no second search
-    with pytest.raises(ValueError, match="A13"):
-        ServeConfig(strict=True)
+    assert ServeConfig(strict=True).strict     # ported: accepted
     with pytest.raises(ValueError, match="A12"):
         InferenceEngine(_stub_carry, mesh=object())
+
+
+def test_strict_engine_raises_on_drift_and_the_default_warns_once(capsys):
+    """A fresh (bucket, warm-start) signature's search is absorbed; a
+    dispatch on a searched signature that compiled again raises in a
+    strict engine and warns once in a default one, as the JAX engine."""
+    def compiling(im1, im2, flow_init=None):  # searches on every call
+        guards.note_compile("eval_step")
+        return _stub_carry(im1, im2, flow_init)
+
+    strict = InferenceEngine(compiling, ServeConfig(strict=True))
+    strict.run_batch([_item()])
+    assert strict.watch.drift == 0
+    with pytest.raises(guards.RecompileBudgetExceeded, match="serve"):
+        strict.run_batch([_item(seed=1)])
+    strict.run_batch([_item(48, 64)])          # a fresh bucket: absorbed
+    default = InferenceEngine(compiling, ServeConfig())
+    for seed in range(3):
+        default.run_batch([_item(seed=seed)])
+    assert capsys.readouterr().err.count("[guards] serve: ") == 1
+    steady = InferenceEngine(_stub_carry, ServeConfig(strict=True))
+    for seed in range(3):
+        steady.run_batch([_item(seed=seed)])   # no compile: no raise
 
 
 def test_device_carry_moves_no_host_bytes():

@@ -39,10 +39,12 @@ START_S = 120.0   # a child's start on the CPU takes a few seconds
 
 def _serve(*flags):
     """Start a child service; (process, url, lines read so far)."""
+    # 2 torch threads a child: the suite runs 6 workers at once
     proc = subprocess.Popen(
         [sys.executable, "-m", "dexiraft_tpu_torch", "serve", "--cpu",
          "--port", "0", *flags], cwd=REPO, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
+        stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, OMP_NUM_THREADS="2"))
     watchdog = threading.Timer(START_S, proc.kill)
     watchdog.start()
     lines = []
@@ -96,6 +98,29 @@ def test_synthetic_service_serves_and_drains_on_sigterm():
     assert re.search(r"stopped after .* 2 served, 0 shed, 0 failed", log)
 
 
+def test_strict_service_serves_the_default_flows():
+    """--strict (on the CPU: the recompile half, and the lock-order
+    runtime) serves what the default service serves, on a warm bucket and
+    on a fresh one, with no failure and no drift."""
+    flags = ("--synthetic_init", "--variant", "v1", "--small", "--iters",
+             "2", "--warmup", "40x56")
+    procs = [_serve(*flags), _serve(*flags, "--strict")]
+    flows = []
+    try:
+        for _, url, _ in procs:
+            flows.append([_post(url, *_frames(h, w, 0))
+                          for h, w in ((40, 56), (48, 64), (48, 64))])
+    finally:
+        logs = [_stop(proc, lines) for proc, _, lines in procs]
+    for rc, log in logs:
+        assert rc == 0, log
+        assert re.search(r"3 served, 0 shed, 0 failed", log), log
+        assert "[guards]" not in log
+    for (s0, f0), (s1, f1) in zip(*flows):
+        assert s0 == s1 == 200
+        np.testing.assert_array_equal(f0, f1)
+
+
 def test_worker_pool_shares_one_port_and_drains():
     """--workers 2: two stateless children on one SO_REUSEPORT port; a
     SIGTERM to the parent reaches both, and the pool exits 0."""
@@ -106,7 +131,8 @@ def test_worker_pool_shares_one_port_and_drains():
         [sys.executable, "-m", "dexiraft_tpu_torch", "serve", "--cpu",
          "--synthetic_init", "--variant", "v1", "--small", "--iters", "1",
          "--port", str(port), "--workers", "2"], cwd=REPO,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, OMP_NUM_THREADS="2"))
     watchdog = threading.Timer(START_S, proc.kill)
     watchdog.start()
     lines, up = [], 0
@@ -183,7 +209,6 @@ def test_mixed_precision_reaches_the_model():
 
 @pytest.mark.parametrize("flags, message", [
     (["--data_parallel", "2"], "ROADMAP A12"),
-    (["--strict"], "ROADMAP A13"),
     (["--fused_update", "--corr_impl", "local"], "requires --corr_impl"),
     (["--workers", "0"], "--workers must be >= 1"),
     ([], "exactly one of --model or --synthetic_init"),

@@ -45,6 +45,7 @@ from dexiraft_tpu_torch.serve.server import (decode_response,
                                              encode_response,
                                              encode_stream_request)
 from test_torch_raft import _randomize
+from test_torch_train_ops import few_torch_threads  # noqa: F401
 
 ITERS = 2
 RTOL, ATOL = 5e-3, 1e-3
@@ -57,6 +58,12 @@ ENGINE_DIFF = {  # the first dispatch of a signature runs cuDNN's search
 LOCKS_DIFF = {"cycles"}  # every port lock is ranked: no graph to search
 # the device memory the process holds (None off the card)
 SERVICE_DIFF = {"device_memory_reserved_bytes", "kernel_launches"}
+
+
+@pytest.fixture(autouse=True)
+def _two_threads(few_torch_threads):  # noqa: F811
+    """2 torch threads: the suite runs 6 workers at once on 8 cores."""
+    yield
 
 
 def _stub_eval(im1, im2, flow_init=None):

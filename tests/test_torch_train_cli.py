@@ -153,11 +153,47 @@ def test_cli_trains_in_bf16_under_remat(chairs_env):
     (["--elastic"], "A12"),
     (["--join", "host1"], "A12"),
     (["--fsdp", "auto"], "A12"),
-    (["--strict"], "A13"),
 ])
 def test_refused_flags_name_their_item(flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
         train_cli.main(BASE + flags)
+
+
+def test_cli_strict_run_equals_the_default_run(chairs_env, capsys,
+                                               monkeypatch):
+    """--strict (on the CPU: the recompile half) trains the same losses
+    as the default run and reports no drift; a step that searches again
+    after the first fails a strict run and only warns, once, in a default
+    one."""
+    common = BASE + ["--num_steps", "3", "--val_freq", "2"]
+    train_cli.main(common + ["--name", "plain", "--log_dir", "runs"])
+    train_cli.main(common + ["--name", "strict", "--log_dir", "runs",
+                             "--strict"])
+    assert "[guards]" not in capsys.readouterr().err
+    plain, strict = _losses("runs", "plain"), _losses("runs", "strict")
+    assert sorted(strict) == [1, 2, 3]
+    for s in plain:
+        assert strict[s] == pytest.approx(plain[s], rel=1e-6)
+
+    import dexiraft_tpu_torch.train.step as step_mod
+    from dexiraft_tpu_torch.analysis import guards
+
+    real = step_mod.make_train_step
+
+    def searching_step(*a, **kw):
+        step = real(*a, **kw)
+
+        def run(state, batch):
+            guards.note_compile("train_step")
+            return step(state, batch)
+
+        return run
+
+    monkeypatch.setattr(step_mod, "make_train_step", searching_step)
+    with pytest.raises(guards.RecompileBudgetExceeded, match="train"):
+        train_cli.main(common + ["--name", "drift", "--strict"])
+    train_cli.main(common + ["--name", "drift_warn"])
+    assert capsys.readouterr().err.count("[guards] train[drift_warn]") == 1
 
 
 @pytest.mark.parametrize("flags", [

@@ -34,10 +34,17 @@ from dexiraft_tpu_torch.interop.jax_weights import raft_state_dict_from_jax
 from dexiraft_tpu_torch.models.raft import RAFT, _normalize
 from dexiraft_tpu_torch.models.dexined import stack_edge_maps
 from test_torch_raft import _images, _randomize
+from test_torch_train_ops import few_torch_threads  # noqa: F401
 
 ITERS = 3
 TOL = {"v2": (5e-3, 1e-3), "v3": (1e-2, 1e-3), "v4": (1e-2, 1e-3)}
 SEEDS = {"v2": 21, "v3": 22, "v4": 23}
+
+
+@pytest.fixture(autouse=True)
+def _two_threads(few_torch_threads):  # noqa: F811
+    """2 torch threads: the suite runs 6 workers at once on 8 cores."""
+    yield
 
 
 def _jax_variables(variant, small, seed):

@@ -19,6 +19,7 @@ import torch
 from dexiraft_tpu.config import VARIANTS as J_VARIANTS
 from dexiraft_tpu.eval.interpolate import forward_interpolate as j_splat
 from dexiraft_tpu.models.raft import RAFT as JRAFT
+from dexiraft_tpu_torch.analysis import guards
 from dexiraft_tpu_torch.config import VARIANTS
 from dexiraft_tpu_torch.eval.interpolate import forward_interpolate
 from dexiraft_tpu_torch.interop.jax_weights import raft_state_dict_from_jax
@@ -31,6 +32,13 @@ from dexiraft_tpu_torch.train.step import (make_encode_step, make_eval_step,
 from test_eval import _smooth_flow
 from test_torch_raft import _randomize
 from test_torch_lock_registry import preserved_lock_registry
+from test_torch_train_ops import few_torch_threads  # noqa: F401
+
+
+@pytest.fixture(autouse=True)
+def _two_threads(few_torch_threads):  # noqa: F811
+    """2 torch threads: the suite runs 6 workers at once on 8 cores."""
+    yield
 
 
 class FakeClock:
@@ -290,9 +298,27 @@ class TestVideoEngine:
         assert rec["adaptive"] is True and rec["iters_used_mean"] == 3.0
         assert rec["final_delta_p50"] == pytest.approx(0.01)
 
-    def test_strict_refused_naming_the_roadmap_item(self):
-        with pytest.raises(ValueError, match="A13"):
-            _video(strict=True)
+    def test_strict_refused_naming_the_roadmap_item(self, capsys):
+        """strict=True is accepted since the guards are ported: a fresh
+        bucket's searches are absorbed, a compile on a warm bucket raises
+        (strict) or warns once (default), and a shared watch is used."""
+        def compiling_encode(frame):  # searches again on every call
+            guards.note_compile("encode")
+            return _stub_encode(frame)
+
+        watch = guards.RecompileWatch("shared")
+        v = VideoEngine(compiling_encode, _stub_refine, bucket_multiple=16,
+                        strict=True, watch=watch)
+        assert v.watch is watch
+        v.process_chunk(None, _chunk(2))            # fresh: absorbed
+        assert watch.drift == 0
+        with pytest.raises(guards.RecompileBudgetExceeded):
+            v.process_chunk(None, _chunk(2))        # warm bucket drifted
+        quiet = VideoEngine(compiling_encode, _stub_refine,
+                            bucket_multiple=16)
+        for _ in range(3):
+            quiet.process_chunk(None, _chunk(2))
+        assert capsys.readouterr().err.count("[guards] video: ") == 1
 
 
 def test_ordered_lock_refuses_inverted_nesting_and_reentry():
