@@ -210,7 +210,16 @@ Phases, one JSON line each:
               SIGSTOPped after step 1: rank 0 exits 98 within 50 s with
               a dump naming the step and the region; a 1-rank NCCL
               group: an all_reduce and one synced-BatchNorm step against
-              the one-process step
+              the one-process step; an fsdp pair (--fsdp 2, two ranks
+              on cuda:0) beside them: its losses and gathered states at
+              steps 2 and 4 against the one process within the same
+              bounds, 12 B1 launches a step on each rank, each rank's
+              bytes of parameters plus Adam moments under 0.75 of the
+              one process's (the figure printed with the card's line),
+              a 2-rank --resume from its step-2 per-shard checkpoint
+              within 1e-5 relative of the uninterrupted pair, and
+              read_model_weights of its step 4 equal to the state two
+              ranks gather from that step to the bit
   6 times     CUDA-event medians: v1 and v5 forward ms at 440x1024, B=1
               (TF32 off and PyTorch's default, and the main paths under
               the eval step's arithmetic), v5's DexiNed and prelude
@@ -3892,6 +3901,20 @@ def run_launches(outs):
     return found
 
 
+def state_line(out) -> dict:
+    """The train CLI's ``[state]`` line: bytes of parameters plus Adam
+    moments the process held at its end, of the whole, and the bytes its
+    model's sharded parameters still held."""
+    import re
+
+    m = re.search(r"\[state\] parameters \+ Adam moments held (\d+) of "
+                  r"(\d+) bytes .*resident bytes (\d+)", out)
+    if m is None:
+        raise AssertionError(f"ddp: no [state] line in {out[-1500:]}")
+    held, full, resident = (int(g) for g in m.groups())
+    return {"held": held, "full": full, "resident_sharded": resident}
+
+
 def run_losses(root, name):
     with open(os.path.join(root, "runs", name, "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
@@ -3899,11 +3922,40 @@ def run_losses(root, name):
 
 
 def saved_model(root, name, step) -> dict:
-    """The model state dict of run ``name``'s checkpoint at ``step``."""
+    """The model state dict of run ``name``'s checkpoint at ``step``
+    (a sharded step's assembled whole)."""
     from dexiraft_tpu_torch.train import checkpoint as ckpt
 
-    return ckpt.load_payload(os.path.join(root, "checkpoints", name),
-                             step=step)["model"]
+    return ckpt.read_model_weights(os.path.join(root, "checkpoints", name,
+                                                str(step)))
+
+
+#: ``python -c GATHER_CHECK DIR STEP OUT ARGS...``: one rank (torchrun's
+#: variables) restores the sharded checkpoint DIR at STEP into the train
+#: CLI's state for ARGS, gathers its parameters over the fsdp group, and
+#: rank 0 saves the gathered state dict to OUT
+GATHER_CHECK = """
+import sys, torch
+from dexiraft_tpu_torch import train_cli
+from dexiraft_tpu_torch.parallel import distributed, make_train_mesh
+from dexiraft_tpu_torch.parallel.fsdp import shard_state
+from dexiraft_tpu_torch.resilience.verify import restore_verified
+from dexiraft_tpu_torch.train.state import create_state
+
+directory, step, out = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+args = train_cli.build_parser().parse_args(sys.argv[4:])
+cfg, tc = train_cli.resolve_configs(args)
+world = distributed.initialize(args.device)
+mesh = make_train_mesh(tc.batch_size, world, tc.accum_steps, fsdp=args.fsdp)
+state = shard_state(create_state(cfg, tc, device=world.device), mesh)
+state, got, _ = restore_verified(directory, state, step=step,
+                                 delete_bad=False)
+assert got == step, got
+with state.shards.gathered_params() as model:
+    if world.rank == 0:
+        torch.save({k: v.cpu() for k, v in model.state_dict().items()}, out)
+distributed.teardown()
+"""
 
 
 def flat_state(torch, sd):
@@ -4012,8 +4064,21 @@ def phase_ddp(torch, dev, card) -> dict:
         DDP_STALL_TIMEOUT; rank 1 is SIGSTOPped at its step-1 log line:
         rank 0 exits 98 within the timeout + 30 s, its dump naming the
         step and the region, and rank 1 is SIGKILLed;
+      * fsdp: beside the parity runs, an fsdp pair (--fsdp 2 --val_freq
+        2, data 1 x fsdp 2): its losses and its per-shard checkpoints'
+        states (read whole) at steps 2 and DDP_STEPS against the one
+        process within the parity bounds above, B1 12 a step on each
+        rank, each rank's bytes of parameters plus Adam moments (its
+        ``[state]`` line) under 0.75 of the one process's with no
+        storage left in the model's sharded parameters (emitted with the
+        card's line); then a 2-rank --resume from a copy of its step-2
+        checkpoint (steps 3-4 within TOL_RESUME_REL of the pair's) and,
+        beside it, two ranks that restore its step DDP_STEPS and gather
+        it (GATHER_CHECK): read_model_weights of that step equals the
+        gathered state dict to the bit;
       * nccl: a 1-rank NCCL group in this process (nccl_check)."""
     import re
+    import shutil
     import signal
     import tempfile
     import threading
@@ -4066,6 +4131,10 @@ def phase_ddp(torch, dev, card) -> dict:
                 "--num_steps", "200", "--name", "stall", "--stall_timeout",
                 str(DDP_STALL_TIMEOUT)], stderr=subprocess.STDOUT)
             started += stall
+            # and the fsdp pair: parameters and moments stored sharded
+            fsdp = launch_ranks(tmp, env, 2, every2 + ["--name", "fsdp",
+                                                       "--fsdp", "2"])
+            started += fsdp
             stopped = {}
 
             def watch_rank1():
@@ -4085,6 +4154,30 @@ def phase_ddp(torch, dev, card) -> dict:
             res = launch_ranks(tmp, env, 2, steps + ["--name", "pre",
                                                      "--resume"])
             started += res
+            outs_fsdp = finish(fsdp, "fsdp pair")
+            lap("fsdp")
+            # the fsdp pair's resume from its step-2 per-shard checkpoint,
+            # and two ranks gathering its step 4, as soon as it has saved
+            ck_dir = os.path.join(tmp, "checkpoints")
+            os.makedirs(os.path.join(ck_dir, "fsdp_res"))
+            shutil.copytree(os.path.join(ck_dir, "fsdp", "2"),
+                            os.path.join(ck_dir, "fsdp_res", "2"))
+            res_fsdp = launch_ranks(tmp, env, 2, steps + [
+                "--name", "fsdp_res", "--fsdp", "2", "--resume"])
+            started += res_fsdp
+            gathered = os.path.join(tmp, "gathered.pt")
+            port = free_ports(1)[0]
+            gather = [subprocess.Popen(
+                [sys.executable, "-c", GATHER_CHECK,
+                 os.path.join(ck_dir, "fsdp"), str(DDP_STEPS), gathered]
+                + DDP_CLI + steps + ["--device", "cuda:0", "--fsdp", "2"],
+                cwd=tmp, env=dict(env, RANK=str(r), WORLD_SIZE="2",
+                                  LOCAL_RANK=str(r), LOCAL_WORLD_SIZE="2",
+                                  MASTER_ADDR="127.0.0.1",
+                                  MASTER_PORT=str(port)),
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                for r in range(2)]
+            started += gather
             err0 = stall[0].communicate(timeout=600)[0]
             t_exit = time.perf_counter()
             os.kill(stall[1].pid, signal.SIGKILL)
@@ -4094,6 +4187,9 @@ def phase_ddp(torch, dev, card) -> dict:
             lap("parity_and_stall")
             outs_res = finish(res, "resumed ranks")
             lap("resume")
+            outs_res_fsdp = finish(res_fsdp, "resumed fsdp pair")
+            finish(gather, "fsdp gather")
+            lap("fsdp_resume_and_gather")
         finally:
             for p in started:
                 if p.poll() is None:
@@ -4132,6 +4228,45 @@ def phase_ddp(torch, dev, card) -> dict:
             "stall_line": dump[:1],
             "dump_has_stacks": "most recent call first" in err0,
             "rank1_exit": stall[1].returncode}
+        # the fsdp pair against the one process, and its storage
+        fsdp_l = run_losses(tmp, "fsdp")
+        held = [state_line(o) for o in outs_fsdp]
+        held_one = state_line(out_one)
+        res_fsdp_l = run_losses(tmp, "fsdp_res")
+        whole = saved_model(tmp, "fsdp", DDP_STEPS)
+        gathered_sd = torch.load(gathered, weights_only=True)
+        rec["fsdp"] = {
+            "mesh_line": [line for o in outs_fsdp for line in o.splitlines()
+                          if line.startswith("[mesh] ")],
+            "losses": fsdp_l,
+            "loss_rel_diff": {s: abs(fsdp_l[s] - one_l[s]) / abs(one_l[s])
+                              for s in one_l if s in fsdp_l},
+            "state": {step: state_parity(torch,
+                                         saved_model(tmp, "fsdp", step),
+                                         saved_model(tmp, "one", step))
+                      for step in (2, DDP_STEPS)},
+            "launches_per_rank": run_launches(outs_fsdp),
+            "state_bytes_per_rank": held,
+            "state_bytes_one_process": held_one,
+            "held_share_of_one_process": [h["held"] / held_one["held"]
+                                          for h in held],
+            "resume": {
+                "resumed_at_2": ["Resumed full state at step 2" in o
+                                 for o in outs_res_fsdp],
+                "losses": res_fsdp_l,
+                "rel_diff": {s: abs(res_fsdp_l[s] - fsdp_l[s])
+                             / abs(fsdp_l[s]) for s in res_fsdp_l},
+                "launches_per_rank": run_launches(outs_res_fsdp)},
+            "read_model_weights_equals_gathered": (
+                list(whole) == list(gathered_sd) and all(
+                    torch.equal(whole[k], v)
+                    for k, v in gathered_sd.items()))}
+        emit({"phase": "ddp", "case": "fsdp_storage", "card": card,
+              "what": "bytes of parameters plus Adam moments held between "
+                      "steps, each rank of the fsdp pair against the one "
+                      "process",
+              "per_rank": held, "one_process": held_one,
+              "share": rec["fsdp"]["held_share_of_one_process"]})
         res_l = run_losses(tmp, "pre")
         rec["resume"] = {
             "resumed_at_2": ["Resumed full state at step 2" in o
@@ -4150,14 +4285,40 @@ def phase_ddp(torch, dev, card) -> dict:
                       for x in rec["preempt"]["launches_per_rank"]],
           "resume": [x["flash_fused_step"]
                      for x in rec["resume"]["launches_per_rank"]]}
+    b1["fsdp"] = [x["flash_fused_step"]
+                  for x in rec["fsdp"]["launches_per_rank"]]
+    b1["fsdp_resume"] = [x["flash_fused_step"] for x in
+                         rec["fsdp"]["resume"]["launches_per_rank"]]
     rec["b1_launches"] = b1
     runs = (rec["launches_per_rank"] + rec["preempt"]["launches_per_rank"]
-            + rec["resume"]["launches_per_rank"])
+            + rec["resume"]["launches_per_rank"]
+            + rec["fsdp"]["launches_per_rank"]
+            + rec["fsdp"]["resume"]["launches_per_rank"])
     launches = {k: sum(x[k] for x in runs) for k in runs[0]}
     launches["flash_fused_step"] += rec["nccl"]["b1_launches"][0]
     rec["launches"] = launches
     emit(rec)
     st, nc, sp = rec["stall"], rec["nccl"], rec["state"]
+    fs = rec["fsdp"]
+    if not (sorted(fs["losses"]) == list(range(1, DDP_STEPS + 1))
+            and any("data=1 fsdp=2" in x for x in fs["mesh_line"])
+            and max(fs["loss_rel_diff"].values()) <= TOL_DDP_LOSS_REL
+            and fs["state"][2]["rel_l2"] <= TOL_DDP_STATE2_REL_L2
+            and fs["state"][DDP_STEPS]["rel_l2"] <= TOL_DDP_STATE_REL_L2
+            and all(x["bn_tensors"] > 0 and x["bn_counts_equal"]
+                    for x in fs["state"].values())
+            and all(v <= TOL_DDP_BN_REL_L2[step, k.rsplit(".", 1)[1]]
+                    for step, x in fs["state"].items()
+                    for k, v in x["bn_rel_l2"].items())
+            and b1["fsdp"] == [12 * DDP_STEPS] * 2
+            and all(h["resident_sharded"] == 0 for h in held)
+            and all(v < 0.75 for v in fs["held_share_of_one_process"])
+            and fs["resume"]["resumed_at_2"] == [True, True]
+            and sorted(fs["resume"]["losses"]) == [3, 4]
+            and max(fs["resume"]["rel_diff"].values()) <= TOL_RESUME_REL
+            and b1["fsdp_resume"] == [24, 24]
+            and fs["read_model_weights_equals_gathered"]):
+        raise AssertionError(f"ddp fsdp: {fs}")
     if not (sorted(one_l) == sorted(pair_l) == list(range(1, DDP_STEPS + 1))
             and all(np.isfinite(list(pair_l.values())))
             and max(rec["loss_rel_diff"].values()) <= TOL_DDP_LOSS_REL

@@ -12,10 +12,11 @@ training pairs, 384x512, seed 0). For each pair of twins, and for a 2-rank
 run against a one-process run, it prints one JSON line: the per-step
 losses' relative differences and the step-4 states' relative L2 (every
 floating tensor of the checkpoints). Twins that repeat their steps bit
-for bit read 0. The train step picks each convolution's algorithm by
-timing (train/step.py, ``eval_arithmetic``), so processes that share the
-card may pick differently from run to run. Needs a CUDA card; imports
-nothing of JAX.
+for bit read 0. The train step takes cuDNN's untimed (mode-B heuristic)
+pick of each convolution's algorithm (train/step.py,
+``train_arithmetic``); under a timed search, processes that share the
+card picked differently from run to run and the twins parted from step
+3. Needs a CUDA card; imports nothing of JAX.
 """
 
 from __future__ import annotations

@@ -37,7 +37,9 @@ Data-parallel training (:func:`set_data_mesh`) gives every BatchNorm and
 channel dropout the data axis: BatchNorm then normalises with the
 statistics of the global microbatch, as under JAX's data-sharded step,
 and dropout draws the global microbatch's masks and keeps this rank's
-rows.
+rows. Under fsdp the data axis is the data subgroup (the ranks of one
+fsdp group hold the same rows), whose process group the statistics
+reduce over.
 """
 
 from __future__ import annotations
@@ -93,29 +95,32 @@ class _Fp32Norm(ComputeDtype):
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """Sum over the ranks; the backward sums the gradient over the ranks
-    too, so each rank's backward carries every rank's terms."""
+    """Sum over the ranks of ``group`` (None: every rank); the backward
+    sums the gradient over them too, so each rank's backward carries
+    every rank's terms."""
 
     @staticmethod
-    def forward(ctx, t: torch.Tensor) -> torch.Tensor:
+    def forward(ctx, t: torch.Tensor, group=None) -> torch.Tensor:
         import torch.distributed as dist
 
+        ctx.group = group
         t = t.clone()
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=group)
         return t
 
     @staticmethod
-    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+    def backward(ctx, g: torch.Tensor):
         import torch.distributed as dist
 
         g = g.clone()
-        dist.all_reduce(g)
-        return g
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
 
 
 def _global_var_mean(x: torch.Tensor, mesh) -> "tuple[torch.Tensor, ...]":
     """The biased per-channel (var, mean) of the global batch whose rows
-    ``x`` (N, C, H, W) holds on rank ``mesh.rank``: each rank's count,
+    ``x`` (N, C, H, W) holds at index ``mesh.rank`` of the data axis
+    ``mesh`` (over its process group ``mesh.group``): each rank's count,
     mean and sum of squared deviations, gathered by one differentiable
     all-reduce (each rank fills its own row of a zero table) and merged
     by Chan's parallel rule, which stays as exact as a two-pass variance
@@ -124,7 +129,7 @@ def _global_var_mean(x: torch.Tensor, mesh) -> "tuple[torch.Tensor, ...]":
     n = float(x.shape[0] * x.shape[2] * x.shape[3])
     row = torch.cat([mean.new_full((1,), n), mean, var * n])
     table = _AllReduceSum.apply(F.pad(
-        row[None], (0, 0, mesh.rank, mesh.size - 1 - mesh.rank)))
+        row[None], (0, 0, mesh.rank, mesh.size - 1 - mesh.rank)), mesh.group)
     c = mean.numel()
     counts, means, m2 = table[:, :1], table[:, 1:c + 1], table[:, c + 1:]
     total = counts.sum()
@@ -134,8 +139,9 @@ def _global_var_mean(x: torch.Tensor, mesh) -> "tuple[torch.Tensor, ...]":
 
 
 class _FlaxBatchNorm2d(nn.BatchNorm2d):
-    #: the data axis (a grouped parallel.World) whose global microbatch
-    #: the training-mode statistics cover; None: this process's rows
+    #: the data axis (a grouped parallel.World, or an fsdp mesh's data
+    #: axis) whose global microbatch the training-mode statistics cover;
+    #: None: this process's rows
     mesh = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -189,8 +195,9 @@ def sigmoid(x: torch.Tensor) -> torch.Tensor:
 
 def set_data_mesh(model: nn.Module, mesh, micro: int = 0) -> nn.Module:
     """Give every BatchNorm and channel dropout of ``model`` the data axis
-    ``mesh`` (a grouped parallel.World; None: this process's rows only)
-    and the row count ``micro`` of this rank's microbatch."""
+    ``mesh`` (a grouped parallel.World, or an fsdp mesh's data axis,
+    ``parallel.layout.data_axis``; None: this process's rows only) and
+    the row count ``micro`` of this rank's microbatch."""
     for m in model.modules():
         if isinstance(m, (_FlaxBatchNorm2d, ChannelDropout)):
             m.mesh = mesh
@@ -220,8 +227,8 @@ class ChannelDropout(nn.Module):
         super().__init__()
         self.p = p
         self.generator: Optional[torch.Generator] = None
-        # the data axis (a grouped parallel.World) and the rows of this
-        # rank's microbatch (set_data_mesh)
+        # the data axis (a grouped parallel.World, or an fsdp mesh's data
+        # axis) and the rows of this rank's microbatch (set_data_mesh)
         self.mesh = None
         self.micro = 0
 

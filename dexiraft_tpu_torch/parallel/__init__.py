@@ -1,11 +1,14 @@
-"""Data-parallel training across processes.
+"""Multi-rank training across processes: the data axis and fsdp.
 
-The port of the data axis of ``dexiraft_tpu/parallel/``: torchrun's
-environment joins the process group (``distributed.initialize``), and
-``layout.make_train_mesh`` checks that it can split the global batch and
-hands its :class:`World` to the train step, which synchronises over it.
-fsdp storage sharding, halo spatial sharding, ring/context correlation
-and elastic membership are ROADMAP A12.
+The port of the data and fsdp axes of ``dexiraft_tpu/parallel/``:
+torchrun's environment joins the process group
+(``distributed.initialize``), and ``layout.make_train_mesh`` checks that
+it can split the global batch and hands the train step its mesh: the
+process group's :class:`World` (data parallelism), or an
+``layout.FsdpMesh`` whose fsdp axis stores the parameters and Adam
+moments sharded between steps (``fsdp.shard_state``; JAX's fence mode).
+Halo spatial sharding, ring/context correlation and elastic membership
+are ROADMAP A12.
 """
 
 from dexiraft_tpu_torch.parallel.distributed import (

@@ -25,8 +25,9 @@ process group. Otherwise:
     the failure-consensus layer (resilience.coord). A failed
     rendezvous or ``init_process_group`` raises.
 
-The elastic runtime (``elastic_initialize``/``elastic_teardown``) is the
-second half of ROADMAP A12.
+:func:`mesh_groups` builds the data and fsdp subgroups of an fsdp mesh
+(parallel/layout.py). The elastic runtime (``elastic_initialize``/
+``elastic_teardown``) is the second half of ROADMAP A12.
 """
 
 from __future__ import annotations
@@ -58,11 +59,20 @@ class World:
     local_rank: int
     device: torch.device
     backend: Optional[str] = None
+    #: the ranks on this host (torchrun's LOCAL_WORLD_SIZE; 0: unknown,
+    #: taken as ``size``)
+    local_size: int = 0
 
     @property
     def grouped(self) -> bool:
         """A process group is live (also for a 1-rank group)."""
         return self.backend is not None
+
+    @property
+    def group(self):
+        """The process group the data axis reduces over: the default
+        group (None) of a data-parallel World."""
+        return None
 
 
 _STORE = None
@@ -127,7 +137,33 @@ def initialize(device: Union[str, torch.device] = "cuda") -> World:
     collective_trace.install(host=rank)
     print(f"[dist] backend={backend} world={size} rank={rank} "
           f"device={dev}", flush=True)
-    return World(rank, size, local_rank, dev, backend)
+    return World(rank, size, local_rank, dev, backend, local_world)
+
+
+def mesh_groups(world: World, n_data: int, n_fsdp: int):
+    """(data group, fsdp group) of ``world.rank`` on the (data, fsdp)
+    grid whose rank r has data index r // n_fsdp and fsdp index
+    r % n_fsdp (fsdp innermost, as JAX's ``make_mesh_fsdp`` places it):
+    the data group joins the ranks that hold this rank's shards, the
+    fsdp group the ranks that read this rank's rows. Every rank builds
+    every group, in the same order (``dist.new_group`` is collective
+    over the world), once per mesh."""
+    import torch.distributed as dist
+
+    if n_data * n_fsdp != world.size:
+        raise ValueError(f"a {n_data}x{n_fsdp} (data, fsdp) grid needs "
+                         f"{n_data * n_fsdp} ranks, the world has "
+                         f"{world.size}")
+    data_group = fsdp_group = None
+    for f in range(n_fsdp):
+        group = dist.new_group([d * n_fsdp + f for d in range(n_data)])
+        if world.rank % n_fsdp == f:
+            data_group = group
+    for d in range(n_data):
+        group = dist.new_group([d * n_fsdp + f for f in range(n_fsdp)])
+        if world.rank // n_fsdp == d:
+            fsdp_group = group
+    return data_group, fsdp_group
 
 
 def coordination_store():

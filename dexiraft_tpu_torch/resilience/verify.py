@@ -9,14 +9,17 @@ or poisoned storage) would resume silently and waste a relaunch before
 the divergence guard fires.
 
 ``restore_verified`` walks the saved steps newest-first: each candidate
-must (a) load at all, (b) match the template's model and optimizer
+must (a) load at all (a sharded step: every shard of it), (b) match the
+template's model and optimizer
 state dicts — the same keys, and each tensor the template's shape and
 dtype (an Adam moment its parameter's) — and (c) pass a finiteness
 sample over the float tensors. A candidate is checked before anything
 is loaded into the template, so a bad step never touches the live
 state. The first step that passes wins; everything skipped is reported
 in one line each, so "resumed from step 40000 because 45000 was
-truncated" is visible in the log instead of being silently wrong.
+truncated" is visible in the log instead of being silently wrong. A step
+saved in another storage layout than the template's (fsdp size, sharded
+dims) is not a damaged step: ``ckpt.LayoutMismatch`` is raised at once.
 
 Once a good step restores, the skipped bad steps are DELETED: retraining
 toward that step number re-saves it, and the run's newest checkpoint must
@@ -85,10 +88,11 @@ def clean_uncommitted(directory: str, verbose: bool = True) -> "list[str]":
 
 
 def _state_dicts(state) -> Tuple[Mapping[str, Any], Mapping[str, Any]]:
-    """(model, optimizer) state dicts of a TrainState or a saved payload."""
+    """(model, optimizer) state dicts of a TrainState (in its storage
+    form: a sharded parameter's slice) or a saved payload."""
     if isinstance(state, Mapping):
         return state["model"], state["optimizer"]
-    return state.model.state_dict(), state.optimizer.state_dict()
+    return state.state_dicts()
 
 
 def _tensors(model_sd, optim_sd) -> Iterator[Tuple[str, torch.Tensor]]:
@@ -205,8 +209,10 @@ def restore_verified(
     skipped = []
     for s in steps:
         try:
-            payload = ckpt.load_payload(directory, step=s)
+            payload = ckpt.load_state_payload(template, directory, step=s)
             verify_state(payload, template)
+        except ckpt.LayoutMismatch:
+            raise
         except Exception as e:  # torch.load raises many types on bad input
             skipped.append((s, e))
             if verbose:

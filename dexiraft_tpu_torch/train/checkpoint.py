@@ -14,6 +14,22 @@ the previous step the newest one.
 ``read_model_weights`` reads the weights of a checkpoint or of a bare
 state-dict file for every CLI's ``--model`` and ``--restore_ckpt``.
 
+A state stored sharded over an fsdp axis (``parallel.fsdp``) is saved
+per shard by :func:`save_sharded`, which every rank calls: the ranks of
+data index 0 each write their slices of the sharded parameters and of
+their Adam moments as ``shard-<f>-of-<n>.pt`` into ``<dir>/<step>.tmp-
+fsdp``; after a barrier rank 0 adds ``state.pt`` (the replicated
+parameters and moments, BatchNorm stats, the optimizer's step count, the
+generator, step, configs, ``extra`` and the layout: the fsdp size and
+each sharded key's dim) and renames the directory into place once, so a
+crash leaves the previous step the newest one. :func:`load_state_payload`
+reads a step back for a template of either layout, checking every shard
+(a missing or truncated one fails the step, and the verified restore
+falls back); a step of another layout than the template's is refused
+with :class:`LayoutMismatch` (resharding is ROADMAP A12.1's remainder).
+``read_model_weights`` assembles a sharded step's full weights on one
+process.
+
 ``save_checkpoint(block=False)`` copies the state to host memory at once
 (the only part the step loop waits for: the next step updates the tensors
 in place) and writes it on one background thread. ``wait_pending`` is the
@@ -40,13 +56,16 @@ import tempfile
 import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from dexiraft_tpu_torch.serve.locks import OrderedLock
 
 STATE_FILE = "state.pt"
+#: a sharded step's shard files, and the directory its flush writes
+SHARD_FILE = "shard-{index}-of-{n}.pt"
+SHARDED_TMP = "{step}.tmp-fsdp"
 _LOCK = OrderedLock("train.checkpoint.pending")
 _PENDING: Dict[str, Tuple[int, Future, float]] = {}
 _EXECUTOR: Optional[ThreadPoolExecutor] = None
@@ -91,9 +110,17 @@ def _config_dict(cfg: Any) -> Any:
     return dataclasses.asdict(cfg) if dataclasses.is_dataclass(cfg) else cfg
 
 
+class LayoutMismatch(ValueError):
+    """A checkpoint's storage layout (fsdp size and sharded dims, or
+    none) is not the restoring state's."""
+
+
 def _payload(state, extra: Optional[Dict[str, Any]] = None,
                   configs: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     """The host copy of ``state`` that a checkpoint holds."""
+    if state.shards is not None:
+        raise ValueError("a sharded state is saved by every rank together "
+                         "(save_sharded)")
     return _to_host({
         "step": int(state.step),
         "model": state.model.state_dict(),
@@ -213,13 +240,13 @@ def _is_orbax_dir(path: str) -> bool:
                for n in names)
 
 
-def load_payload(path: str, step: Optional[int] = None) -> Dict[str, Any]:
-    """The saved payload of ``path``: a checkpoint directory (its newest
-    step, or ``step``), one step directory, or a ``state.pt`` file."""
+def state_file(path: str, step: Optional[int] = None) -> str:
+    """The ``state.pt`` of ``path``: a checkpoint directory (its newest
+    step, or ``step``), one step directory, or the file itself."""
     if os.path.isfile(path):
-        return torch.load(path, map_location="cpu", weights_only=True)
+        return path
     if os.path.isfile(os.path.join(path, STATE_FILE)):
-        return load_payload(os.path.join(path, STATE_FILE))
+        return os.path.join(path, STATE_FILE)
     if step is None:
         step = latest_step(path)
     if step is None:
@@ -230,7 +257,122 @@ def load_payload(path: str, step: Optional[int] = None) -> Dict[str, Any]:
                 "export its weights with interop.torch_convert and pass "
                 "the state-dict file")
         raise FileNotFoundError(f"no checkpoint under {path}")
-    return load_payload(os.path.join(path, str(step), STATE_FILE))
+    return os.path.join(path, str(step), STATE_FILE)
+
+
+def load_payload(path: str, step: Optional[int] = None) -> Dict[str, Any]:
+    """The saved payload of ``path`` (:func:`state_file`'s); of a sharded
+    step, its replicated part (``state.pt``)."""
+    return torch.load(state_file(path, step), map_location="cpu",
+                      weights_only=True)
+
+
+def _shards(path: str, layout: Dict[str, Any]) -> "list[Dict[str, Any]]":
+    """Every shard file beside the sharded step's ``state.pt`` at
+    ``path``, in fsdp order; a missing or unreadable one raises."""
+    n = int(layout["n_fsdp"])
+    out = []
+    for f in range(n):
+        shard = torch.load(os.path.join(os.path.dirname(path),
+                                        SHARD_FILE.format(index=f, n=n)),
+                           map_location="cpu", weights_only=True)
+        if shard.get("index") != f or shard.get("n_fsdp") != n:
+            raise ValueError(f"shard {f} of {n} holds index "
+                             f"{shard.get('index')} of {shard.get('n_fsdp')}")
+        missing = set(layout["dims"]) - set(shard["model"])
+        if missing:
+            raise ValueError(f"shard {f} of {n} lacks {sorted(missing)[:4]}")
+        out.append(shard)
+    return out
+
+
+def _layout_refusal(saved, own) -> str:
+    def name(layout):
+        return ("replicated" if layout is None
+                else f"sharded {layout['n_fsdp']}-way over fsdp")
+
+    return (f"the checkpoint was saved {name(saved)}, this run holds its "
+            f"state {name(own)}"
+            + ("" if saved is None or own is None
+               or saved["n_fsdp"] != own["n_fsdp"]
+               else " with other sharded dims")
+            + "; resuming onto another layout is not ported to PyTorch "
+            "yet (ROADMAP A12.1, resharded resume): resume with the "
+            "saved layout's --fsdp, or start from its weights with "
+            "--restore_ckpt")
+
+
+def load_state_payload(template, path: str, step: Optional[int] = None
+                       ) -> Dict[str, Any]:
+    """The payload of ``path`` (:func:`state_file`'s) in the storage form
+    of ``template`` (a TrainState): of a sharded step, the replicated
+    part with this rank's slices and moments added, after every shard
+    was read. Raises :class:`LayoutMismatch` when the step's layout is
+    not the template's."""
+    file = state_file(path, step)
+    payload = torch.load(file, map_location="cpu", weights_only=True)
+    saved = payload.get("fsdp")
+    own = None if template.shards is None else template.shards.layout()
+    if saved != own:
+        raise LayoutMismatch(_layout_refusal(saved, own))
+    if saved is None:
+        return payload
+    mine = _shards(file, saved)[template.shards.mesh.fsdp_index]
+    optim = dict(payload["optimizer"])
+    optim["state"] = {**optim["state"], **mine["optimizer_state"]}
+    return dict(payload, model={**payload["model"], **mine["model"]},
+                optimizer=optim)
+
+
+def save_sharded(directory: str, state, step: Optional[int] = None,
+                 barrier: Callable[[str], None] = lambda tag: None,
+                 extra: Optional[Dict[str, Any]] = None,
+                 configs: Optional[Dict[str, Any]] = None) -> None:
+    """Save the sharded ``state`` as ``<directory>/<step>`` (module
+    docstring); every rank calls it, ``barrier(tag)`` joins them (the
+    trainer's ``Coordinator.barrier``). Blocking: the commit waits for
+    every shard."""
+    plan = state.shards
+    step = int(state.step if step is None else step)
+    mesh = plan.mesh
+    tmp = os.path.join(directory, SHARDED_TMP.format(step=step))
+    model_sd, optim_sd = state.state_dicts()
+    sharded = plan.sharded_keys()
+    moments = {i for i, leaf in enumerate(plan.leaves)
+               if leaf.dim is not None}
+    if mesh.data_index == 0:
+        os.makedirs(tmp, exist_ok=True)
+        name = SHARD_FILE.format(index=mesh.fsdp_index, n=mesh.n_fsdp)
+        part = os.path.join(tmp, name + ".part")
+        torch.save(_to_host({
+            "index": mesh.fsdp_index, "n_fsdp": mesh.n_fsdp,
+            "model": {k: model_sd[k] for k in sharded},
+            "optimizer_state": {i: st for i, st in optim_sd["state"].items()
+                                if i in moments}}), part)
+        os.replace(part, os.path.join(tmp, name))
+    barrier(f"shards@{step}")
+    if mesh.world.rank != 0:
+        return
+    optim = dict(optim_sd, state={i: st for i, st in optim_sd["state"].items()
+                                  if i not in moments})
+    torch.save(_to_host({
+        "step": int(state.step),
+        "model": {k: v for k, v in model_sd.items() if k not in sharded},
+        "optimizer": optim,
+        "generator": state.generator.get_state(),
+        "configs": {k: _config_dict(v) for k, v in (configs or {}).items()},
+        "extra": dict(extra or {}),
+        "fsdp": plan.layout(),
+        "keys": list(model_sd),
+    }), os.path.join(tmp, STATE_FILE))
+    if _chaos_kill_next_flush:
+        print(f"[chaos] killing process mid-flush of step {step}",
+              flush=True)
+        os._exit(7)
+    final = os.path.join(directory, str(step))
+    if os.path.isdir(final):
+        shutil.rmtree(final)
+    os.replace(tmp, final)
 
 
 def restore_checkpoint(path: str, state, step: Optional[int] = None):
@@ -239,14 +381,14 @@ def restore_checkpoint(path: str, state, step: Optional[int] = None):
     trainer's ``--resume`` and rollback go through
     ``resilience.verify.restore_verified``, which checks a step before
     it is applied."""
-    return apply_payload(state, load_payload(path, step))
+    return apply_payload(state, load_state_payload(state, path, step))
 
 
 def apply_payload(state, payload: Dict[str, Any]):
-    """Load a saved payload (``load_payload``) into ``state`` in place;
-    returns (state, the payload's ``extra``)."""
-    state.model.load_state_dict(payload["model"], strict=True)
-    state.optimizer.load_state_dict(payload["optimizer"])
+    """Load a saved payload (``load_state_payload``'s, in the state's
+    storage form) into ``state`` in place; returns (state, the payload's
+    ``extra``)."""
+    state.load_state_dicts(payload["model"], payload["optimizer"])
     state.generator.set_state(payload["generator"])
     state.step = int(payload["step"])
     return state, payload.get("extra", {})
@@ -279,6 +421,8 @@ def read_model_weights(path: str) -> Dict[str, torch.Tensor]:
     and a ``module.`` prefix are taken off). The one reader of every
     CLI's ``--model`` / ``--restore_ckpt``.
 
+    A sharded step's weights are assembled whole from its shards.
+
     Raises FileNotFoundError for a missing path and ValueError, naming
     ROADMAP A10, for a directory that holds no checkpoint of this module
     (an orbax checkpoint of the JAX package)."""
@@ -290,13 +434,31 @@ def read_model_weights(path: str) -> Dict[str, torch.Tensor]:
                 "orbax checkpoint?); the PyTorch port cannot read orbax "
                 "without JAX (ROADMAP A10): export its weights with "
                 "interop.torch_convert and pass the state-dict file")
-        return load_payload(path)["model"]
+        return _whole_model(state_file(path))
     if not os.path.isfile(path):
         raise FileNotFoundError(f"no such model file {path}")
     obj = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(obj, dict) and "model" in obj and "optimizer" in obj:
-        return obj["model"]
+        return _whole_model(path, obj)
     if isinstance(obj, dict) and "state_dict" in obj:
         obj = obj["state_dict"]
     return {k.removeprefix("module."): torch.as_tensor(v)
             for k, v in obj.items()}
+
+
+def _whole_model(file: str, payload: Optional[Dict[str, Any]] = None
+                 ) -> Dict[str, torch.Tensor]:
+    """The model state dict of the checkpoint ``state.pt`` at ``file``,
+    whole: a sharded step's slices joined along their dims, in the
+    state dict's key order."""
+    if payload is None:
+        payload = torch.load(file, map_location="cpu", weights_only=True)
+    layout = payload.get("fsdp")
+    if layout is None:
+        return payload["model"]
+    shards = _shards(file, layout)
+    model = dict(payload["model"])
+    for key, dim in layout["dims"].items():
+        model[key] = torch.cat([s["model"][key] for s in shards], dim=dim)
+    order = payload.get("keys")
+    return model if order is None else {k: model[k] for k in order}

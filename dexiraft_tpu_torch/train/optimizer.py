@@ -86,8 +86,20 @@ class AdamW(torch.optim.Optimizer):
         g = self.param_groups[0]
         return training_schedule(g["max_lr"], g["num_steps"])(g["count"])
 
+    @staticmethod
     @torch.no_grad()
-    def step(self, closure=None):
+    def grad_norm(grads) -> torch.Tensor:
+        """The global L2 norm the clip takes over ``grads`` (every
+        parameter's, in order; zeros for a missing one)."""
+        return torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g) for g in grads]))
+
+    @torch.no_grad()
+    def step(self, closure=None, *, grad_norm=None):
+        """One update. ``grad_norm``: the clip's global norm, given by a
+        caller whose parameters are slices of the model's (fsdp storage,
+        parallel/fsdp.py), which takes it over the full gradient; else
+        it is taken over this optimizer's gradients."""
         if closure is not None:
             raise ValueError("AdamW.step takes no closure")
         group = self.param_groups[0]
@@ -96,8 +108,7 @@ class AdamW(torch.optim.Optimizer):
                  for p in params]
         clip = group["clip"]
         if clip and clip > 0:
-            norm = torch.linalg.vector_norm(torch.stack(
-                [torch.linalg.vector_norm(g) for g in grads]))
+            norm = self.grad_norm(grads) if grad_norm is None else grad_norm
             keep = norm < clip
             grads = [torch.where(keep, g, g / norm * clip) for g in grads]
         lr = self.current_lr()

@@ -11,7 +11,7 @@ checkpoints with everything else.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -26,10 +26,29 @@ class TrainState:
     model: RAFT
     optimizer: AdamW
     generator: torch.Generator
+    #: fsdp storage sharding (``parallel.fsdp.ShardPlan``; None: every
+    #: parameter and moment held whole). ``parallel.fsdp.shard_state``
+    #: sets it.
+    shards: Optional[Any] = None
 
     @property
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
+
+    def state_dicts(self) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
+        """(model, optimizer) state dicts as this rank stores them: a
+        sharded parameter's entry is this rank's slice."""
+        if self.shards is not None:
+            return self.shards.state_dicts(self.optimizer)
+        return self.model.state_dict(), self.optimizer.state_dict()
+
+    def load_state_dicts(self, model_sd, optim_sd) -> None:
+        """Load :meth:`state_dicts`-form state dicts."""
+        if self.shards is not None:
+            self.shards.load_state_dicts_(self.optimizer, model_sd, optim_sd)
+            return
+        self.model.load_state_dict(model_sd, strict=True)
+        self.optimizer.load_state_dict(optim_sd)
 
 
 def train_model_config(cfg: RAFTConfig, tc: TrainConfig) -> RAFTConfig:
@@ -71,6 +90,21 @@ def create_state(cfg: RAFTConfig, tc: TrainConfig,
                                tc.wdecay, tc.epsilon, tc.clip)
     return TrainState(step=0, model=model, optimizer=optimizer,
                       generator=generator)
+
+
+def state_bytes(state: TrainState) -> Dict[str, int]:
+    """This rank's bytes of parameters plus Adam moments (``held``), the
+    whole state's (``full``), and the bytes the model's sharded
+    parameters still hold (``resident_sharded``, 0 between steps):
+    ``parallel.fsdp.ShardPlan.state_bytes`` under fsdp."""
+    if state.shards is not None:
+        return state.shards.state_bytes(state.optimizer)
+    held = 0
+    for p in state.optimizer.param_groups[0]["params"]:
+        st = state.optimizer.state.get(p, {})
+        held += sum(t.numel() * t.element_size() for t in
+                    [p] + [st[k] for k in ("mu", "nu") if k in st])
+    return {"held": held, "full": held, "resident_sharded": 0}
 
 
 def param_count(model: torch.nn.Module) -> int:

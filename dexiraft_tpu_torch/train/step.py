@@ -2,7 +2,9 @@
 
 Counterpart of ``make_train_step``, ``make_eval_step``, ``make_encode_step``
 and ``make_refine_step`` in ``dexiraft_tpu/train/step.py``, on one device;
-the train step also runs data-parallel over ranks (its ``mesh=``).
+the train step also runs data-parallel over ranks, and with its
+parameters and Adam moments stored sharded over an fsdp axis (its
+``mesh=``).
 PyTorch runs eagerly, so there is nothing to compile: a test-mode step
 moves host arrays to the device, runs the model under
 ``torch.inference_mode()`` and returns device tensors; the train step runs
@@ -12,11 +14,14 @@ forward, sequence loss, backward and the optimizer update in place on a
 Each step states its own arithmetic rather than inheriting PyTorch's
 global flags: cuDNN's TF32 convolutions follow ``tf32`` (``EVAL_TF32``
 unless the caller says otherwise; the train step's are fp32,
-``TRAIN_TF32``), matmuls run in full fp32, and cuDNN
-picks each convolution's algorithm by timing its deterministic candidates
-at the first call of a shape (``benchmark``, ``deterministic``), while
-any call runs, on any thread; the global flags are restored when the
-last one returns (``eval_arithmetic``).
+``TRAIN_TF32``), matmuls run in full fp32, and cuDNN runs only its
+deterministic algorithms. The test-mode steps pick each convolution's
+algorithm by timing those candidates at the first call of a shape
+(``benchmark``; ``eval_arithmetic``); the train step takes cuDNN's
+heuristic pick among them, which no timing moves
+(``train_arithmetic``), so two processes that share a card train the
+same steps bit for bit. The flags hold while any call runs, on any
+thread; the global flags are restored when the last one returns.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ from dexiraft_tpu_torch.models.raft import RAFT
 from dexiraft_tpu_torch.ops.losses import (METRIC_KEYS, metrics_from_sums,
                                            sequence_loss_sums)
 from dexiraft_tpu_torch.parallel.distributed import World
-from dexiraft_tpu_torch.parallel.layout import local_rows
+from dexiraft_tpu_torch.parallel.layout import FsdpMesh, data_axis, local_rows
 from dexiraft_tpu_torch.train.state import TrainState, train_model_config
 
 # The eval step's convolutions: fp32 (TF32 off). On an H100 at 440x1024,
@@ -53,34 +58,37 @@ Features = Dict[str, torch.Tensor]
 
 
 class _Arithmetic:
-    """Who is inside :func:`eval_arithmetic`, process-wide.
+    """Who is inside :func:`eval_arithmetic` or :func:`train_arithmetic`,
+    process-wide.
 
     The flags it sets are process-global, and forwards run on several
     threads at once (the scheduler's dispatcher and the streaming
     handlers of serve/server.py). So the flags are set when the first
     forward enters (depth 0 -> 1) and restored when the last one leaves
-    (1 -> 0); a forward that asks for another TF32 setting waits until
-    the forwards of the current setting have left. The mutex guards this
-    bookkeeping only; forwards of one setting run concurrently."""
+    (1 -> 0); a forward that asks for another setting (TF32, or the
+    timed search) waits until the forwards of the current setting have
+    left. The mutex guards this bookkeeping only; forwards of one setting
+    run concurrently."""
 
     def __init__(self):
         self.cv = threading.Condition(threading.Lock())
         self.depth = 0
-        self.tf32: Optional[bool] = None
+        self.setting: Optional[Tuple[bool, bool]] = None
         self.saved = None
 
-    def enter(self, tf32: bool) -> None:
+    def enter(self, tf32: bool, search: bool = True) -> None:
+        setting = (tf32, search)
         with self.cv:
-            while self.depth and self.tf32 != tf32:
+            while self.depth and self.setting != setting:
                 self.cv.wait()
             if not self.depth:
                 matmul = torch.backends.cuda.matmul
                 cudnn = torch.backends.cudnn
                 self.saved = (matmul.allow_tf32, cudnn.set_flags(
-                    _enabled=cudnn.enabled, _benchmark=True,
+                    _enabled=cudnn.enabled, _benchmark=search,
                     _deterministic=True, _allow_tf32=tf32))
                 matmul.allow_tf32 = False
-                self.tf32 = tf32
+                self.setting = setting
             self.depth += 1
 
     def leave(self) -> None:
@@ -90,7 +98,7 @@ class _Arithmetic:
                 matmul_tf32, cudnn_flags = self.saved
                 torch.backends.cudnn.set_flags(*cudnn_flags)
                 torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
-                self.tf32 = self.saved = None
+                self.setting = self.saved = None
                 self.cv.notify_all()
 
 
@@ -117,6 +125,30 @@ def eval_arithmetic(tf32: bool):
     may pick one that is not, and two calls then differ in the last bit
     of the flow."""
     _ARITHMETIC.enter(tf32)
+    try:
+        yield
+    finally:
+        _ARITHMETIC.leave()
+
+
+@contextlib.contextmanager
+def train_arithmetic(tf32: bool = TRAIN_TF32):
+    """:func:`eval_arithmetic` without the timed search: cuDNN's
+    heuristic pick among its deterministic algorithms (``benchmark``
+    off, ``deterministic`` on), by its mode-B heuristic (the package
+    sets ``TORCH_CUDNN_USE_HEURISTIC_MODE_B``; dexiraft_tpu_torch/
+    __init__.py). A timed pick depends on what else runs on the card at
+    that moment, so processes sharing a card (the ranks of a
+    data-parallel run, twin runs) picked differently and their steps
+    parted from step 3 (up to 8.83e-6 in a resumed 2-rank run's loss on
+    an H100; PERF.md). A pick that no timing moves is the same in every
+    process. cuDNN's default (instant) heuristic picks an FFT algorithm
+    for the motion encoder's 3x3 convolutions (256 -> 126 and 256 -> 192
+    channels) at the chairs crop's 46x62 map and batch 10, 32-39 ms a
+    call on an H100 (a v1 step 973 ms against 566 under the search);
+    mode B picks implicit GEMMs there (596 ms; PERF.md,
+    train_conv_picks.py)."""
+    _ARITHMETIC.enter(tf32, search=False)
     try:
         yield
     finally:
@@ -291,7 +323,9 @@ def all_finite(tensors) -> torch.Tensor:
 
 
 def _state_tensors(state: TrainState):
-    yield from state.model.parameters()
+    # the optimizer's parameters: the model's, or under fsdp this rank's
+    # slices of the sharded ones (their full storage is freed)
+    yield from state.optimizer.param_groups[0]["params"]
     yield from state.model.buffers()
     for st in state.optimizer.state.values():
         yield from (v for v in st.values() if isinstance(v, torch.Tensor))
@@ -312,12 +346,12 @@ def _add_noise(image: torch.Tensor, stdv: torch.Tensor,
     return (image + stdv * noise).clamp(0.0, 255.0)
 
 
-def _all_reduce_grads_(model: RAFT, size: int) -> None:
-    """Average the gradients over the ``size`` ranks: one all-reduce of
-    one flat buffer."""
+def _all_reduce_grads_(model: RAFT, size: int, group=None) -> None:
+    """Average the gradients over the ``size`` ranks of ``group`` (None:
+    every rank): one all-reduce of one flat buffer."""
     grads = [p.grad for p in model.parameters() if p.grad is not None]
     flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=group)
     flat.div_(size)
     offset = 0
     for g in grads:
@@ -358,6 +392,19 @@ def make_train_step(cfg: RAFTConfig, tc: TrainConfig, mesh=None,
     the clip and AdamW; the loss is the mean of the ranks' losses (equal
     row counts), EPE and the px rates are reduced as sums over valid
     pixels, and state_finite is false if it is false on any rank.
+    ``mesh`` (a ``parallel.layout.FsdpMesh``, for a state put in its
+    storage layout by ``parallel.fsdp.shard_state``): JAX's fence mode.
+    Between steps each rank holds its slices of the sharded parameters
+    and of their moments; at entry the parameters are all-gathered into
+    the model over the fsdp subgroup; the forward and backward are the
+    replicated step's, on this rank's rows of the data axis (the data
+    index over the data size: ``parallel.layout.data_axis``); the
+    gradients are averaged over the data subgroup only (the ranks of an
+    fsdp group hold the same rows); the clip norm is taken over the full
+    gradient and AdamW updates this rank's slices; the full parameters
+    are freed. The loss and metrics reduce over the data subgroup,
+    state_finite over every rank (each checks only its own slices). With
+    a data axis of one rank every rank computes the one-process step.
     ``edge_sum_fusion`` (v1): the model runs on the image pair and on the
     edge pair, and the per-iteration flows are summed. ``freeze_bn``: every
     BatchNorm runs on its running stats.
@@ -370,7 +417,7 @@ def make_train_step(cfg: RAFTConfig, tc: TrainConfig, mesh=None,
     range), as in JAX.
 
     Refused, with the ROADMAP item that ports them: any other mesh
-    (fsdp, seq) and ``compute_sharding="halo"`` (A12).
+    (seq) and ``compute_sharding="halo"`` (A12).
     """
     if tc.precision not in ("fp32", "bf16"):
         raise ValueError(f"precision must be fp32|bf16, got {tc.precision!r}")
@@ -381,11 +428,16 @@ def make_train_step(cfg: RAFTConfig, tc: TrainConfig, mesh=None,
                          f"got {compute_sharding!r}")
     cfg = train_model_config(cfg, tc)
     if compute_sharding == "halo" or not (
-            mesh is None or isinstance(mesh, World) and mesh.grouped):
-        raise ValueError("fsdp/seq meshes and compute_sharding='halo' are "
-                         "not ported to PyTorch yet (ROADMAP A12); the port "
-                         "trains data-parallel over a process group "
-                         "(parallel.make_train_mesh's World)")
+            mesh is None or isinstance(mesh, FsdpMesh)
+            or isinstance(mesh, World) and mesh.grouped):
+        raise ValueError("seq meshes and compute_sharding='halo' are not "
+                         "ported to PyTorch yet (ROADMAP A12); the port "
+                         "trains over a process group's data axis and an "
+                         "fsdp axis (parallel.make_train_mesh's World or "
+                         "FsdpMesh)")
+    fsdp = isinstance(mesh, FsdpMesh)
+    data = data_axis(mesh)
+    n_data = 1 if data is None else data.size
     if tc.edge_sum_fusion and (cfg.variant != "raft" or cfg.embed_dexined):
         raise ValueError(
             "edge_sum_fusion is the v1 (plain 'raft') training fusion — "
@@ -407,6 +459,10 @@ def make_train_step(cfg: RAFTConfig, tc: TrainConfig, mesh=None,
 
     def step(state: TrainState, batch: Batch):
         model, opt, gen = state.model, state.optimizer, state.generator
+        if fsdp != (state.shards is not None):
+            raise ValueError(
+                "an fsdp mesh's step takes a state in its storage layout "
+                "(parallel.fsdp.shard_state), and only such a step does")
         if model.cfg != cfg:
             raise ValueError("the state's model was built from another "
                              "RAFTConfig than this step's (build it from "
@@ -431,16 +487,18 @@ def make_train_step(cfg: RAFTConfig, tc: TrainConfig, mesh=None,
         if n % accum:
             raise ValueError(
                 f"batch {n} not divisible by accum_steps {accum}")
-        ranks = 1 if mesh is None else mesh.size
-        rows = local_rows(n * ranks, accum, mesh)
-        set_data_mesh(model, mesh, n // accum)
-        with eval_arithmetic(TRAIN_TF32):
+        rows = local_rows(n * n_data, accum, data)
+        set_data_mesh(model, data, n // accum)
+        if fsdp:
+            # the entry fence: the full parameters, for this step only
+            state.shards.gather_()
+        with train_arithmetic(TRAIN_TF32):
             if tc.add_noise:
                 stdv = torch.rand((), device=dev, generator=gen) * 5.0
                 b["image1"] = _add_noise(b["image1"], stdv, gen, rows,
-                                         n * ranks)
+                                         n * n_data)
                 b["image2"] = _add_noise(b["image2"], stdv, gen, rows,
-                                         n * ranks)
+                                         n * n_data)
             model.train()
             if tc.freeze_bn:
                 model.freeze_bn()
@@ -461,14 +519,28 @@ def make_train_step(cfg: RAFTConfig, tc: TrainConfig, mesh=None,
                 for p in model.parameters():
                     if p.grad is not None:
                         p.grad.div_(accum)
-            if mesh is not None:
-                _all_reduce_grads_(model, mesh.size)
+            if data is not None:
+                _all_reduce_grads_(model, data.size, data.group)
             lr = opt.current_lr()
-            opt.step()
+            if fsdp:
+                # this rank's slices; the full parameters are freed
+                state.shards.step_(opt)
+            else:
+                opt.step()
             state.step += 1
             finite = all_finite(_state_tensors(state))
             losses, seq_sums = torch.stack(losses), torch.stack(seq_sums)
-            if mesh is not None:
+            if fsdp:
+                if data is not None:
+                    vec = torch.cat([losses, seq_sums.reshape(-1)])
+                    dist.all_reduce(vec, group=data.group)
+                    losses = vec[:accum] / data.size
+                    seq_sums = vec[accum:].reshape(accum, -1)
+                # each rank checked only its own slices
+                bad = (~finite).to(torch.float32).reshape(1)
+                dist.all_reduce(bad)
+                finite = bad[0] == 0
+            elif mesh is not None:
                 # one all-reduce: the ranks' losses, metric sums and
                 # non-finite verdicts
                 vec = torch.cat([losses, seq_sums.reshape(-1),

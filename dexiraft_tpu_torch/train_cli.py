@@ -58,7 +58,18 @@ checkpoints, ``retention.json`` and the logs, and runs validation; the
 other ranks wait at a coordinator barrier. ``--coord_timeout_s`` bounds
 every consensus round but the wait for rank 0's validation, which only
 the watchdog's validation window bounds (nothing with the watchdog off),
-as JAX's ranks validate with no consensus deadline. ``--stall_timeout``
+as JAX's ranks validate with no consensus deadline.
+
+``--fsdp N|auto`` (under torchrun) stores the parameters and Adam
+moments sharded over an fsdp axis between steps (``parallel.fsdp``,
+JAX's fence mode): the ranks form a (data, fsdp) grid
+(``parallel.make_train_mesh``; a world that would leave ranks idle is
+refused), each rank reads the rows of its data index, the step gathers
+the parameters at entry and computes the replicated step. Checkpoints
+are written per shard by every rank together
+(``train.checkpoint.save_sharded``), and a ``--resume`` onto another
+layout is refused (A12.1, resharded resume); rank 0's validation runs
+on the gathered model. ``--stall_timeout``
 arms the hang watchdog (``resilience.watchdog``): a step, barrier or
 save that makes no progress for that long (10x for checkpoint and
 validation windows) dumps the step, the region and every thread's stack
@@ -71,7 +82,7 @@ half) and a compile past the warm-up fails the run at the guard cadence
 and at the end. Checkpoint saves, restores and validation run in
 sanctioned windows, for compiles and syncs. Without ``--strict`` the same
 watch only warns, once. Refused, each naming the ROADMAP item that
-ports it: ``--fsdp``, ``--elastic`` and ``--join`` (A12).
+ports it: ``--elastic`` and ``--join`` (A12).
 ``--restore_ckpt`` takes a checkpoint of this trainer or a state-dict file
 (the bridge's layout); an orbax directory is refused (A10). PyTorch runs
 eagerly, so ``--compile_cache`` has nothing to cache and only says so.
@@ -158,7 +169,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="gradient accumulation: batch_size = accum * "
                         "microbatch")
     p.add_argument("--fsdp", default=None, type=fsdp_arg,
-                   help="refused: ROADMAP A12")
+                   help="under torchrun: store parameters and Adam moments "
+                        "sharded over an fsdp axis of this many ranks "
+                        "('auto': the ranks the data axis leaves), gathered "
+                        "for each step; checkpoints are written per shard")
     p.add_argument("--prefetch_depth", type=int, default=2,
                    help="batches copied to the device ahead of the step "
                         "(0 disables)")
@@ -251,7 +265,6 @@ def build_parser() -> argparse.ArgumentParser:
 def refuse_unported(args) -> None:
     """Exit naming the ROADMAP item of the first flag the port lacks."""
     refused = (
-        (args.fsdp is not None, "--fsdp", "A12"),
         (args.elastic, "--elastic", "A12"),
         (args.join is not None, "--join", "A12"),
     )
@@ -387,6 +400,8 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args, world=None) -> None:
     from dexiraft_tpu_torch.device import resolve_device
     from dexiraft_tpu_torch.ops import corr_kernels
     from dexiraft_tpu_torch.parallel import World, make_train_mesh
+    from dexiraft_tpu_torch.parallel.fsdp import shard_state
+    from dexiraft_tpu_torch.parallel.layout import FsdpMesh
     from dexiraft_tpu_torch.resilience.coord import Coordinator
     from dexiraft_tpu_torch.resilience.preemption import PreemptionHandler
     from dexiraft_tpu_torch.resilience.retention import RetentionPolicy
@@ -399,7 +414,8 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args, world=None) -> None:
     from dexiraft_tpu_torch.train import checkpoint as ckpt
     from dexiraft_tpu_torch.train.guard import DivergenceGuard
     from dexiraft_tpu_torch.train.logger import Logger
-    from dexiraft_tpu_torch.train.state import create_state, param_count
+    from dexiraft_tpu_torch.train.state import (create_state, param_count,
+                                                state_bytes)
     from dexiraft_tpu_torch.train.step import make_train_step
 
     if world is None:
@@ -409,9 +425,18 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args, world=None) -> None:
     # validates; every rank restores and trains
     writer = world.rank == 0
     try:
-        mesh = make_train_mesh(tc.batch_size, world, tc.accum_steps)
+        mesh = make_train_mesh(tc.batch_size, world, tc.accum_steps,
+                               fsdp=args.fsdp)
     except ValueError as e:
         raise SystemExit(f"train: {e}")
+    # the data axis this rank reads its rows on: its data index over the
+    # data size (under fsdp the ranks of one fsdp group read the same rows)
+    fsdp = isinstance(mesh, FsdpMesh)
+    data_index, data_size = ((mesh.data_index, mesh.n_data) if fsdp
+                             else (world.rank, world.size))
+    if world.size > 1 or args.fsdp is not None:
+        print(f"[mesh] world={world.size} data={data_size} "
+              f"fsdp={mesh.n_fsdp if fsdp else 1}", flush=True)
     np.random.seed(tc.seed)
     ckpt_dir = osp.join(args.output, tc.name)
     if args.compile_cache or args.compile_cache_dir:
@@ -470,12 +495,28 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args, world=None) -> None:
         extras[step] = extra
         return st, step
 
+    if args.restore_ckpt and not all_have:
+        # the weights go in whole, before the state is sharded
+        try:
+            restored = ckpt.read_model_weights(args.restore_ckpt)
+        except (ValueError, FileNotFoundError) as e:
+            raise SystemExit(f"train: --restore_ckpt: {e}")
+        skipped = ckpt.restore_params_into(state.model, restored,
+                                           verbose=True)
+        print(f"Partial restore from {args.restore_ckpt} "
+              f"({len(skipped)} keys fresh)")
+    if fsdp:
+        # between steps this rank holds only its slices (parallel.fsdp);
+        # a resume restores into that layout
+        shard_state(state, mesh)
     if all_have:
         # verified restore: a truncated/non-finite newest step falls back
         # to the previous one; agree_step pins every rank to the SAME step
         wd.arm(0, "resume-restore", steady=False)
         try:
             state, last_saved = coord.agree_step(restore, None)
+        except ckpt.LayoutMismatch as e:
+            raise SystemExit(f"[resume] {e}")
         finally:
             wd.disarm()
         try:
@@ -487,21 +528,12 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args, world=None) -> None:
         stream = pos or stream
         print(f"Resumed full state at step {state.step} (data stream: "
               f"epoch {stream.epoch}, batch {stream.offset})")
-    elif args.restore_ckpt:
-        try:
-            restored = ckpt.read_model_weights(args.restore_ckpt)
-        except (ValueError, FileNotFoundError) as e:
-            raise SystemExit(f"train: --restore_ckpt: {e}")
-        skipped = ckpt.restore_params_into(state.model, restored,
-                                           verbose=True)
-        print(f"Partial restore from {args.restore_ckpt} "
-              f"({len(skipped)} keys fresh)")
 
-    # each rank reads its rows of every global batch: the rank-th block
-    # of each microbatch (parallel.layout)
+    # each rank reads its rows of every global batch: its data index's
+    # block of each microbatch (parallel.layout)
     loader_kwargs = dict(seed=tc.seed, num_workers=args.num_workers,
                          worker_mode=args.worker_mode, mp_start_method="spawn",
-                         process_index=world.rank, process_count=world.size,
+                         process_index=data_index, process_count=data_size,
                          microbatches=tc.accum_steps)
     if records is not None:
         from dexiraft_tpu_torch.data.records import RecordLoader
@@ -544,15 +576,21 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args, world=None) -> None:
         last_saved = step
 
     def _save(step: int, block: bool) -> None:
+        extra = position_extra(stream, seed=tc.seed, loader_kind=loader_kind,
+                               fingerprint=fingerprint)
         if writer:
             info = ckpt.wait_pending(ckpt_dir)
             _note_flush(info)
             # GC before the new flush is handed off; the rollback target
             # stays
             retention.apply(ckpt_dir, protect=(last_saved,))
-            extra = position_extra(stream, seed=tc.seed,
-                                   loader_kind=loader_kind,
-                                   fingerprint=fingerprint)
+        if fsdp:
+            # every rank writes its shard; rank 0 commits after a barrier
+            ckpt.save_sharded(ckpt_dir, state, step=step,
+                              barrier=coord.barrier, extra=extra,
+                              configs=configs)
+            return
+        if writer:
             ckpt.save_checkpoint(ckpt_dir, state, step=step, block=False,
                                  extra=extra, configs=configs)
             if block:
@@ -739,6 +777,10 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args, world=None) -> None:
                     wd.arm(total_steps, "checkpoint+validation",
                            steady=False)
                     save(total_steps)
+                    if fsdp and tc.validation:
+                        # rank 0 validates the whole model: every rank
+                        # gathers, as JAX's gather_state does
+                        state.shards.gather_()
                     if writer and tc.validation:
                         # barrier before validation: --keep_best must not
                         # rank a step whose flush then fails
@@ -762,6 +804,8 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args, world=None) -> None:
                         # bounds it at 10x --stall_timeout
                         coord.barrier(f"validation@{total_steps}",
                                       bounded=False)
+                        if fsdp:
+                            state.shards.free_()
                 if total_steps >= tc.num_steps:
                     break
                 # close this iteration's window (a validation window and
@@ -800,6 +844,10 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args, world=None) -> None:
         print(f"[watchdog] {wd.straggler_warnings} straggler warning(s) "
               f"this run (EWMA step {wd.ewma_s:.2f}s)")
     logger.close()
+    held = state_bytes(state)
+    print(f"[state] parameters + Adam moments held {held['held']} of "
+          f"{held['full']} bytes ({held['held'] / held['full']:.4f}); "
+          f"sharded parameters' resident bytes {held['resident_sharded']}")
     print(f"[prefetch] {batches.summary()}")
     # this process's kernel launches (the train step's forward on B1 at
     # --corr_impl flash --fused_update; all zero on the CPU)

@@ -425,7 +425,7 @@ def test_mesh_refusals_and_single_process():
         make_train_mesh(6, World(0, 4, 0, cpu, "gloo"))
     with pytest.raises(ValueError, match="microbatch.* of 2 must divide"):
         make_train_mesh(8, World(0, 4, 0, cpu, "gloo"), 4)
-    # any other mesh (fsdp, seq) is refused by the step, naming A12
+    # any other mesh (seq) is refused by the step, naming A12
     with pytest.raises(ValueError, match="A12"):
         make_train_step(raft_v1(), TrainConfig(batch_size=4), mesh="fsdp")
 

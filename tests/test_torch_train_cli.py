@@ -149,14 +149,24 @@ def test_cli_trains_in_bf16_under_remat(chairs_env):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--fsdp", "2"], "A12"),
+    (["--fsdp", "1", "--resume"], "A12"),
     (["--elastic"], "A12"),
     (["--join", "host1"], "A12"),
-    (["--fsdp", "auto"], "A12"),
+    (["--fsdp", "auto", "--resume"], "A12"),
 ])
-def test_refused_flags_name_their_item(flags, item):
+def test_refused_flags_name_their_item(flags, item, tmp_path, monkeypatch):
+    """--elastic and --join are refused; --fsdp runs (on one process an
+    fsdp axis of 1 or 'auto' is the one-device step), and what it refuses
+    is a --resume of a checkpoint saved in another storage layout, here
+    a step saved sharded 2-way (A12.1, resharded resume)."""
+    monkeypatch.chdir(tmp_path)
+    if "--resume" in flags:
+        step = tmp_path / "checkpoints" / "refused" / "2"
+        step.mkdir(parents=True)
+        torch.save({"step": 2, "fsdp": {"n_fsdp": 2, "dims": {}}},
+                   step / ckpt.STATE_FILE)
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
-        train_cli.main(BASE + flags)
+        train_cli.main(BASE + ["--name", "refused"] + flags)
 
 
 def test_cli_strict_run_equals_the_default_run(chairs_env, capsys,
