@@ -220,6 +220,19 @@ Phases, one JSON line each:
               within 1e-5 relative of the uninterrupted pair, and
               read_model_weights of its step 4 equal to the state two
               ranks gather from that step to the bit
+  halo        halo compute sharding and the row-block correlation, v1
+              full width on corr_impl allpairs, fp32, frozen BatchNorm,
+              ranks on cuda:0 (gloo): two ranks (data 1 x fsdp 1 x seq
+              2) take 3 halo steps at 368x496, batch 2, 12 iterations,
+              and four (data 1 x fsdp 2 x seq 2) one, beside the
+              one-process fence step on the same seeded state and
+              batches: per-step losses and the gathered parameters
+              within atol 1e-4 / rtol 1e-3 of it; the pair's halo eval
+              step on a Sintel pair padded with InputPadder(seq=2) to
+              448x1024, 32 iterations, flow_low and flow_up within 1e-3
+              px of the one-process eval step; each rank's peak
+              allocated bytes beside the one process's, its pyramid's
+              bytes beside the estimate; no kernel launched
   6 times     CUDA-event medians: v1 and v5 forward ms at 440x1024, B=1
               (TF32 off and PyTorch's default, and the main paths under
               the eval step's arithmetic), v5's DexiNed and prelude
@@ -4356,6 +4369,284 @@ def phase_ddp(torch, dev, card) -> dict:
     return rec
 
 
+HALO_BATCH = 2                # the train pair's global batch at 368x496
+HALO_STEPS = 3                # the pair's steps; the fsdp x seq run takes 1
+HALO_ITERS = 12               # the train steps' iterations
+HALO_EVAL_ITERS = 32
+# JAX's fence-vs-halo bounds (tests/test_zzzhalo.py): losses and
+# parameters, halo against the one-process fence step
+TOL_HALO_ATOL, TOL_HALO_RTOL = 1e-4, 1e-3
+TOL_HALO_EVAL_PX = 1e-3       # flow_low / flow_up, halo vs one process
+
+#: ``python -c HALO_CHILD SPEC OUT``: one rank (torchrun's variables, on
+#: cuda:0, so gloo) of the halo phase. It trains the seeded v1 state
+#: (``create_state``: the same weights as the parent's) over a (data 1,
+#: fsdp SPEC["fsdp"], seq 2) mesh with the halo train step on SPEC's
+#: batches (global batch, full height; the step keeps its rows), and
+#: writes OUT/rank<r>.json: per-step losses and EPEs, its peak allocated
+#: bytes over what it held before the steps (the state), that state,
+#: kernel launches and seconds; rank 0 saves the gathered state dict.
+#: With SPEC["eval"]: the halo eval step of the seed-0 model on the
+#: padded pair (a warm call, then a measured one), its peak bytes over
+#: what it held before the call and each pyramid level's bytes on this
+#: rank; rank 0 saves the flows.
+HALO_CHILD = """
+import json, sys, time, torch
+from dexiraft_tpu_torch.config import TrainConfig, raft_v1
+from dexiraft_tpu_torch.models.raft import create_model
+from dexiraft_tpu_torch.ops import corr_kernels as ck
+from dexiraft_tpu_torch.parallel import distributed, halo, make_train_mesh
+from dexiraft_tpu_torch.parallel.fsdp import shard_state
+from dexiraft_tpu_torch.train.state import create_state
+from dexiraft_tpu_torch.train.step import make_eval_step, make_train_step
+
+spec, out = torch.load(sys.argv[1], weights_only=False), sys.argv[2]
+world = distributed.initialize("cuda:0")
+dev = world.device
+cfg, tc = raft_v1(), TrainConfig(**spec["tc"])
+mesh = make_train_mesh(tc.batch_size, world, fsdp=spec["fsdp"], seq=2)
+volumes = []
+row_block_pyramid = halo.row_block_pyramid
+def recorded(*a, **k):
+    pyr = row_block_pyramid(*a, **k)
+    volumes.append([t.numel() * t.element_size() for t in pyr.levels])
+    return pyr
+halo.row_block_pyramid = recorded
+state = shard_state(create_state(cfg, tc, device=dev), mesh)
+step = make_train_step(cfg, tc, mesh=mesh, compute_sharding="halo")
+rec = {"rank": world.rank, "backend": world.backend,
+       "mesh": [mesh.data_index, mesh.fsdp_index, mesh.seq_index],
+       "losses": [], "epe": [], "finite": []}
+ck.reset_launches()
+torch.cuda.synchronize()
+torch.cuda.reset_peak_memory_stats(dev)
+rec["train_base_bytes"] = torch.cuda.memory_allocated(dev)
+t0 = time.perf_counter()
+for b in spec["batches"]:
+    state, m = step(state, {k: v.to(dev) for k, v in b.items()})
+    rec["losses"].append(float(m["loss"]))
+    rec["epe"].append(float(m["epe"]))
+    rec["finite"].append(bool(m["state_finite"]))
+torch.cuda.synchronize()
+rec["train_s"] = time.perf_counter() - t0
+rec["train_peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                           - rec["train_base_bytes"])
+rec["train_volume_bytes"] = volumes[0]
+rec["state_bytes"] = state.shards.state_bytes(state.optimizer)
+with state.shards.gathered_params() as model:
+    if world.rank == 0:
+        torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+                   out + "/state.pt")
+if "eval" in spec:
+    e = spec["eval"]
+    ev = make_eval_step(create_model(cfg, seed=e["seed"], device=dev),
+                        iters=e["iters"], device=dev, mesh=mesh,
+                        compute_sharding="halo")
+    ev(e["image1"], e["image2"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    del volumes[:]
+    t0 = time.perf_counter()
+    low, up = ev(e["image1"], e["image2"])
+    torch.cuda.synchronize()
+    rec["eval_s"] = time.perf_counter() - t0
+    rec["eval_peak_bytes"] = torch.cuda.max_memory_allocated(dev) - base
+    rec["eval_volume_bytes"] = volumes[0]
+    if world.rank == 0:
+        torch.save({"low": low.cpu(), "up": up.cpu()}, out + "/eval.pt")
+rec["launches"] = dict(ck.LAUNCHES)
+with open(out + "/rank%d.json" % world.rank, "w") as f:
+    json.dump(rec, f)
+distributed.teardown()
+"""
+
+
+def bound_excess(torch, ours, ref, atol, rtol) -> float:
+    """max |ours - ref| / (atol + rtol |ref|) over every element: <= 1
+    is within the bounds."""
+    ours, ref = torch.as_tensor(ours).double(), torch.as_tensor(ref).double()
+    return float(((ours - ref).abs() / (atol + rtol * ref.abs())).max())
+
+
+def phase_halo(torch, dev, card) -> dict:
+    """Halo compute sharding (A12.2) and the row-block correlation
+    (A12.3): v1 full width (basic encoders, hidden 128), corr_impl
+    allpairs, fp32, frozen BatchNorm, on ranks that share cuda:0 (gloo).
+      * train: two ranks, data 1 x fsdp 1 x seq 2, the seeded chairs
+        state, HALO_STEPS halo steps at 368x496, batch HALO_BATCH, 12
+        iterations; per-step losses and the gathered parameters after
+        the last step against the one-process fence step of the same
+        config on the same batches, at JAX's fence-halo bounds
+        (TOL_HALO_ATOL / TOL_HALO_RTOL);
+      * fsdp inside halo: four ranks, data 1 x fsdp 2 x seq 2, one step,
+        the same bounds against the one-process step's first;
+      * eval: the pair ranks' halo eval step of the seed-0 model on a
+        Sintel-shaped pair padded with InputPadder(seq=2) to 448x1024,
+        HALO_EVAL_ITERS iterations, flow_low and flow_up within
+        TOL_HALO_EVAL_PX of the one-process eval step (the engine's
+        forward) on the same padding.
+    Printed: each rank's peak allocated bytes over what it held before
+    the steps (its state) or the eval call, beside the one process's
+    (whose earlier phases' models stay allocated), with the states'
+    bytes; its pyramid's bytes beside the estimate (B·(H/8/2)·(W/8) queries x
+    (H/8)·(W/8) targets x 4 B at level 0), seconds. No kernel runs on
+    this path (all-pairs lookup): every rank's launch counts stay 0. The
+    two runs start together and the one-process references run beside
+    them: what this checks is parity and memory, not speed on one card."""
+    import tempfile
+
+    from dexiraft_tpu_torch.config import TrainConfig, raft_v1
+    from dexiraft_tpu_torch.data.padder import InputPadder
+    from dexiraft_tpu_torch.models.raft import create_model
+    from dexiraft_tpu_torch.train.state import create_state
+    from dexiraft_tpu_torch.train.step import make_eval_step, make_train_step
+
+    t_start = time.perf_counter()
+    cfg = raft_v1()
+    tc_kw = dict(batch_size=HALO_BATCH, image_size=TRAIN_SIZE,
+                 iters=HALO_ITERS, freeze_bn=True)
+    tc = TrainConfig(**tc_kw)
+    batches = [{k: v.cpu() for k, v in train_batch(
+        torch, dev, HALO_BATCH, seed=40 + i).items()}
+        for i in range(HALO_STEPS)]
+    frames = sintel_frames(5, 2)
+    pad = InputPadder(frames[0].shape, seq=2)
+    im1, im2 = (pad_batch(pad, [f]) for f in frames)
+    rec = {"phase": "halo", "padded": list(pad.padded_shape),
+           "mesh_pair": "data 1 x fsdp 1 x seq 2",
+           "mesh_fsdp": "data 1 x fsdp 2 x seq 2"}
+    procs, outs = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_halo_") as root:
+        specs = {2: dict(tc=tc_kw, fsdp=1, batches=batches,
+                         eval=dict(seed=0, iters=HALO_EVAL_ITERS,
+                                   image1=im1, image2=im2)),
+                 4: dict(tc=tc_kw, fsdp=2, batches=batches[:1])}
+        for world, spec in specs.items():
+            d = os.path.join(root, f"w{world}")
+            os.makedirs(d)
+            torch.save(spec, os.path.join(d, "spec.pt"))
+            port = free_ports(1)[0]
+            procs[world] = [subprocess.Popen(
+                [sys.executable, "-c", HALO_CHILD,
+                 os.path.join(d, "spec.pt"), d], cwd=REPO,
+                env=dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                         LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world),
+                         MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)),
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                for r in range(world)]
+        try:
+            # the one-process references, beside the ranks
+            state = create_state(cfg, tc, device=dev)
+            step = make_train_step(cfg, tc)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            one_losses, one_states = [], []
+            for b in batches:
+                state, m = step(state, {k: v.to(dev) for k, v in b.items()})
+                one_losses.append(float(m["loss"]))
+                one_states.append({k: v.detach().cpu().clone() for k, v in
+                                   state.model.state_dict().items()})
+            torch.cuda.synchronize()
+            one_train_peak = torch.cuda.max_memory_allocated(dev) - base
+            del state, step
+            ev = make_eval_step(create_model(cfg, seed=0, device=dev),
+                                iters=HALO_EVAL_ITERS, device=dev)
+            ev(im1, im2)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            low, up = (t.cpu() for t in ev(im1, im2))
+            torch.cuda.synchronize()
+            one_eval_peak = torch.cuda.max_memory_allocated(dev) - base
+            del ev
+            torch.cuda.empty_cache()
+            for world, ps in procs.items():
+                for p in ps:
+                    out, err = p.communicate(timeout=600)
+                    if p.returncode != 0:
+                        raise AssertionError(
+                            f"halo: a rank of {world} exited "
+                            f"{p.returncode}: {out[-2000:]} {err[-3000:]}")
+                outs[world] = [json.load(open(os.path.join(
+                    root, f"w{world}", f"rank{r}.json")))
+                    for r in range(world)]
+            pair_state = torch.load(os.path.join(root, "w2", "state.pt"))
+            fsdp_state = torch.load(os.path.join(root, "w4", "state.pt"))
+            flows = torch.load(os.path.join(root, "w2", "eval.pt"))
+        finally:
+            for ps in procs.values():
+                for p in ps:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+
+    def params_excess(ours, ref):
+        return max(bound_excess(torch, ours[k], v, TOL_HALO_ATOL,
+                                TOL_HALO_RTOL) for k, v in ref.items()
+                   if v.is_floating_point())
+
+    pair, fsdp = outs[2], outs[4]
+    h8, w8 = pad.padded_shape[0] // 8, pad.padded_shape[1] // 8
+    rec.update(
+        seconds=time.perf_counter() - t_start,
+        backend=[r["backend"] for r in pair + fsdp],
+        ranks_mesh={2: [r["mesh"] for r in pair],
+                    4: [r["mesh"] for r in fsdp]},
+        pair_losses=[r["losses"] for r in pair],
+        fsdp_losses=[r["losses"] for r in fsdp],
+        one_process_losses=one_losses,
+        pair_loss_excess=max(bound_excess(torch, r["losses"], one_losses,
+                                          TOL_HALO_ATOL, TOL_HALO_RTOL)
+                             for r in pair),
+        fsdp_loss_excess=max(bound_excess(
+            torch, r["losses"], one_losses[:1], TOL_HALO_ATOL,
+            TOL_HALO_RTOL) for r in fsdp),
+        pair_params_excess=params_excess(pair_state, one_states[-1]),
+        fsdp_params_excess=params_excess(fsdp_state, one_states[0]),
+        finite=all(all(r["finite"]) for r in pair + fsdp),
+        eval_low_px=float((flows["low"] - low).abs().max()),
+        eval_up_px=float((flows["up"] - up).abs().max()),
+        train_peak_bytes={"pair": [r["train_peak_bytes"] for r in pair],
+                          "fsdp": [r["train_peak_bytes"] for r in fsdp],
+                          "one_process": one_train_peak},
+        train_base_bytes={"pair": [r["train_base_bytes"] for r in pair],
+                          "fsdp": [r["train_base_bytes"] for r in fsdp]},
+        eval_peak_bytes={"pair": [r["eval_peak_bytes"] for r in pair],
+                         "one_process": one_eval_peak},
+        eval_volume_bytes=[r["eval_volume_bytes"] for r in pair],
+        volume_level0_estimate_bytes={
+            "rank": (h8 // 2) * w8 * h8 * w8 * 4,
+            "whole": h8 * w8 * h8 * w8 * 4},
+        state_bytes={"pair": pair[0]["state_bytes"],
+                     "fsdp": [r["state_bytes"] for r in fsdp]},
+        rank_seconds={"pair_train": [r["train_s"] for r in pair],
+                      "pair_eval": [r["eval_s"] for r in pair],
+                      "fsdp_train": [r["train_s"] for r in fsdp]},
+        launches=[r["launches"] for r in pair + fsdp],
+        card=card)
+    emit(rec)
+    if not (rec["pair_loss_excess"] <= 1 and rec["fsdp_loss_excess"] <= 1
+            and rec["pair_params_excess"] <= 1
+            and rec["fsdp_params_excess"] <= 1 and rec["finite"]
+            and rec["eval_low_px"] <= TOL_HALO_EVAL_PX
+            and rec["eval_up_px"] <= TOL_HALO_EVAL_PX
+            and rec["backend"] == ["gloo"] * 6
+            and rec["ranks_mesh"] == {2: [[0, 0, 0], [0, 0, 1]],
+                                      4: [[0, 0, 0], [0, 0, 1], [0, 1, 0],
+                                          [0, 1, 1]]}
+            and all(len(r["losses"]) == HALO_STEPS for r in pair)
+            and not any(n for counts in rec["launches"]
+                        for n in counts.values())
+            and all(v[0] == rec["volume_level0_estimate_bytes"]["rank"]
+                    for v in rec["eval_volume_bytes"])
+            and all(s["resident_sharded"] == 0 for s in
+                    rec["state_bytes"]["fsdp"])):
+        raise AssertionError(f"halo: {rec}")
+    return rec
+
+
 # every phase: no process outlives the phase that started it
 for _name in [n for n in globals() if n.startswith("phase_")]:
     globals()[_name] = contained(globals()[_name])
@@ -4470,6 +4761,9 @@ def main(argv=None) -> int:
     # data-parallel training on two ranks sharing the card, and a 1-rank
     # NCCL group (A12's first half)
     ddp = phase_ddp(torch, dev, smi)
+    # halo compute sharding and the row-block correlation (A12.2, A12.3):
+    # v1 over a seq axis of two ranks sharing the card, and fsdp x seq
+    phase_halo(torch, dev, smi)
     times = phase_times(torch, ck, gen, dev, v1_models, v5_models, smi)
 
     pc = "dexiraft_tpu/ops/pallas_corr.py"

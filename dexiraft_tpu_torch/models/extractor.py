@@ -124,6 +124,35 @@ class Encoder(nn.Module):
         return x
 
 
+# Declarative H-axis conv chains: the halo widths' source of truth
+# (parallel/halo.py composes them into receptive-field margins,
+# ``halo_rows``). One entry per conv, (kernel, stride, padding) along H,
+# in forward order, kept next to the convs they describe so that a
+# kernel-size change is one diff away from the exchange width that must
+# follow it.
+
+
+def block_conv_chain(block: str, stride: int) -> Tuple[Tuple[int, int, int], ...]:
+    """Deepest sequential H-axis conv path of one block. The 1x1 skip
+    conv is a parallel path with zero halo and is left out: a block's
+    halo is its longest path's."""
+    if block == "residual":
+        return ((3, stride, 1), (3, 1, 1))
+    return ((1, 1, 0), (3, stride, 1), (1, 1, 0))
+
+
+def encoder_conv_chain(block: str = "residual") -> Tuple[Tuple[int, int, int], ...]:
+    """The whole sequential H-axis conv chain of one Encoder forward:
+    7x7/2 stem -> two blocks per stage -> 1x1 projection."""
+    stages = BASIC_STAGES if block == "residual" else SMALL_STAGES
+    chain = [(7, 2, 3)]
+    for _, stride in stages:
+        chain += list(block_conv_chain(block, stride))
+        chain += list(block_conv_chain(block, 1))
+    chain.append((1, 1, 0))
+    return tuple(chain)
+
+
 def BasicEncoder(output_dim=128, norm_fn="batch", dropout=0.0,
                  in_channels=3) -> Encoder:
     """Residual encoder (64, 96/2, 128/2)."""

@@ -94,7 +94,7 @@ class _Fp32Norm(ComputeDtype):
         return super().forward(x.to(torch.float32)).to(dt)
 
 
-class _AllReduceSum(torch.autograd.Function):
+class AllReduceSum(torch.autograd.Function):
     """Sum over the ranks of ``group`` (None: every rank); the backward
     sums the gradient over them too, so each rank's backward carries
     every rank's terms."""
@@ -128,7 +128,7 @@ def _global_var_mean(x: torch.Tensor, mesh) -> "tuple[torch.Tensor, ...]":
     var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
     n = float(x.shape[0] * x.shape[2] * x.shape[3])
     row = torch.cat([mean.new_full((1,), n), mean, var * n])
-    table = _AllReduceSum.apply(F.pad(
+    table = AllReduceSum.apply(F.pad(
         row[None], (0, 0, mesh.rank, mesh.size - 1 - mesh.rank)), mesh.group)
     c = mean.numel()
     counts, means, m2 = table[:, :1], table[:, 1:c + 1], table[:, c + 1:]

@@ -62,6 +62,20 @@ def fused_corr_conv(conv: Conv2d, pyr, coords: torch.Tensor) -> torch.Tensor:
     return out if conv.compute_dtype is None else out.to(conv.compute_dtype)
 
 
+# Declarative H-axis conv chains (kernel, stride, padding), deepest
+# sequential path, forward order; parallel/halo.py composes them into
+# per-module halo widths (models/extractor.py states the convention).
+# Parallel branches take the longest path: both motion encoders are
+# bounded by flow (7x7) -> 3x3 -> concat conv (3x3); the GRUs by the
+# r -> q dependency (z runs beside r), which for the separable GRU counts
+# only the vertical (5x1) pass, the (1x5) pass having H-kernel 1.
+MOTION_ENCODER_CHAIN = ((7, 1, 3), (3, 1, 1), (3, 1, 1))
+CONV_GRU_CHAIN = ((3, 1, 1), (3, 1, 1))
+SEP_CONV_GRU_CHAIN = ((5, 1, 2), (5, 1, 2))
+FLOW_HEAD_CHAIN = ((3, 1, 1), (3, 1, 1))
+MASK_HEAD_CHAIN = ((3, 1, 1), (1, 1, 0))
+
+
 class FlowHead(nn.Module):
     """conv3x3 -> relu -> conv3x3 to a 2-channel flow delta."""
 

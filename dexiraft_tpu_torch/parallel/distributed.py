@@ -25,9 +25,10 @@ process group. Otherwise:
     the failure-consensus layer (resilience.coord). A failed
     rendezvous or ``init_process_group`` raises.
 
-:func:`mesh_groups` builds the data and fsdp subgroups of an fsdp mesh
-(parallel/layout.py). The elastic runtime (``elastic_initialize``/
-``elastic_teardown``) is the second half of ROADMAP A12.
+:func:`mesh_groups` builds the data, fsdp and seq subgroups of a
+(data, fsdp, seq) mesh (parallel/layout.py). The elastic runtime
+(``elastic_initialize``/``elastic_teardown``) is the second half of
+ROADMAP A12.
 """
 
 from __future__ import annotations
@@ -140,30 +141,62 @@ def initialize(device: Union[str, torch.device] = "cuda") -> World:
     return World(rank, size, local_rank, dev, backend, local_world)
 
 
-def mesh_groups(world: World, n_data: int, n_fsdp: int):
-    """(data group, fsdp group) of ``world.rank`` on the (data, fsdp)
-    grid whose rank r has data index r // n_fsdp and fsdp index
-    r % n_fsdp (fsdp innermost, as JAX's ``make_mesh_fsdp`` places it):
-    the data group joins the ranks that hold this rank's shards, the
-    fsdp group the ranks that read this rank's rows. Every rank builds
-    every group, in the same order (``dist.new_group`` is collective
-    over the world), once per mesh."""
+def mesh_groups(world: World, n_data: int, n_fsdp: int, n_seq: int = 1):
+    """(data, fsdp, seq, data x seq) groups of ``world.rank`` on the
+    (data, fsdp, seq) grid whose rank r has seq index r % n_seq, fsdp
+    index (r // n_seq) % n_fsdp and data index r // (n_fsdp * n_seq):
+    seq innermost, then fsdp, as JAX's ``make_mesh_fsdp(n_data, n_fsdp,
+    n_seq)`` places them (the seq axis exchanges rows with its
+    neighbours at every conv, fsdp gathers once per block). The data
+    group joins the ranks that hold this rank's shards and rows; the
+    fsdp group the ranks that read this rank's rows; the seq group the
+    ranks that hold the other row blocks of this rank's images; the
+    data x seq group every rank whose shard of the parameters is this
+    rank's. Every rank builds every group, in the same order
+    (``dist.new_group`` is collective over the world), once per mesh.
+    Without a seq axis (``n_seq`` 1) the seq group is None and the data
+    x seq group is the data group: the (data, fsdp) mesh's two groups,
+    built as before."""
     import torch.distributed as dist
 
-    if n_data * n_fsdp != world.size:
-        raise ValueError(f"a {n_data}x{n_fsdp} (data, fsdp) grid needs "
-                         f"{n_data * n_fsdp} ranks, the world has "
-                         f"{world.size}")
-    data_group = fsdp_group = None
+    if n_data * n_fsdp * n_seq != world.size:
+        raise ValueError(
+            f"a {n_data}x{n_fsdp}x{n_seq} (data, fsdp, seq) grid needs "
+            f"{n_data * n_fsdp * n_seq} ranks, the world has {world.size}")
+
+    def rank(d, f, s):
+        return (d * n_fsdp + f) * n_seq + s
+
+    d0 = world.rank // (n_fsdp * n_seq)
+    f0 = (world.rank // n_seq) % n_fsdp
+    s0 = world.rank % n_seq
+    data_group = fsdp_group = seq_group = None
     for f in range(n_fsdp):
-        group = dist.new_group([d * n_fsdp + f for d in range(n_data)])
-        if world.rank % n_fsdp == f:
-            data_group = group
+        for s in range(n_seq):
+            group = dist.new_group([rank(d, f, s) for d in range(n_data)])
+            if (f, s) == (f0, s0):
+                data_group = group
     for d in range(n_data):
-        group = dist.new_group([d * n_fsdp + f for f in range(n_fsdp)])
-        if world.rank // n_fsdp == d:
-            fsdp_group = group
-    return data_group, fsdp_group
+        for s in range(n_seq):
+            group = dist.new_group([rank(d, f, s) for f in range(n_fsdp)])
+            if (d, s) == (d0, s0):
+                fsdp_group = group
+    if n_seq == 1:
+        return data_group, fsdp_group, None, data_group
+    for d in range(n_data):
+        for f in range(n_fsdp):
+            group = dist.new_group([rank(d, f, s) for s in range(n_seq)])
+            if (d, f) == (d0, f0):
+                seq_group = group
+    if n_data == 1:  # the data x seq group is the seq group
+        return data_group, fsdp_group, seq_group, seq_group
+    data_seq_group = None
+    for f in range(n_fsdp):
+        group = dist.new_group([rank(d, f, s) for d in range(n_data)
+                                for s in range(n_seq)])
+        if f == f0:
+            data_seq_group = group
+    return data_group, fsdp_group, seq_group, data_seq_group
 
 
 def coordination_store():

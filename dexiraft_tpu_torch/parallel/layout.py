@@ -39,7 +39,14 @@ is mapped through the weight bridge's transpose
 (:func:`param_shard_dim`), so both packages shard the same leaves along
 the same logical dim.
 
-The seq and serve meshes are ROADMAP A12.
+  * **(data, fsdp, seq)** (``make_train_mesh(batch, world, fsdp=...,
+    seq=N)``, an :class:`FsdpMesh` with ``n_seq`` N): seq innermost,
+    as JAX's ``make_mesh_fsdp(n_data, n_fsdp, n_seq)`` places it. The
+    ranks of one seq group read the same rows of the batch and each
+    computes a contiguous block of their image rows (the halo step,
+    parallel/halo.py); the state is stored as on the (data, fsdp) mesh.
+
+The serve mesh is ROADMAP A12.
 """
 
 from __future__ import annotations
@@ -113,10 +120,10 @@ def param_shard_dim(module: nn.Module, name: str, shape: Sequence[int],
 
 
 @dataclasses.dataclass(frozen=True)
-class DataAxis:
-    """A data axis: this rank's index on it, its size, and the process
-    group its reductions run over (BatchNorm, dropout, noise rows,
-    gradients and metrics read these three)."""
+class MeshAxis:
+    """One axis of a mesh: this rank's index on it, its size, and the
+    process group its reductions run over (on the data axis BatchNorm,
+    dropout, noise rows, gradients and metrics read these three)."""
 
     rank: int
     size: int
@@ -125,26 +132,61 @@ class DataAxis:
 
 @dataclasses.dataclass(frozen=True)
 class FsdpMesh:
-    """A (data, fsdp) grid over every rank of ``world`` (module
-    docstring), with its two subgroups (``distributed.mesh_groups``)."""
+    """A (data, fsdp, seq) grid over every rank of ``world`` (module
+    docstring), with its subgroups (``distributed.mesh_groups``). Seq
+    innermost: rank r has seq index r % n_seq, fsdp index (r // n_seq)
+    % n_fsdp and data index r // (n_fsdp * n_seq). ``n_seq`` 1 is the
+    (data, fsdp) mesh."""
 
     world: World
     n_data: int
     n_fsdp: int
     data_group: Any = None
     fsdp_group: Any = None
+    n_seq: int = 1
+    seq_group: Any = None
+    #: the ranks that share this rank's parameter shards (the data group
+    #: when n_seq is 1): gradients, the loss and metrics of a step whose
+    #: rows are sharded over seq reduce over it
+    data_seq_group: Any = None
 
     @property
     def data_index(self) -> int:
-        return self.world.rank // self.n_fsdp
+        return self.world.rank // (self.n_fsdp * self.n_seq)
 
     @property
     def fsdp_index(self) -> int:
-        return self.world.rank % self.n_fsdp
+        return (self.world.rank // self.n_seq) % self.n_fsdp
 
     @property
-    def data(self) -> DataAxis:
-        return DataAxis(self.data_index, self.n_data, self.data_group)
+    def seq_index(self) -> int:
+        return self.world.rank % self.n_seq
+
+    @property
+    def data(self) -> MeshAxis:
+        return MeshAxis(self.data_index, self.n_data, self.data_group)
+
+    @property
+    def fsdp(self) -> MeshAxis:
+        return MeshAxis(self.fsdp_index, self.n_fsdp, self.fsdp_group)
+
+    @property
+    def seq(self) -> MeshAxis:
+        return MeshAxis(self.seq_index, self.n_seq, self.seq_group)
+
+    @property
+    def data_seq(self) -> MeshAxis:
+        """The data and seq axes as one, data major (the rank's index is
+        data index * n_seq + seq index)."""
+        return MeshAxis(self.data_index * self.n_seq + self.seq_index,
+                        self.n_data * self.n_seq,
+                        self.data_seq_group if self.n_seq > 1
+                        else self.data_group)
+
+
+def has_seq(mesh) -> bool:
+    """``mesh`` shards image rows over a seq axis of more than one rank."""
+    return isinstance(mesh, FsdpMesh) and mesh.n_seq > 1
 
 
 TrainMesh = Union[World, FsdpMesh]
@@ -190,7 +232,7 @@ def fsdp_mesh_shape(batch_size: int, world_size: int, fsdp, local_size: int
 
 
 def make_train_mesh(batch_size: int, world: World, accum_steps: int = 1,
-                    fsdp=None) -> Optional[TrainMesh]:
+                    fsdp=None, seq=None) -> Optional[TrainMesh]:
     """The train CLI's mesh policy.
 
     ``fsdp`` None (or a mesh whose fsdp axis comes out 1): the data
@@ -204,7 +246,31 @@ def make_train_mesh(batch_size: int, world: World, accum_steps: int = 1,
     ``fsdp`` ``'auto'`` or N: the (data, fsdp) mesh of
     :func:`fsdp_mesh_shape` as an :class:`FsdpMesh` with its subgroups
     built (every rank must call this), refused where it would leave
-    ranks idle or its microbatches do not divide over the data axis."""
+    ranks idle or its microbatches do not divide over the data axis.
+
+    ``seq`` N > 1: a (data, fsdp, seq) :class:`FsdpMesh` whose seq axis
+    of N ranks shards image rows (the halo train and eval steps,
+    parallel/halo.py; JAX's ``make_mesh_fsdp(n_data, n_fsdp, n_seq)``):
+    the (data, fsdp) shape is the one above over ``world.size / N``
+    ranks, and the mesh is an :class:`FsdpMesh` even with an fsdp axis
+    of one rank (the halo step takes the state in its storage layout,
+    ``parallel.fsdp.shard_state``). ``seq`` None or 1: no seq axis."""
+    n_seq = 1 if seq is None else int(seq)
+    if n_seq < 1 or world.size % n_seq:
+        raise ValueError(f"seq={seq}: the seq axis must divide the world's "
+                         f"{world.size} rank(s)")
+    if n_seq > 1:
+        if not world.grouped:
+            raise ValueError("a seq mesh needs a process group (launch the "
+                             "ranks with torchrun)")
+        n_data, n_fsdp = fsdp_mesh_shape(
+            batch_size, world.size // n_seq, fsdp,
+            max(1, (world.local_size or world.size) // n_seq))
+        rank_rows(batch_size, accum_steps, 0, n_data)  # raises if uneven
+        data_g, fsdp_g, seq_g, data_seq_g = mesh_groups(world, n_data,
+                                                        n_fsdp, n_seq)
+        return FsdpMesh(world, n_data, n_fsdp, data_g, fsdp_g, n_seq, seq_g,
+                        data_seq_g)
     if fsdp is not None and fsdp != 1:
         n_data, n_fsdp = fsdp_mesh_shape(
             batch_size, world.size, fsdp, world.local_size or world.size)
@@ -213,8 +279,8 @@ def make_train_mesh(batch_size: int, world: World, accum_steps: int = 1,
             if not world.grouped:
                 raise ValueError("an fsdp mesh needs a process group "
                                  "(launch the ranks with torchrun)")
-            return FsdpMesh(world, n_data, n_fsdp,
-                            *mesh_groups(world, n_data, n_fsdp))
+            data_g, fsdp_g, _, _ = mesh_groups(world, n_data, n_fsdp)
+            return FsdpMesh(world, n_data, n_fsdp, data_g, fsdp_g)
     reason = world_compatible(batch_size, world.size)
     if reason is not None:
         raise ValueError(reason)
@@ -222,7 +288,7 @@ def make_train_mesh(batch_size: int, world: World, accum_steps: int = 1,
     return world if world.grouped else None
 
 
-def data_axis(mesh: Optional[TrainMesh]) -> Optional[Union[World, DataAxis]]:
+def data_axis(mesh: Optional[TrainMesh]) -> Optional[Union[World, MeshAxis]]:
     """The data axis of ``mesh``: a data-parallel World itself (a 1-rank
     group included, which runs the synced step's collectives), an fsdp
     mesh's data subgroup, or None: no mesh, or an fsdp mesh whose data

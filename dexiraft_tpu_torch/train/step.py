@@ -41,8 +41,10 @@ from dexiraft_tpu_torch.models.layers import set_data_mesh
 from dexiraft_tpu_torch.models.raft import RAFT
 from dexiraft_tpu_torch.ops.losses import (METRIC_KEYS, metrics_from_sums,
                                            sequence_loss_sums)
+from dexiraft_tpu_torch.parallel import halo
 from dexiraft_tpu_torch.parallel.distributed import World
-from dexiraft_tpu_torch.parallel.layout import FsdpMesh, data_axis, local_rows
+from dexiraft_tpu_torch.parallel.layout import (FsdpMesh, data_axis, has_seq,
+                                                local_rows)
 from dexiraft_tpu_torch.train.state import TrainState, train_model_config
 
 # The eval step's convolutions: fp32 (TF32 off). On an H100 at 440x1024,
@@ -181,7 +183,8 @@ def _signature(*arrays) -> tuple:
 
 def make_eval_step(model: RAFT, iters: int = 24,
                    device: Union[str, torch.device] = "cuda",
-                   tf32: bool = EVAL_TF32, adaptive: bool = False
+                   tf32: bool = EVAL_TF32, adaptive: bool = False, *,
+                   mesh=None, compute_sharding: str = "fence", shards=None
                    ) -> Callable[..., Tuple[torch.Tensor, ...]]:
     """step(image1, image2, flow_init=None[, iter_budget], *, edges1=None,
     edges2=None) -> (flow_low, flow_up).
@@ -196,7 +199,24 @@ def make_eval_step(model: RAFT, iters: int = 24,
     ``adaptive=True``: the convergence-gated loop (RAFT.refine); the step
     takes a trailing ``iter_budget`` (None = ``iters``) and returns
     (flow_low, flow_up, iters_used (B,), final_delta (B,)).
+
+    ``compute_sharding="halo"`` on a seq mesh (``parallel.make_train_mesh
+    (..., seq=N)``): the row-sharded forward (:func:`_make_halo_eval_step`).
     """
+    if compute_sharding not in ("fence", "halo"):
+        raise ValueError(f"compute_sharding must be fence|halo, "
+                         f"got {compute_sharding!r}")
+    if compute_sharding == "halo":
+        if adaptive:
+            raise ValueError(
+                "adaptive=True is not supported with "
+                "compute_sharding='halo' (the row-slab forward drives the "
+                "fixed-iteration halo loop)")
+        return _make_halo_eval_step(model, iters, device, tf32, mesh, shards)
+    if mesh is not None or shards is not None:
+        raise ValueError("mesh= and shards= belong to "
+                         "compute_sharding='halo'; the fence eval step "
+                         "runs on one device")
     dev = resolve_device(device)
     model = model.to(dev).eval()
     to_dev = _nchw(dev)
@@ -416,8 +436,11 @@ def make_train_step(cfg: RAFTConfig, tc: TrainConfig, mesh=None,
     stats stay fp32, with no loss scaling (bf16 has fp32's exponent
     range), as in JAX.
 
-    Refused, with the ROADMAP item that ports them: any other mesh
-    (seq) and ``compute_sharding="halo"`` (A12).
+    ``compute_sharding="halo"`` on a mesh with a seq axis
+    (``parallel.make_train_mesh(..., seq=N)``): image rows shard over
+    the seq ranks and the parameters stay in their fsdp storage layout
+    through compute (parallel/halo.py; :func:`_make_halo_train_step`).
+    A fence step on a seq mesh is refused (ROADMAP A12.2b).
     """
     if tc.precision not in ("fp32", "bf16"):
         raise ValueError(f"precision must be fp32|bf16, got {tc.precision!r}")
@@ -427,14 +450,20 @@ def make_train_step(cfg: RAFTConfig, tc: TrainConfig, mesh=None,
         raise ValueError(f"compute_sharding must be fence|halo, "
                          f"got {compute_sharding!r}")
     cfg = train_model_config(cfg, tc)
-    if compute_sharding == "halo" or not (
-            mesh is None or isinstance(mesh, FsdpMesh)
+    if compute_sharding == "halo":
+        return _make_halo_train_step(cfg, tc, mesh)
+    if has_seq(mesh):
+        raise ValueError(
+            "a fence step on a seq mesh is not ported to PyTorch (ROADMAP "
+            "A12.2b, seq in the fence step: JAX partitions it with GSPMD, "
+            "which the port has no counterpart of); rows shard over seq "
+            "in compute_sharding='halo'")
+    if not (mesh is None or isinstance(mesh, FsdpMesh)
             or isinstance(mesh, World) and mesh.grouped):
-        raise ValueError("seq meshes and compute_sharding='halo' are not "
-                         "ported to PyTorch yet (ROADMAP A12); the port "
-                         "trains over a process group's data axis and an "
-                         "fsdp axis (parallel.make_train_mesh's World or "
-                         "FsdpMesh)")
+        raise ValueError(f"mesh={mesh!r} is no mesh the port trains over "
+                         "(ROADMAP A12): a process group's data axis, an "
+                         "fsdp axis and a seq axis, as parallel."
+                         "make_train_mesh's World or FsdpMesh")
     fsdp = isinstance(mesh, FsdpMesh)
     data = data_axis(mesh)
     n_data = 1 if data is None else data.size
@@ -558,3 +587,198 @@ def make_train_step(cfg: RAFTConfig, tc: TrainConfig, mesh=None,
         return state, out
 
     return step
+
+
+def _halo_slab(b: Batch, dev: torch.device, axis) -> Dict[str, torch.Tensor]:
+    """The batch's arrays as NCHW fp32 device tensors (valid (B, H, W)),
+    each cut to this rank's block of rows (``axis``: the seq axis)."""
+    to_dev = _nchw(dev)
+    out = {}
+    for key, x in b.items():
+        if x is None:
+            continue
+        if key == "valid":
+            if not isinstance(x, torch.Tensor):
+                x = torch.from_numpy(np.ascontiguousarray(x))
+            out[key] = halo.slab(x.to(dev, torch.float32, non_blocking=True),
+                                 axis, dim=1)
+        else:
+            out[key] = halo.slab(to_dev(x), axis)
+    return out
+
+
+def _halo_sync_grads_(plan, mesh: FsdpMesh) -> torch.Tensor:
+    """After the halo backward: every storage tensor's gradient summed
+    over (data, seq) in one all-reduce (a sharded leaf's is already its
+    slice, summed over fsdp and divided by n_fsdp); returns the clip's
+    global norm, taken over the full gradient (the sharded slices'
+    squares summed over fsdp, the replicated leaves' once)."""
+    grads = []
+    for leaf in plan.leaves:
+        if leaf.storage.grad is None:
+            leaf.storage.grad = torch.zeros_like(leaf.storage)
+        grads.append(leaf.storage.grad)
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=mesh.data_seq.group)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+    sq = [g.square().sum() for leaf, g in zip(plan.leaves, grads)
+          if leaf.dim is not None]
+    sharded = (torch.stack(sq).sum() if sq
+               else flat.new_zeros(())).reshape(1)
+    if mesh.n_fsdp > 1:
+        dist.all_reduce(sharded, group=mesh.fsdp_group)
+    whole = [g.square().sum() for leaf, g in zip(plan.leaves, grads)
+             if leaf.dim is None]
+    return (sharded[0] + torch.stack(whole).sum()).sqrt()
+
+
+def make_halo_grad_fn(cfg: RAFTConfig, tc: TrainConfig, mesh):
+    """The halo step's gradient function (JAX's ``make_halo_train_fn``):
+    grad(state, batch) -> (loss, metric sums, clip norm), leaving the
+    gradient of every tensor the optimizer updates in its ``.grad``.
+
+    ``mesh``: a seq mesh (``parallel.make_train_mesh(..., seq=N)``);
+    ``state``: put in its storage layout by ``parallel.fsdp.shard_state``
+    (an fsdp axis of one rank shards nothing). ``batch`` holds this
+    rank's rows of the global batch (its data index's block, as on the
+    fence step) at full height; the step keeps its seq index's block of
+    image rows. The forward and backward run on that slab
+    (``parallel.halo.halo_forward``), each block gathering its sharded
+    parameters just in time; the loss the backward starts from is this
+    rank's contribution to the global loss (its rows' sums over the
+    global element count), so its gradient is this rank's share. The
+    shares are summed over (data, seq) (a sharded leaf's, a slice, was
+    summed over fsdp and divided by n_fsdp in the gather's backward);
+    the clip norm is the full gradient's. ``loss`` and the metric sums
+    are the global batch's, reduced over (data, seq). BatchNorm stays
+    frozen (or absent). The convolutions take cuDNN's untimed mode-B
+    pick (``train_arithmetic``), so ranks that share a card pick the
+    same algorithms."""
+    cfg = train_model_config(cfg, tc)
+    halo.check_halo_support(cfg, tc, mesh)
+    seq = mesh.seq
+    token = object()
+
+    def grad(state: TrainState, batch: Batch):
+        model, plan = state.model, state.shards
+        if plan is None or plan.mesh.n_fsdp != mesh.n_fsdp:
+            raise ValueError(
+                "the halo step takes a state in its storage layout on this "
+                "mesh (parallel.fsdp.shard_state(state, mesh))")
+        if model.cfg != cfg:
+            raise ValueError("the state's model was built from another "
+                             "RAFTConfig than this step's (build it from "
+                             "train_model_config(cfg, tc))")
+        dev = state.device
+        h = np.shape(batch["image1"])[1]
+        halo.check_geometry(h, mesh.n_seq)
+        guards.note_new_key("train_step", (
+            token, tuple((k, _signature(v)) for k, v in sorted(batch.items())
+                         if v is not None),
+            TRAIN_TF32, tc.precision, tc.remat, tc.iters, "halo"),
+            dev.type == "cuda")
+        b = _halo_slab(batch, dev, seq)
+        n = b["image1"].shape[0]
+        count = n * mesh.n_data * h * b["image1"].shape[3] * 2
+        for leaf in plan.sharded:  # the slices are the gradient's leaves
+            leaf.storage.requires_grad_(True)
+        state.optimizer.zero_grad(set_to_none=True)
+        with train_arithmetic(TRAIN_TF32), torch.enable_grad():
+            preds = halo.halo_forward(model, plan, b["image1"], b["image2"],
+                                      seq, tc.iters, emit=True)
+            loss, sums = sequence_loss_sums(preds, b["flow"], b["valid"],
+                                            tc.gamma)
+            # this rank's contribution: its rows' sums over the global
+            # element count; summed over (data, seq) it is the loss
+            local = loss * (preds[0].numel() / count)
+            local.backward()
+        norm = _halo_sync_grads_(plan, mesh)
+        vec = torch.cat([local.detach().reshape(1), sums.detach()])
+        dist.all_reduce(vec, group=mesh.data_seq.group)
+        return vec[0], vec[1:], norm
+
+    return grad
+
+
+def _make_halo_train_step(cfg: RAFTConfig, tc: TrainConfig, mesh):
+    """The compute_sharding="halo" train step (JAX's
+    ``_make_halo_train_step``): :func:`make_halo_grad_fn`, then AdamW
+    over this rank's slices and the replicated parameters at the full
+    gradient's clip norm, outside it; the model's full-size sharded
+    parameters are never materialized. state_finite reduces over every
+    rank (each checks only its own slices)."""
+    grad = make_halo_grad_fn(cfg, tc, mesh)
+
+    def step(state: TrainState, batch: Batch):
+        opt = state.optimizer
+        loss, sums, norm = grad(state, batch)
+        with train_arithmetic(TRAIN_TF32):
+            lr = opt.current_lr()
+            opt.step(grad_norm=norm)
+            for leaf in state.shards.leaves:
+                leaf.storage.grad = None
+            state.step += 1
+            bad = (~all_finite(_state_tensors(state))).to(
+                torch.float32).reshape(1)
+            dist.all_reduce(bad)
+            out = metrics_from_sums(sums)
+            out["loss"] = loss
+            out["lr"] = lr
+            out["state_finite"] = bad[0] == 0
+        return state, out
+
+    return step
+
+
+def _make_halo_eval_step(model: RAFT, iters: int, device, tf32: bool, mesh,
+                         shards) -> Callable[..., Tuple[torch.Tensor, ...]]:
+    """The compute_sharding="halo" eval step (JAX's
+    ``_make_halo_eval_step``): step(image1, image2, flow_init=None) ->
+    (flow_low, flow_up), NHWC device tensors.
+
+    Inputs are this rank's rows of the batch (its data index's block) at
+    full height, NHWC in [0, 255], H divisible by 8·n_seq (pad with
+    ``data.padder.InputPadder(shape, seq=n_seq)``); flow_init None or (B,
+    H/8, W/8, 2). The step runs the test-mode forward on this rank's
+    block of rows (``parallel.halo.halo_forward``) and returns the whole
+    height, gathered over the seq group. ``shards``: the train state's
+    fsdp storage (``state.shards``), whose sharded parameters each block
+    gathers just in time; None reads the model's own parameters. v1
+    only (``check_halo_support``'s matrix, its train-only knobs aside);
+    no edge arguments. The eval step's arithmetic (``eval_arithmetic``)."""
+    from dexiraft_tpu_torch.parallel.context import gather_rows
+
+    if not has_seq(mesh):
+        raise ValueError(
+            "compute_sharding='halo' needs a mesh with a 'seq' axis — "
+            "build one with parallel.make_train_mesh(batch_size, world, "
+            "fsdp=n_fsdp, seq=n_seq)")
+    shell = TrainConfig(batch_size=mesh.n_data,
+                        image_size=(8 * mesh.n_seq * 3, 64), freeze_bn=True)
+    halo.check_halo_support(model.cfg, shell, mesh)
+    dev = resolve_device(device)
+    model = model.to(dev).eval()
+    seq = mesh.seq
+    token, per_thread = object(), dev.type == "cuda"
+
+    @torch.inference_mode()
+    def step(image1, image2, flow_init=None):
+        halo.check_geometry(np.shape(image1)[1], mesh.n_seq)
+        guards.note_new_key("eval_step", (
+            token, _signature(image1, image2, flow_init), tf32, iters,
+            "halo"), per_thread)
+        b = _halo_slab({"image1": image1, "image2": image2,
+                        "flow_init": flow_init}, dev, seq)
+        with eval_arithmetic(tf32):
+            low, up = halo.halo_forward(model, shards, b["image1"],
+                                        b["image2"], seq, iters, emit=False,
+                                        flow_init=b.get("flow_init"))
+            low, up = (gather_rows(t.contiguous(), seq, dim=2)
+                       for t in (low, up))
+        return _nhwc(low, up)
+
+    return step
+

@@ -20,10 +20,21 @@ the rank saves per-shard checkpoints (``train.checkpoint.save_sharded``)
 under ``OUT_DIR/ckpt-<scenario>`` after that step and after the last,
 records the gathered state dicts at both, then restores a fresh sharded
 state from the ``save_at`` step (``resilience.verify.restore_verified``)
-and records the steps after it again. Imports neither jax nor the JAX
-package.
+and records the steps after it again.
+
+With ``halo`` in the spec (tests/test_torch_halo.py) the rank joins a
+(data 1, fsdp ``halo["fsdp"]``, seq 2) mesh instead and writes one
+record: the halo eval step of the initial weights on ``eval_batch``, the
+halo gradient function on the first batch (loss, metric sums, clip norm
+and the gathered gradients), then ``halo["steps"]`` halo train steps
+(per-step metrics, the gathered state dict); with ``halo["remat"]`` the
+gradient again under ``remat="per_iter"``; with ``context`` also its
+rows of ``context_parallel_corr`` and ``ring_corr_lookup``, with
+``convs`` its rows of ``halo_conv`` beside the unsharded conv. Imports
+neither jax nor the JAX package.
 """
 
+import dataclasses
 import os
 import sys
 
@@ -104,10 +115,112 @@ def run(spec: dict, mesh, out_dir: str = None) -> list:
     return out
 
 
+def gathered_grads(state, mesh) -> dict:
+    """Every parameter's gradient, whole (a sharded leaf's slices
+    gathered over the fsdp group), by state-dict key."""
+    from dexiraft_tpu_torch.parallel.fsdp import all_gather_flat
+
+    out = {}
+    for leaf in state.shards.leaves:
+        g = leaf.storage.grad
+        if leaf.dim is not None:
+            every = all_gather_flat(g.reshape(-1).contiguous(), mesh.n_fsdp,
+                                    mesh.fsdp_group)
+            g = torch.cat(every.view((mesh.n_fsdp,) + tuple(g.shape))
+                          .unbind(0), dim=leaf.dim)
+        out[leaf.keys[0]] = g.clone()
+    return out
+
+
+def run_context(ctx: dict, axis) -> dict:
+    """This rank's rows of both context-parallel lookups."""
+    from dexiraft_tpu_torch.parallel import context
+    from dexiraft_tpu_torch.parallel.halo import slab
+
+    f1, f2, coords = (slab(torch.from_numpy(ctx[k]), axis, dim=1)
+                      for k in ("f1", "f2", "coords"))
+    kw = dict(num_levels=ctx["levels"], radius=ctx["radius"])
+    return {"context": context.context_parallel_corr(f1, f2, coords, axis,
+                                                     **kw),
+            "ring": context.ring_corr_lookup(f1, f2, coords, axis, **kw)}
+
+
+def run_convs(x, cases: dict, axis) -> dict:
+    """(kernel, stride) -> (this rank's halo_conv rows, the unsharded
+    conv of the whole ``x``, computed here)."""
+    import torch.nn.functional as F
+
+    from dexiraft_tpu_torch.parallel.halo import halo_conv, slab
+
+    x = torch.from_numpy(x)
+    out = {}
+    for (kh, stride), (w, b) in cases.items():
+        w, b = torch.from_numpy(w), torch.from_numpy(b)
+        out[(kh, stride)] = (halo_conv(slab(x, axis), w, b, axis, stride),
+                             F.conv2d(x, w, b, stride, kh // 2))
+    return out
+
+
+def run_halo(spec: dict, world) -> dict:
+    from dexiraft_tpu_torch.parallel import halo
+    from dexiraft_tpu_torch.train.step import make_eval_step, \
+        make_halo_grad_fn
+
+    h = spec["halo"]
+    cfg = raft_v1(small=h["small"])
+    tc = TrainConfig(iters=spec["iters"], batch_size=4,
+                     image_size=spec["size"], num_steps=h["num_steps"],
+                     lr=h["lr"], freeze_bn=True)
+    mesh = make_train_mesh(4, world, fsdp=h["fsdp"], seq=2)
+    model = RAFT(cfg)
+    model.load_state_dict(spec["state_dict"], strict=True)
+    state = shard_state(create_state(cfg, tc, device="cpu", model=model),
+                        mesh)
+    rec = {"mesh": [mesh.data_index, mesh.fsdp_index, mesh.seq_index]}
+    if "context" in spec:
+        rec.update(run_context(spec["context"], mesh.seq))
+    if "convs" in spec:
+        rec["convs"] = run_convs(*spec["convs"], mesh.seq)
+    ev = make_eval_step(state.model, iters=h["eval_iters"], device="cpu",
+                        mesh=mesh, compute_sharding="halo",
+                        shards=state.shards)
+    eb = spec["eval_batch"]
+    rec["eval"] = ev(eb["image1"], eb["image2"])
+    loss, sums, norm = make_halo_grad_fn(cfg, tc, mesh)(state,
+                                                        spec["batches"][0])
+    rec["grad"] = {"loss": float(loss), "sums": sums.tolist(),
+                   "norm": float(norm), "grads": gathered_grads(state, mesh)}
+    if h.get("remat"):
+        # the same gradient with every iteration recomputed in the backward
+        tc_r = dataclasses.replace(tc, remat="per_iter")
+        model = RAFT(train_model_config(cfg, tc_r))
+        model.load_state_dict(spec["state_dict"], strict=True)
+        state_r = shard_state(create_state(cfg, tc_r, device="cpu",
+                                           model=model), mesh)
+        calls, update_block = [], halo.update_block
+        halo.update_block = lambda *a: calls.append(1) or update_block(*a)
+        make_halo_grad_fn(cfg, tc_r, mesh)(state_r, spec["batches"][0])
+        halo.update_block = update_block
+        rec["grad_remat"] = gathered_grads(state_r, mesh)
+        rec["remat_update_calls"] = len(calls)
+    step = make_train_step(cfg, tc, mesh=mesh, compute_sharding="halo")
+    metrics = []
+    for batch in spec["batches"][:h["steps"]]:
+        state, m = step(state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    rec.update(metrics=metrics, state_dict=gathered(state),
+               bytes=state.shards.state_bytes(state.optimizer))
+    return rec
+
+
 def main(spec_path: str, out_dir: str) -> None:
     torch.set_num_threads(2)
     spec = torch.load(spec_path, weights_only=False)
     world = initialize("cpu")
+    if "halo" in spec:
+        torch.save(run_halo(spec, world), f"{out_dir}/rank{world.rank}.pt")
+        teardown()
+        return
     mesh = make_train_mesh(4, world, accum_steps=max(
         sc["accum"] for sc in spec["scenarios"]), fsdp=spec.get("fsdp"))
     results = run(spec, mesh, out_dir)
