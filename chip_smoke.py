@@ -3945,11 +3945,14 @@ def saved_model(root, name, step) -> dict:
 
 #: ``python -c GATHER_CHECK DIR STEP OUT ARGS...``: one rank (torchrun's
 #: variables) restores the sharded checkpoint DIR at STEP into the train
-#: CLI's state for ARGS, gathers its parameters over the fsdp group, and
-#: rank 0 saves the gathered state dict to OUT
+#: CLI's state for ARGS, prints its live plan's placement audit section
+#: (``[audit] {...}``, analysis.shardaudit.plan_section of its real
+#: ShardPlan on the card), gathers its parameters over the fsdp group,
+#: and rank 0 saves the gathered state dict to OUT
 GATHER_CHECK = """
-import sys, torch
+import json, sys, torch
 from dexiraft_tpu_torch import train_cli
+from dexiraft_tpu_torch.analysis.shardaudit import plan_section
 from dexiraft_tpu_torch.parallel import distributed, make_train_mesh
 from dexiraft_tpu_torch.parallel.fsdp import shard_state
 from dexiraft_tpu_torch.resilience.verify import restore_verified
@@ -3964,8 +3967,9 @@ state = shard_state(create_state(cfg, tc, device=world.device), mesh)
 state, got, _ = restore_verified(directory, state, step=step,
                                  delete_bad=False)
 assert got == step, got
+print("[audit] " + json.dumps(plan_section(state.shards)), flush=True)
 with state.shards.gathered_params() as model:
-    if world.rank == 0:
+    if world.is_writer:
         torch.save({k: v.cpu() for k, v in model.state_dict().items()}, out)
 distributed.teardown()
 """
@@ -4088,7 +4092,18 @@ def phase_ddp(torch, dev, card) -> dict:
         checkpoint (steps 3-4 within TOL_RESUME_REL of the pair's) and,
         beside it, two ranks that restore its step DDP_STEPS and gather
         it (GATHER_CHECK): read_model_weights of that step equals the
-        gathered state dict to the bit;
+        gathered state dict to the bit, and each rank's live plan's
+        audit section equals the placement audit's golden for
+        full-width v1 at 2 ways;
+      * resharded resumes, beside those: fsdp_to_one, one process
+        (--device cuda, no --fsdp) resuming a copy of the fsdp pair's
+        step-2 per-shard checkpoint (steps 3-4 within TOL_RESUME_REL of
+        the fsdp resume's, its step DDP_STEPS against that resume's read
+        whole within the parity bounds, B1 12 a step); one_to_fsdp, two
+        ranks --fsdp 2 resuming a copy of the one process's step-2
+        checkpoint (steps 3-4 within TOL_RESUME_REL of the one
+        process's, each rank's ``[state]`` bytes under 0.75 of the one
+        process's, B1 12 a step on each rank);
       * nccl: a 1-rank NCCL group in this process (nccl_check)."""
     import re
     import shutil
@@ -4178,6 +4193,31 @@ def phase_ddp(torch, dev, card) -> dict:
             res_fsdp = launch_ranks(tmp, env, 2, steps + [
                 "--name", "fsdp_res", "--fsdp", "2", "--resume"])
             started += res_fsdp
+            # beside it the resharded resumes: the pair's step 2 on one
+            # process, and the one process's step 2 on an fsdp pair
+            os.makedirs(os.path.join(ck_dir, "fsdp_to_one"))
+            shutil.copytree(os.path.join(ck_dir, "fsdp", "2"),
+                            os.path.join(ck_dir, "fsdp_to_one", "2"))
+            to_one = subprocess.Popen(
+                [sys.executable, "-m", "dexiraft_tpu_torch", "train"]
+                + DDP_CLI + steps + ["--name", "fsdp_to_one", "--device",
+                                     "cuda", "--resume"],
+                cwd=tmp, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+            started.append(to_one)
+            one_2 = os.path.join(ck_dir, "one", "2")
+            deadline = time.perf_counter() + 300
+            while not os.path.isfile(os.path.join(one_2, "state.pt")):
+                if one.poll() is not None or time.perf_counter() > deadline:
+                    raise AssertionError(
+                        f"ddp: the one process saved no step 2 (exit "
+                        f"{one.poll()})")
+                time.sleep(0.5)
+            os.makedirs(os.path.join(ck_dir, "one_to_fsdp"))
+            shutil.copytree(one_2, os.path.join(ck_dir, "one_to_fsdp", "2"))
+            to_fsdp = launch_ranks(tmp, env, 2, steps + [
+                "--name", "one_to_fsdp", "--fsdp", "2", "--resume"])
+            started += to_fsdp
             gathered = os.path.join(tmp, "gathered.pt")
             port = free_ports(1)[0]
             gather = [subprocess.Popen(
@@ -4201,8 +4241,10 @@ def phase_ddp(torch, dev, card) -> dict:
             outs_res = finish(res, "resumed ranks")
             lap("resume")
             outs_res_fsdp = finish(res_fsdp, "resumed fsdp pair")
-            finish(gather, "fsdp gather")
-            lap("fsdp_resume_and_gather")
+            outs_gather = finish(gather, "fsdp gather")
+            outs_to_one = finish([to_one], "fsdp_to_one resume")
+            outs_to_fsdp = finish(to_fsdp, "one_to_fsdp resume")
+            lap("fsdp_resume_gather_and_reshard")
         finally:
             for p in started:
                 if p.poll() is None:
@@ -4274,6 +4316,59 @@ def phase_ddp(torch, dev, card) -> dict:
                 list(whole) == list(gathered_sd) and all(
                     torch.equal(whole[k], v)
                     for k, v in gathered_sd.items()))}
+        # the live plans' audit sections against the placement audit's
+        # golden (full-width v1 at 2 ways)
+        from dexiraft_tpu_torch.analysis import shardaudit
+
+        golden = shardaudit.load_golden(os.path.join(
+            os.path.dirname(shardaudit.__file__),
+            shardaudit.FSDP_GOLDEN))["plans"]["v1@2"]
+        live = [json.loads(line.split(" ", 1)[1]) for o in outs_gather
+                for line in o.splitlines() if line.startswith("[audit] ")]
+        rec["fsdp"]["live_audit"] = {
+            "ranks": len(live), "equals_golden": [x == golden for x in live],
+            "params": [x["params"] for x in live],
+            "sharded_keys": [len(x["layout"]["dims"]) for x in live]}
+        # the resharded resumes
+        to_one_l = run_losses(tmp, "fsdp_to_one")
+        to_fsdp_l = run_losses(tmp, "one_to_fsdp")
+        held_to_fsdp = [state_line(o) for o in outs_to_fsdp]
+        rec["reshard"] = {
+            "fsdp_to_one": {
+                "restored_line": [
+                    "step 2 was saved sharded 2-way over fsdp; restored "
+                    "into this run's layout (replicated)" in o
+                    for o in outs_to_one],
+                "resumed_at_2": ["Resumed full state at step 2" in o
+                                 for o in outs_to_one],
+                "losses": to_one_l,
+                "rel_diff": {s: abs(to_one_l[s] - res_fsdp_l[s])
+                             / abs(res_fsdp_l[s]) for s in to_one_l},
+                "state": state_parity(torch,
+                                      saved_model(tmp, "fsdp_to_one",
+                                                  DDP_STEPS),
+                                      saved_model(tmp, "fsdp_res",
+                                                  DDP_STEPS)),
+                "launches_per_rank": run_launches(outs_to_one)},
+            "one_to_fsdp": {
+                "restored_line": [
+                    "step 2 was saved replicated; restored into this "
+                    "run's layout (sharded 2-way over fsdp)" in o
+                    for o in outs_to_fsdp],
+                "resumed_at_2": ["Resumed full state at step 2" in o
+                                 for o in outs_to_fsdp],
+                "mesh_line": [line for o in outs_to_fsdp
+                              for line in o.splitlines()
+                              if line.startswith("[mesh] ")],
+                "losses": to_fsdp_l,
+                "rel_diff": {s: abs(to_fsdp_l[s] - one_l[s]) / abs(one_l[s])
+                             for s in to_fsdp_l},
+                "state_bytes_per_rank": held_to_fsdp,
+                "held_share_of_one_process": [h["held"] / held_one["held"]
+                                              for h in held_to_fsdp],
+                "launches_per_rank": run_launches(outs_to_fsdp)}}
+        emit({"phase": "ddp", "case": "resharded_resume", "card": card,
+              **rec["reshard"], "live_audit": rec["fsdp"]["live_audit"]})
         emit({"phase": "ddp", "case": "fsdp_storage", "card": card,
               "what": "bytes of parameters plus Adam moments held between "
                       "steps, each rank of the fsdp pair against the one "
@@ -4302,11 +4397,17 @@ def phase_ddp(torch, dev, card) -> dict:
                   for x in rec["fsdp"]["launches_per_rank"]]
     b1["fsdp_resume"] = [x["flash_fused_step"] for x in
                          rec["fsdp"]["resume"]["launches_per_rank"]]
+    rs = rec["reshard"]
+    for name in ("fsdp_to_one", "one_to_fsdp"):
+        b1[name] = [x["flash_fused_step"]
+                    for x in rs[name]["launches_per_rank"]]
     rec["b1_launches"] = b1
     runs = (rec["launches_per_rank"] + rec["preempt"]["launches_per_rank"]
             + rec["resume"]["launches_per_rank"]
             + rec["fsdp"]["launches_per_rank"]
-            + rec["fsdp"]["resume"]["launches_per_rank"])
+            + rec["fsdp"]["resume"]["launches_per_rank"]
+            + rs["fsdp_to_one"]["launches_per_rank"]
+            + rs["one_to_fsdp"]["launches_per_rank"])
     launches = {k: sum(x[k] for x in runs) for k in runs[0]}
     launches["flash_fused_step"] += rec["nccl"]["b1_launches"][0]
     rec["launches"] = launches
@@ -4330,8 +4431,29 @@ def phase_ddp(torch, dev, card) -> dict:
             and sorted(fs["resume"]["losses"]) == [3, 4]
             and max(fs["resume"]["rel_diff"].values()) <= TOL_RESUME_REL
             and b1["fsdp_resume"] == [24, 24]
-            and fs["read_model_weights_equals_gathered"]):
+            and fs["read_model_weights_equals_gathered"]
+            and fs["live_audit"]["equals_golden"] == [True, True]):
         raise AssertionError(f"ddp fsdp: {fs}")
+    to_one, to_fsdp = rs["fsdp_to_one"], rs["one_to_fsdp"]
+    if not (to_one["restored_line"] == to_one["resumed_at_2"] == [True]
+            and sorted(to_one["losses"]) == [3, 4]
+            and max(to_one["rel_diff"].values()) <= TOL_RESUME_REL
+            and to_one["state"]["rel_l2"] <= TOL_DDP_STATE_REL_L2
+            and to_one["state"]["bn_tensors"] > 0
+            and to_one["state"]["bn_counts_equal"]
+            and all(v <= TOL_DDP_BN_REL_L2[DDP_STEPS, k.rsplit(".", 1)[1]]
+                    for k, v in to_one["state"]["bn_rel_l2"].items())
+            and b1["fsdp_to_one"] == [24]
+            and to_fsdp["restored_line"] == [True, True]
+            and to_fsdp["resumed_at_2"] == [True, True]
+            and any("data=1 fsdp=2" in x for x in to_fsdp["mesh_line"])
+            and sorted(to_fsdp["losses"]) == [3, 4]
+            and max(to_fsdp["rel_diff"].values()) <= TOL_RESUME_REL
+            and all(h["resident_sharded"] == 0
+                    for h in to_fsdp["state_bytes_per_rank"])
+            and all(v < 0.75 for v in to_fsdp["held_share_of_one_process"])
+            and b1["one_to_fsdp"] == [24, 24]):
+        raise AssertionError(f"ddp resharded resume: {rs}")
     if not (sorted(one_l) == sorted(pair_l) == list(range(1, DDP_STEPS + 1))
             and all(np.isfinite(list(pair_l.values())))
             and max(rec["loss_rel_diff"].values()) <= TOL_DDP_LOSS_REL

@@ -1,0 +1,567 @@
+"""Placement audit of the port's multi-rank train state and batches.
+
+The port's counterpart of ``dexiraft_tpu/analysis/shardaudit.py``. JAX
+compiles its steps on a virtual 8-device CPU mesh and reads the
+shardings the partitioner resolved. Here every rank is a process that
+places its own tensors, so the audit reads what the port's code places,
+for every rank of a virtual mesh in one process (``parallel.layout.
+virtual_mesh``: no process group, no forward, a ``meta`` model):
+
+  * the state: for each rank the ``ShardPlan`` that ``parallel.fsdp.
+    shard_state`` builds, its storage (a slice of each sharded
+    parameter, the parameter itself otherwise) and the Adam moments the
+    optimizer over that storage creates (``AdamW.init_state``); the same
+    after the step's exit fence (``ShardPlan.free_``);
+  * the batch: each rank's rows as the steps cut them,
+    ``parallel.layout.local_rows`` over the data axis and, on a seq mesh,
+    ``parallel.halo.slab`` over the seq axis (read on index-coded
+    tensors, so the audit sees which rows and image rows each rank
+    holds).
+
+From the ranks' pieces of each tensor it derives the spec: per dim the
+mesh axes the pieces vary along, written in the flax logical order
+(``parallel.layout.logical_dims``: HWIO for a conv kernel), so that the
+strings compare with JAX's (``P(None, None, None, 'fsdp')``). Each group
+is summarised in JAX's format: the sorted set of specs, the leaf count,
+the whole bytes and the largest leaf's.
+
+Legs (one golden file each, beside this module):
+
+  * ``train_fsdp`` (``layout_golden_fsdp.json``): v1 small, 48x64, batch
+    8, 2 iterations, on (data 2, fsdp 2). JAX's leg adds seq 2; the port
+    runs no fence step on a seq mesh (ROADMAP A12.2b), and the state's
+    groups do not depend on seq. The file also holds ``plans``: each
+    ``ShardPlan.layout()`` of full-width v1 and v5 at 2 and 4 ways with
+    its parameters' section, the production leaf policy pinned.
+  * ``train_halo`` (``layout_golden_halo.json``): the same model on
+    (data 2, fsdp 2, seq 2), through ``halo.check_halo_support``.
+
+Both carry the declared groups of JAX's ``declared_groups`` at the
+production geometry (440x1024, batch 8), resolved on JAX's audit mesh
+(data 2, fsdp 2, seq 2): each group's canonical spec
+(``parallel.layout.group_spec``), total and per-rank megabytes, whether
+it is replicated, and the flag of a replicated group over the threshold
+(64 MB) that ``parallel.layout.REPLICATED_OK`` does not exempt.
+
+Group names follow the port's train state: ``[0].params``,
+``[0].opt_state`` (the two Adam moments of every parameter),
+``[0].opt_count`` (the optimizer's step count, a Python int in its
+parameter group, counted at 8 bytes, as is ``[0].step``),
+``[0].generator`` (the generator's state: JAX's ``[0].rng`` key), and
+``[1]['image1']`` ... for the batch. JAX's ``[0].opt_state`` holds the
+moments and two int32 counts (optax's adam and schedule counts); the
+goldens' header lists these correspondences.
+
+  python -m dexiraft_tpu_torch.analysis.shardaudit [--write]
+
+audits both legs against their goldens and exits nonzero on any drift
+or flagged group; ``--write`` regenerates the goldens instead.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+FSDP_GOLDEN = "layout_golden_fsdp.json"
+HALO_GOLDEN = "layout_golden_halo.json"
+
+#: JAX's audit geometry and its production reference geometry
+AUDIT_IMAGE = (48, 64)
+AUDIT_BATCH = 8
+AUDIT_ITERS = 2
+PROD_IMAGE = (440, 1024)
+PROD_BATCH = 8
+DEFAULT_THRESHOLD_MB = 64.0
+#: the legs' meshes, and the mesh the declared groups resolve on (JAX's)
+FSDP_MESH = {"data": 2, "fsdp": 2}
+HALO_MESH = {"data": 2, "fsdp": 2, "seq": 2}
+DECLARED_MESH = {"data": 2, "fsdp": 2, "seq": 2}
+#: the production plans pinned: (variant, fsdp size)
+PLANS = (("v1", 2), ("v1", 4), ("v5", 2), ("v5", 4))
+#: bytes of a Python int the state holds (the step, the optimizer count)
+INT_BYTES = 8
+#: what the goldens' groups are in JAX's report
+RENAMED = {"[0].rng": "[0].generator"}
+OPT_STATE_SCALARS = {
+    "jax": "[0].opt_state holds the moments and two int32 counts "
+           "(optax's adam and schedule counts)",
+    "port": "[0].opt_state holds the moments; the one count is "
+            "[0].opt_count (the optimizer's parameter group)",
+    "jax_scalar_leaves": 2, "jax_scalar_bytes": 8,
+}
+
+
+# ---- specs from placements ---------------------------------------------
+
+
+def _coords(mesh) -> Dict[str, int]:
+    from dexiraft_tpu_torch.parallel.layout import (DATA_AXIS, FSDP_AXIS,
+                                                    SEQ_AXIS)
+
+    return {DATA_AXIS: mesh.data_index, FSDP_AXIS: mesh.fsdp_index,
+            SEQ_AXIS: mesh.seq_index}
+
+
+def _dim_axes(pieces: Sequence[Tuple[int, ...]],
+              coords: Sequence[Dict[str, int]], full: int,
+              axes: Sequence[str]):
+    """The mesh axis one dim is split over, from every rank's piece (the
+    indices it holds) and mesh coordinates: None when every rank holds
+    the whole dim, else the first axis such that ranks equal on it hold
+    the same piece and the pieces of its coordinates tile the dim.
+    Raises when no axis explains the placement."""
+    if all(p == tuple(range(full)) for p in pieces):
+        return None
+    for axis in axes:
+        by: Dict[int, Tuple[int, ...]] = {}
+        if all(by.setdefault(c[axis], p) == p
+               for p, c in zip(pieces, coords)) and \
+                sorted(i for p in by.values() for i in p) == \
+                list(range(full)):
+            return axis
+    raise ValueError(f"pieces {pieces[:4]}... of a dim of {full} follow "
+                     "no mesh axis")
+
+
+def _spec(pieces_by_dim: Sequence[Sequence[Tuple[int, ...]]],
+          coords: Sequence[Dict[str, int]], shape: Sequence[int],
+          axes: Sequence[str], order: Optional[Sequence[int]] = None,
+          trim: bool = False) -> Tuple[Any, ...]:
+    """The spec of a tensor of torch ``shape`` from each dim's pieces,
+    in logical order (``order``: torch dim -> logical dim): P() when no
+    dim is split; ``trim`` drops trailing Nones (JAX's batch specs name
+    the leading dims only, its parameter specs every dim)."""
+    entries = [_dim_axes(p, coords, n, axes)
+               for p, n in zip(pieces_by_dim, shape)]
+    if order is not None:
+        logical: List[Any] = [None] * len(entries)
+        for t, j in enumerate(order):
+            logical[j] = entries[t]
+        entries = logical
+    while entries and (trim or all(e is None for e in entries)) \
+            and entries[-1] is None:
+        entries.pop()
+    return tuple(entries)
+
+
+def _piece(leaf, f: int, n: int, dim: int) -> Tuple[int, ...]:
+    """The indices along torch ``dim`` that fsdp rank ``f`` of ``n``
+    stores of ``leaf`` (``Leaf.piece`` on an index vector)."""
+    full = leaf.shape[dim]
+    if leaf.dim != dim:
+        return tuple(range(full))
+    shape = [1] * len(leaf.shape)
+    shape[dim] = full
+    return tuple(leaf.piece(torch.arange(full).view(shape), f, n)
+                 .reshape(-1).tolist())
+
+
+class _Group:
+    def __init__(self):
+        self.specs, self.leaves, self.bytes, self.max = set(), 0, 0, 0
+
+    def add(self, spec: Tuple[Any, ...], nbytes: int) -> None:
+        from dexiraft_tpu_torch.parallel.layout import spec_str
+
+        self.specs.add(spec_str(spec))
+        self.leaves += 1
+        self.bytes += nbytes
+        self.max = max(self.max, nbytes)
+
+    def summary(self) -> Dict[str, Any]:
+        return {"specs": sorted(self.specs), "leaves": self.leaves,
+                "bytes": self.bytes, "max_leaf_bytes": self.max}
+
+
+def _nbytes(shape: Sequence[int], itemsize: int) -> int:
+    n = itemsize
+    for s in shape:
+        n *= int(s)
+    return n
+
+
+# ---- the state ----------------------------------------------------------
+
+
+def _meta_model(cfg):
+    from dexiraft_tpu_torch.models.raft import RAFT
+
+    with torch.device("meta"):
+        return RAFT(cfg)
+
+
+def _rank_state(cfg, tc, mesh):
+    """(plan, optimizer) of one rank, as ``shard_state`` builds them on
+    a meta model: the plan, AdamW over its storage, the moments made."""
+    from dexiraft_tpu_torch.parallel.fsdp import ShardPlan
+    from dexiraft_tpu_torch.train.optimizer import make_optimizer
+
+    plan = ShardPlan(_meta_model(cfg), mesh)
+    opt = make_optimizer(plan.storage, tc.lr, tc.num_steps, tc.wdecay,
+                         tc.epsilon, tc.clip)
+    opt.init_state()
+    return plan, opt
+
+
+def _leaf_order(plan):
+    """Each leaf's torch dim -> logical dim (the weight bridge's)."""
+    from dexiraft_tpu_torch.parallel.fsdp import _param_leaves
+    from dexiraft_tpu_torch.parallel.layout import logical_dims
+
+    return [logical_dims(module, attr, len(p.shape))
+            for p, module, attr, _ in _param_leaves(plan.model)]
+
+
+def _stored_dim(leaf, storage_shape: Sequence[int], n: int
+                ) -> Optional[int]:
+    """The dim a rank's stored tensor of ``leaf`` is cut on, read off its
+    shape (None: whole); a cut that is not 1/n of the leaf raises."""
+    cut = [d for d, (a, b) in enumerate(zip(leaf.shape, storage_shape))
+           if a != b]
+    if len(storage_shape) != len(leaf.shape) or len(cut) > 1 or (
+            cut and storage_shape[cut[0]] * n != leaf.shape[cut[0]]):
+        raise ValueError(f"{leaf.keys[0]}: stored {tuple(storage_shape)} "
+                         f"is no 1/{n} slice of {leaf.shape}")
+    if cut and cut[0] != leaf.dim:
+        raise ValueError(f"{leaf.keys[0]}: stored cut on dim {cut[0]}, "
+                         f"the plan says {leaf.dim}")
+    return cut[0] if cut else None
+
+
+def _state_groups(ranks, axes: Sequence[str]) -> Dict[str, Dict[str, Any]]:
+    """The state's groups over every rank's (plan, optimizer, coords)."""
+    plan0 = ranks[0][0]
+    order = _leaf_order(plan0)
+    coords = [c for _, _, c in ranks]
+    params, moments = _Group(), _Group()
+    for i, leaf in enumerate(plan0.leaves):
+        nd = len(leaf.shape)
+        stored, mom = [], []
+        for plan, opt, _ in ranks:
+            mine = plan.leaves[i]
+            n = plan.mesh.n_fsdp
+            st = opt.state[mine.storage]
+            stored.append(_stored_dim(mine, mine.storage.shape, n))
+            mom.append([_stored_dim(mine, st[k].shape, n)
+                        for k in ("mu", "nu")])
+        pieces = [[_piece(plan.leaves[i], plan.mesh.fsdp_index,
+                          plan.mesh.n_fsdp, d) for plan, _, _ in ranks]
+                  for d in range(nd)]
+        spec = _spec(pieces, coords, leaf.shape, axes, order[i])
+        nbytes = _nbytes(leaf.shape, leaf.param.element_size())
+        params.add(spec, nbytes)
+        if any(m != [s, s] for m, s in zip(mom, stored)):
+            raise ValueError(f"{leaf.keys[0]}: moments cut {mom} against "
+                             f"the parameter's {stored}")
+        for _ in ("mu", "nu"):
+            moments.add(spec, nbytes)
+    scalar = ()
+    out = {"[0].params": params.summary(),
+           "[0].opt_state": moments.summary()}
+    for name in ("[0].opt_count", "[0].step"):
+        g = _Group()
+        g.add(scalar, INT_BYTES)
+        out[name] = g.summary()
+    g = _Group()
+    g.add(scalar, int(torch.Generator().get_state().numel()))
+    out["[0].generator"] = g.summary()
+    return dict(sorted(out.items()))
+
+
+# ---- the batch ------------------------------------------------------------
+
+
+def _batch_groups(mesh_of, n_ranks: int, axes: Sequence[str],
+                  accum: int, seq: bool) -> Dict[str, Dict[str, Any]]:
+    """The batch's groups: each rank's rows (``local_rows``) and, on a
+    seq mesh, its image rows (``halo.slab`` of the rank's rows, as the
+    halo step cuts them), read on index-coded tensors."""
+    from dexiraft_tpu_torch.parallel.halo import slab
+    from dexiraft_tpu_torch.parallel.layout import data_axis, local_rows
+
+    b, (h, w) = AUDIT_BATCH, AUDIT_IMAGE
+    shapes = {"image1": (b, h, w, 3), "image2": (b, h, w, 3),
+              "flow": (b, h, w, 2), "valid": (b, h, w)}
+    coords, rows, image_rows = [], [], []
+    for r in range(n_ranks):
+        mesh = mesh_of(r)
+        coords.append(_coords(mesh))
+        mine = local_rows(b, accum, data_axis(mesh))
+        rows.append(tuple(range(b)) if mine is None
+                    else tuple(mine.tolist()))
+        ids = torch.arange(h).view(1, h, 1)
+        image_rows.append(tuple((slab(ids, mesh.seq, dim=1) if seq else ids)
+                                .reshape(-1).tolist()))
+    out = {}
+    for key, shape in shapes.items():
+        pieces = [rows, image_rows] + [[tuple(range(n))] * n_ranks
+                                       for n in shape[2:]]
+        g = _Group()
+        g.add(_spec(pieces, coords, shape, axes, trim=True),
+              _nbytes(shape, 4))
+        out[f"[1][{key!r}]"] = g.summary()
+    return out
+
+
+# ---- the legs -------------------------------------------------------------
+
+
+def _audit_configs():
+    from dexiraft_tpu_torch.config import TrainConfig, raft_v1
+
+    cfg = raft_v1(small=True)
+    tc = TrainConfig(name="shardaudit", stage="chairs", num_steps=10,
+                     batch_size=AUDIT_BATCH, image_size=AUDIT_IMAGE,
+                     iters=AUDIT_ITERS)
+    return cfg, tc
+
+
+def audit_leg(mesh_axes: Dict[str, int], halo: bool) -> Dict[str, Any]:
+    """One train leg's section: {mesh, in, out} (module docstring)."""
+    from dexiraft_tpu_torch.parallel.layout import (DATA_AXIS, FSDP_AXIS,
+                                                    LAYOUT_AXES, SEQ_AXIS,
+                                                    virtual_mesh)
+
+    cfg, tc = _audit_configs()
+    dims = (mesh_axes[DATA_AXIS], mesh_axes[FSDP_AXIS],
+            mesh_axes.get(SEQ_AXIS, 1))
+    n_ranks = dims[0] * dims[1] * dims[2]
+
+    def mesh_of(r):
+        return virtual_mesh(r, *dims)
+
+    if halo:
+        from dexiraft_tpu_torch.parallel.halo import check_halo_support
+
+        check_halo_support(cfg, tc, mesh_of(0))
+    ranks = []
+    for r in range(n_ranks):
+        mesh = mesh_of(r)
+        plan, opt = _rank_state(cfg, tc, mesh)
+        ranks.append((plan, opt, _coords(mesh)))
+    state_in = _state_groups(ranks, LAYOUT_AXES)
+    batch = _batch_groups(mesh_of, n_ranks, LAYOUT_AXES, tc.accum_steps,
+                          seq=halo)
+    for plan, _, _ in ranks:
+        plan.free_()  # the step's exit fence: only the slices stay
+        if any(leaf.param.numel() for leaf in plan.sharded):
+            raise ValueError("a sharded parameter kept its full storage")
+    state_out = _state_groups(ranks, LAYOUT_AXES)
+    return {"mesh": dict(mesh_axes), "in": {**state_in, **batch},
+            "out": state_out}
+
+
+def plan_section(plan) -> Dict[str, Any]:
+    """One rank's ``ShardPlan``: its ``layout()`` and its parameters'
+    group, read off its storage (the live audit on a card prints this
+    for its real plan)."""
+    from dexiraft_tpu_torch.parallel.layout import FSDP_AXIS
+
+    order = _leaf_order(plan)
+    g = _Group()
+    for leaf, o in zip(plan.leaves, order):
+        dim = _stored_dim(leaf, leaf.storage.shape, plan.mesh.n_fsdp)
+        if dim is None:
+            spec: Tuple[Any, ...] = ()
+        else:
+            entries: List[Any] = [None] * len(leaf.shape)
+            entries[o[dim]] = FSDP_AXIS
+            spec = tuple(entries)
+        g.add(spec, _nbytes(leaf.shape, leaf.param.element_size()))
+    return {"layout": plan.layout(), "params": g.summary()}
+
+
+def audit_plans() -> Dict[str, Any]:
+    """Rank 0's plan of full-width v1 and v5 at 2 and 4 ways."""
+    from dexiraft_tpu_torch.config import VARIANTS
+    from dexiraft_tpu_torch.parallel.fsdp import ShardPlan
+    from dexiraft_tpu_torch.parallel.layout import virtual_mesh
+
+    out = {}
+    for variant, n in PLANS:
+        plan = ShardPlan(_meta_model(VARIANTS[variant]()),
+                         virtual_mesh(0, 1, n))
+        out[f"{variant}@{n}"] = plan_section(plan)
+    return out
+
+
+def declared_entries(halo: bool) -> List[Tuple[str, int]]:
+    """(group, total bytes at the production geometry), JAX's
+    ``declared_groups`` figures: full-batch totals, so every axis of a
+    group's spec divides its dim."""
+    h, w = PROD_IMAGE
+    b = PROD_BATCH
+    hw8 = (h // 8) * (w // 8)
+    fmap = b * hw8 * 256 * 4  # one (B, H/8, W/8, 256) fp32 fmap
+    pyramid = sum(b * (hw8 >> (2 * i)) * 256 * 4 for i in range(4))
+    entries = [("batch", b * h * w * 3 * 4 * 2),
+               ("carry", b * hw8 * 2 * 4),
+               ("corr_fmaps", fmap + pyramid),
+               ("params", 5_300_000 * 4),
+               ("opt_state", 2 * 5_300_000 * 4)]
+    if halo:  # fmap1 + fmap2 + context of the row-sharded forward
+        entries.append(("halo_activations", 3 * fmap))
+    return entries
+
+
+def declared_groups(halo: bool) -> Dict[str, Any]:
+    """Each declared group's spec, total and per-rank MB, replication
+    and the over-threshold flag (module docstring)."""
+    from dexiraft_tpu_torch.parallel.layout import (REPLICATED_OK,
+                                                    group_spec, spec_str)
+
+    out = {}
+    for name, total in declared_entries(halo):
+        spec = group_spec(name, DECLARED_MESH)
+        shards = 1
+        for axis in spec:
+            shards *= DECLARED_MESH.get(axis, 1)
+        per_rank = total // shards
+        replicated = shards == 1
+        out[name] = {
+            "spec": spec_str(spec),
+            "total_mb": round(total / 2**20, 2),
+            "per_device_mb": round(per_rank / 2**20, 2),
+            "replicated": replicated,
+            "flagged": (replicated
+                        and per_rank > DEFAULT_THRESHOLD_MB * 2**20
+                        and name not in REPLICATED_OK),
+        }
+    return out
+
+
+def _header() -> Dict[str, Any]:
+    from dexiraft_tpu_torch.parallel.layout import LAYOUT_AXES
+
+    return {"version": 1, "axes": {a: a for a in LAYOUT_AXES},
+            "audit_image": list(AUDIT_IMAGE), "audit_batch": AUDIT_BATCH,
+            "renamed_from_jax": dict(RENAMED),
+            "opt_state_scalars": dict(OPT_STATE_SCALARS)}
+
+
+def run_audit(leg: str) -> Dict[str, Any]:
+    """The report of ``leg`` ("fsdp" or "halo")."""
+    halo = leg == "halo"
+    report = {**_header(),
+              "declared": declared_groups(halo),
+              "steps": {f"train_{leg}": audit_leg(
+                  HALO_MESH if halo else FSDP_MESH, halo)}}
+    if not halo:
+        report["plans"] = audit_plans()
+    return report
+
+
+# ---- goldens --------------------------------------------------------------
+
+
+def diff_golden(report: Dict[str, Any], golden: Dict[str, Any]
+                ) -> List[str]:
+    """Drift lines between a report and its golden: the header, every
+    step group (specs, leaves, bytes), every declared group's fields and
+    every plan."""
+    drift: List[str] = []
+    for key in ("version", "axes", "audit_image", "audit_batch",
+                "renamed_from_jax", "opt_state_scalars"):
+        if report.get(key) != golden.get(key):
+            drift.append(f"{key}: golden {golden.get(key)!r} != current "
+                         f"{report.get(key)!r}")
+    steps, gsteps = report.get("steps", {}), golden.get("steps", {})
+    for step in sorted(set(steps) | set(gsteps)):
+        sec, gsec = steps.get(step), gsteps.get(step)
+        if sec is None or gsec is None:
+            drift.append(f"steps.{step}: "
+                         + ("vanished" if sec is None else "not in golden"))
+            continue
+        if sec.get("mesh") != gsec.get("mesh"):
+            drift.append(f"steps.{step}.mesh: golden {gsec.get('mesh')!r} "
+                         f"!= current {sec.get('mesh')!r}")
+        for io in ("in", "out"):
+            drift.extend(_diff_groups(f"steps.{step}.{io}", sec.get(io, {}),
+                                      gsec.get(io, {})))
+    cur, gold = report.get("declared", {}), golden.get("declared", {})
+    for name in sorted(set(cur) | set(gold)):
+        if name not in cur:
+            drift.append(f"declared.{name}: vanished from the layout")
+        elif name not in gold:
+            drift.append(f"declared.{name}: not in golden")
+        elif cur[name] != gold[name]:
+            drift.append(f"declared.{name}: golden {gold[name]} != "
+                         f"current {cur[name]}")
+    drift.extend(_diff_groups("plans", report.get("plans", {}),
+                              golden.get("plans", {})))
+    return drift
+
+
+def _diff_groups(prefix: str, cur: Dict[str, Any], gold: Dict[str, Any]
+                 ) -> List[str]:
+    drift = []
+    for group in sorted(set(cur) | set(gold)):
+        c, g = cur.get(group), gold.get(group)
+        if c is None:
+            drift.append(f"{prefix}.{group}: vanished (golden {g})")
+        elif g is None:
+            drift.append(f"{prefix}.{group}: new group {c}: regenerate "
+                         "the golden (--write) if intended")
+        elif c != g:
+            drift.append(f"{prefix}.{group}: golden {g} != current {c}")
+    return drift
+
+
+def flagged_groups(report: Dict[str, Any]) -> List[str]:
+    """Declared groups over the threshold that resolve replicated."""
+    return [f"declared.{name}: {g['total_mb']} MB resolves fully "
+            f"replicated (spec {g['spec']}): shard it or pin it in "
+            "parallel.layout.REPLICATED_OK"
+            for name, g in report.get("declared", {}).items()
+            if g.get("flagged")]
+
+
+def load_golden(path: str) -> Dict[str, Any]:
+    with open(path, encoding="utf-8") as f:
+        return json.load(f)
+
+
+def write_golden(report: Dict[str, Any], path: str) -> None:
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(report, f, indent=1, sort_keys=True)
+        f.write("\n")
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    p = argparse.ArgumentParser("shardaudit")
+    p.add_argument("--write", action="store_true",
+                   help="regenerate the goldens instead of diffing")
+    p.add_argument("--golden_dir", default=_HERE,
+                   help="where the goldens are (default: beside this "
+                        "module)")
+    args = p.parse_args(argv)
+    bad = 0
+    for leg, name in (("fsdp", FSDP_GOLDEN), ("halo", HALO_GOLDEN)):
+        report = run_audit(leg)
+        path = os.path.join(args.golden_dir, name)
+        flagged = flagged_groups(report)
+        for line in flagged:
+            print(f"[{leg}] FLAGGED {line}")
+        bad += len(flagged)
+        if args.write:
+            write_golden(report, path)
+            print(f"[{leg}] wrote {path}")
+            continue
+        drift = diff_golden(report, load_golden(path))
+        for line in drift:
+            print(f"[{leg}] DRIFT {line}")
+        bad += len(drift)
+        print(f"[{leg}] {len(drift)} drift line(s), {len(flagged)} "
+              f"flagged group(s) against {name}")
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,8 +6,10 @@ never waits for the device measures the launch queue, and a kernel built
 at import makes every import pay a compile (and fail without ``nvcc``).
 These are textual, so this module finds them in the source of
 ``dexiraft_tpu_torch/``. Pure stdlib (``ast``): it imports neither torch
-nor the package, and the lock-discipline rules of the sibling
-``threadlint.py`` (JL020-JL024) run with it, loaded by file path.
+nor the package, and the rules of its siblings run with it, loaded by
+file path: the sharding contract of ``shardlint.py`` (JL010-JL013), the
+lock discipline of ``threadlint.py`` (JL020-JL024) and the collective
+divergence of ``distlint.py`` (JL030-JL034).
 
 Rule catalog (each the counterpart of a rule of the JAX package's
 ``analysis/jaxlint.py``, or the port's own):
@@ -41,11 +43,9 @@ Rule catalog (each the counterpart of a rule of the JAX package's
 The JAX rules with no meaning here: JL001 and JL003 (tracer syncs and
 branches: PyTorch runs eagerly, nothing is traced), JL002 (PRNG key
 reuse: the port draws from stateful ``torch.Generator``s), JL005 (f64 on
-a TPU), JL006 (jit donation) and JL009 (jit in a loop); JL010+ (the
-sharding contract) and JL030+ (collective divergence) are the
-``shardlint``/``distlint`` ports, still to come.
+a TPU), JL006 (jit donation) and JL009 (jit in a loop).
 
-Suppression: ``# synclint: disable=SL00X`` (or ``JL02X``) on the line,
+Suppression: ``# synclint: disable=SL00X`` (or ``JL0XX``) on the line,
 or a reviewed entry in ``analysis/baseline.json``, which matches on
 (rule, path, stripped source line) and carries a ``reason``; an entry
 that matches nothing is stale and fails the lint.
@@ -88,8 +88,11 @@ def _load_rule_module(filename: str, modname: str):
     return mod
 
 
+_shardlint = _load_rule_module("shardlint.py", "_port_shardlint")
 _threadlint = _load_rule_module("threadlint.py", "_port_threadlint")
-RULES.update(_threadlint.RULES)
+_distlint = _load_rule_module("distlint.py", "_port_distlint")
+for _rules in (_shardlint, _threadlint, _distlint):
+    RULES.update(_rules.RULES)
 
 # the explicit host syncs
 _SYNC_FUNCS = {"torch.cuda.synchronize",
@@ -213,7 +216,9 @@ class _Linter:
             if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
                 self._sl003_block(node.body, _device_names(self.mod, node))
         self._rule_sl004(tree.body)
+        _shardlint.run_rules(self)  # JL010-JL013
         _threadlint.run_rules(self)  # JL020-JL024
+        _distlint.run_rules(self)  # JL030-JL034
         seen = set()
         unique = []
         for f in self.findings:

@@ -251,7 +251,7 @@ def _train_epochs(args, dataset, dev, step, state, guard, wd) -> None:
                 ids = order[:args.batch_size]
             if epoch or b:
                 # never armed over the first step (cuDNN's searches)
-                wd.arm(epoch * steps_per_epoch + b + 1)
+                wd.arm(epoch * steps_per_epoch + b + 1)  # synclint: disable=JL034 caller's finally stops it
             samples = [dataset.sample(int(i), np.random.default_rng(
                 (args.seed, epoch, int(i)))) for i in ids]
             images = to_nchw(np.stack([s["images"] for s in samples]), dev)

@@ -70,6 +70,12 @@ class World:
         return self.backend is not None
 
     @property
+    def is_writer(self) -> bool:
+        """This rank writes the run's checkpoints, retention record and
+        logs, and validates (rank 0)."""
+        return self.rank == 0
+
+    @property
     def group(self):
         """The process group the data axis reduces over: the default
         group (None) of a data-parallel World."""

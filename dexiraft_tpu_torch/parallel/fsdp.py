@@ -74,6 +74,12 @@ def _param_leaves(model: nn.Module) -> List[Tuple[nn.Parameter, nn.Module,
             for p in model.parameters()]
 
 
+def param_keys(model: nn.Module) -> List[Tuple[str, ...]]:
+    """Every parameter's state-dict keys, in ``model.parameters()``
+    order (the optimizer's state indices)."""
+    return [keys for _, _, _, keys in _param_leaves(model)]
+
+
 class ShardPlan:
     """Which parameters an fsdp mesh shards, and along which dim; this
     rank's slices; the gather and the sharded update (module
@@ -184,6 +190,24 @@ class ShardPlan:
                  for k, v in self.model.state_dict().items()}
         return model, optimizer.state_dict()
 
+    def restrict(self, model_sd, optim_sd) -> Tuple[Dict[str, torch.Tensor],
+                                                    Dict[str, object]]:
+        """Whole (one-process) state dicts -> this rank's storage form
+        under this plan: each sharded leaf's slice of the parameter and
+        of its Adam moments, every other entry as it is."""
+        f, n = self.mesh.fsdp_index, self.mesh.n_fsdp
+        slices = self.sharded_keys()
+        model = {k: (slices[k].piece(v, f, n).clone() if k in slices else v)
+                 for k, v in model_sd.items()}
+        state = {}
+        for i, st in optim_sd["state"].items():
+            leaf = self.leaves[int(i)]
+            state[i] = st if leaf.dim is None else {
+                k: (leaf.piece(v, f, n).clone()
+                    if isinstance(v, torch.Tensor) and v.dim() else v)
+                for k, v in st.items()}
+        return model, dict(optim_sd, state=state)
+
     def load_state_dicts_(self, optimizer, model_sd, optim_sd) -> None:
         """Load storage-form state dicts (:meth:`state_dicts`'s) into the
         model, the slices and the optimizer."""
@@ -243,15 +267,7 @@ def shard_state(state, mesh: FsdpMesh):
     opt = AdamW(plan.storage, lr=group["max_lr"], num_steps=group["num_steps"],
                 wdecay=group["weight_decay"], epsilon=group["eps"],
                 clip=group["clip"], b1=group["b1"], b2=group["b2"])
-    sd = old.state_dict()
-    f, n = mesh.fsdp_index, mesh.n_fsdp
-    for i, leaf in enumerate(plan.leaves):
-        st = sd["state"].get(i)
-        if st and leaf.dim is not None:
-            sd["state"][i] = {k: (leaf.piece(v, f, n).clone()
-                                  if isinstance(v, torch.Tensor) and v.dim()
-                                  else v) for k, v in st.items()}
-    opt.load_state_dict(sd)
+    opt.load_state_dict(plan.restrict({}, old.state_dict())[1])
     plan.free_()
     state.optimizer, state.shards = opt, plan
     return state

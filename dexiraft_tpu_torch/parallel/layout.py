@@ -46,7 +46,11 @@ the same logical dim.
     computes a contiguous block of their image rows (the halo step,
     parallel/halo.py); the state is stored as on the (data, fsdp) mesh.
 
-The serve mesh is ROADMAP A12.
+The mesh-axis names (:data:`LAYOUT_AXES`), the canonical group specs
+the placement audit declares (``analysis/shardaudit.py``), its
+:data:`REPLICATED_OK` exemptions and :func:`virtual_mesh` (every rank of
+a mesh in one process, no process group) are the port's copies of JAX's
+``SpecLayout`` vocabulary. The serve mesh is ROADMAP A12.
 """
 
 from __future__ import annotations
@@ -60,6 +64,26 @@ from torch import nn
 
 from dexiraft_tpu_torch.data.loader import rank_rows, world_compatible
 from dexiraft_tpu_torch.parallel.distributed import World, mesh_groups
+
+#: The mesh-axis names, JAX's ``SpecLayout`` axes: specs and the
+#: placement audit spell them from here (shardlint pins the set).
+DATA_AXIS = "data"
+FSDP_AXIS = "fsdp"
+SEQ_AXIS = "seq"
+LAYOUT_AXES = (DATA_AXIS, FSDP_AXIS, SEQ_AXIS)
+
+#: Groups the placement audit may see fully replicated over its size
+#: threshold without flagging, each with its reason (JAX's
+#: ``REPLICATED_OK``; the port's generator state stands for JAX's rng
+#: key). The parameters and Adam moments are not here: on an fsdp mesh
+#: they shard, and a layout that replicated them over the threshold
+#: fails the audit.
+REPLICATED_OK = {
+    "batch_stats": "BatchNorm running stats are global (sync-BN)",
+    "generator": "the train state's generator state (JAX's rng key)",
+    "step": "scalar step counter",
+    "metrics": "scalar loss/metric outputs",
+}
 
 #: Leaves smaller than this (elements) stay replicated on fsdp meshes:
 #: biases, norm scales and scalars cost more to gather than they save
@@ -182,6 +206,45 @@ class FsdpMesh:
                         self.n_data * self.n_seq,
                         self.data_seq_group if self.n_seq > 1
                         else self.data_group)
+
+
+def virtual_mesh(rank: int, n_data: int, n_fsdp: int, n_seq: int = 1
+                 ) -> FsdpMesh:
+    """Rank ``rank`` of a (data, fsdp, seq) mesh on the ``meta`` device
+    with no process group (every group None): what that rank places,
+    read in one process (the placement audit). Its collectives cannot
+    run."""
+    size = n_data * n_fsdp * n_seq
+    if not 0 <= rank < size:
+        raise ValueError(f"rank {rank} outside a mesh of {size} ranks")
+    world = World(rank, size, rank, torch.device("meta"), "gloo")
+    return FsdpMesh(world, n_data, n_fsdp, n_seq=n_seq)
+
+
+def group_spec(group: str, axes: "dict[str, int]") -> Tuple[str, ...]:
+    """The canonical spec of a declared array group on a mesh of
+    ``axes`` (JAX's ``SpecLayout``): batch, correlation fmaps and halo
+    activations over (data, seq), seq where the mesh has it; the carry
+    over data; the parameters and Adam moments over fsdp where the mesh
+    has it, else replicated."""
+    if group in ("batch", "corr_fmaps"):
+        return ((DATA_AXIS, SEQ_AXIS) if SEQ_AXIS in axes
+                else (DATA_AXIS,))
+    if group == "halo_activations":
+        return (DATA_AXIS, SEQ_AXIS)
+    if group == "carry":
+        return (DATA_AXIS,)
+    if group in ("params", "opt_state"):
+        return (FSDP_AXIS,) if FSDP_AXIS in axes else ()
+    raise ValueError(f"no canonical spec for the group {group!r}")
+
+
+def spec_str(spec: Sequence[Optional[str]]) -> str:
+    """A spec (an axis name or None per dim) as JAX's ``spec_str`` writes
+    a PartitionSpec: ``P()``, ``P('data', 'seq')``, ``P(None, None,
+    None, 'fsdp')``."""
+    return "P(" + ", ".join("None" if e is None else repr(e)
+                            for e in spec) + ")"
 
 
 def has_seq(mesh) -> bool:

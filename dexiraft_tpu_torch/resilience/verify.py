@@ -19,7 +19,9 @@ state. The first step that passes wins; everything skipped is reported
 in one line each, so "resumed from step 40000 because 45000 was
 truncated" is visible in the log instead of being silently wrong. A step
 saved in another storage layout than the template's (fsdp size, sharded
-dims) is not a damaged step: ``ckpt.LayoutMismatch`` is raised at once.
+dims, or replicated) is read whole and restricted to the template's
+layout (``ckpt.load_state_payload``), and checked in that form; the
+restore names both layouts in one line.
 
 Once a good step restores, the skipped bad steps are DELETED: retraining
 toward that step number re-saves it, and the run's newest checkpoint must
@@ -211,8 +213,6 @@ def restore_verified(
         try:
             payload = ckpt.load_state_payload(template, directory, step=s)
             verify_state(payload, template)
-        except ckpt.LayoutMismatch:
-            raise
         except Exception as e:  # torch.load raises many types on bad input
             skipped.append((s, e))
             if verbose:
@@ -220,7 +220,12 @@ def restore_verified(
                       f"verification ({type(e).__name__}: {e}); trying the "
                       f"previous step", flush=True)
             continue
+        saved, own = payload.get("fsdp"), ckpt.layout_of(template)
         state, extra = ckpt.apply_payload(template, payload)
+        if saved != own and verbose:
+            print(f"[resilience] step {s} was saved "
+                  f"{ckpt.describe_layout(saved)}; restored into this "
+                  f"run's layout ({ckpt.describe_layout(own)})", flush=True)
         for bad, _ in (skipped if delete_bad else ()):
             # remove what failed verification: a damaged step left behind
             # would stay the directory's newest until training re-saves

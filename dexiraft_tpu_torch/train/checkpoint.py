@@ -25,10 +25,13 @@ each sharded key's dim) and renames the directory into place once, so a
 crash leaves the previous step the newest one. :func:`load_state_payload`
 reads a step back for a template of either layout, checking every shard
 (a missing or truncated one fails the step, and the verified restore
-falls back); a step of another layout than the template's is refused
-with :class:`LayoutMismatch` (resharding is ROADMAP A12.1's remainder).
-``read_model_weights`` assembles a sharded step's full weights on one
-process.
+falls back). A step saved in another layout than the template's (sharded
+n-way, m-way or replicated, or on other dims) is assembled whole, the
+model and both Adam moments, and restricted to the template's layout:
+this rank's slices under its ``ShardPlan``, or the whole tensors for a
+replicated template (JAX's restore grafts a leaf into the template's
+sharding whatever mesh saved it). ``read_model_weights`` assembles a
+sharded step's full weights on one process.
 
 ``save_checkpoint(block=False)`` copies the state to host memory at once
 (the only part the step loop waits for: the next step updates the tensors
@@ -110,11 +113,6 @@ def _config_dict(cfg: Any) -> Any:
     return dataclasses.asdict(cfg) if dataclasses.is_dataclass(cfg) else cfg
 
 
-class LayoutMismatch(ValueError):
-    """A checkpoint's storage layout (fsdp size and sharded dims, or
-    none) is not the restoring state's."""
-
-
 def _payload(state, extra: Optional[Dict[str, Any]] = None,
                   configs: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     """The host copy of ``state`` that a checkpoint holds."""
@@ -142,7 +140,7 @@ def _flush(directory: str, step: int, payload: Dict[str, Any],
             # chaos: written but never committed; the saving thread
             # exits the process while this flush waits here
             parked.set()
-            threading.Event().wait()
+            threading.Event().wait()  # synclint: disable=JL032 chaos hook: the process exits while the flush parks
         final = os.path.join(directory, str(step))
         if os.path.isdir(final):
             shutil.rmtree(final)
@@ -200,7 +198,7 @@ def wait_pending(directory: Optional[str] = None) -> Optional[Dict[str, Any]]:
         error = None
         flush_s = 0.0
         try:
-            flush_s = fut.result()
+            flush_s = fut.result()  # synclint: disable=JL032 this process's own flush thread, no peer
         except Exception as e:  # reported to the caller, not raised here
             error = f"{type(e).__name__}: {e}"
         info = {"step": step, "flush_s": flush_s,
@@ -286,42 +284,73 @@ def _shards(path: str, layout: Dict[str, Any]) -> "list[Dict[str, Any]]":
     return out
 
 
-def _layout_refusal(saved, own) -> str:
-    def name(layout):
-        return ("replicated" if layout is None
-                else f"sharded {layout['n_fsdp']}-way over fsdp")
+def layout_of(template) -> Optional[Dict[str, Any]]:
+    """The storage layout of a TrainState as its checkpoints record it:
+    None for a replicated state, else its plan's ``layout()``."""
+    return None if template.shards is None else template.shards.layout()
 
-    return (f"the checkpoint was saved {name(saved)}, this run holds its "
-            f"state {name(own)}"
-            + ("" if saved is None or own is None
-               or saved["n_fsdp"] != own["n_fsdp"]
-               else " with other sharded dims")
-            + "; resuming onto another layout is not ported to PyTorch "
-            "yet (ROADMAP A12.1, resharded resume): resume with the "
-            "saved layout's --fsdp, or start from its weights with "
-            "--restore_ckpt")
+
+def describe_layout(layout: Optional[Dict[str, Any]]) -> str:
+    """A storage layout (``layout_of``'s) in words, for the logs."""
+    if layout is None:
+        return "replicated"
+    return f"sharded {layout['n_fsdp']}-way over fsdp"
 
 
 def load_state_payload(template, path: str, step: Optional[int] = None
                        ) -> Dict[str, Any]:
     """The payload of ``path`` (:func:`state_file`'s) in the storage form
-    of ``template`` (a TrainState): of a sharded step, the replicated
-    part with this rank's slices and moments added, after every shard
-    was read. Raises :class:`LayoutMismatch` when the step's layout is
-    not the template's."""
+    of ``template`` (a TrainState), after every shard of a sharded step
+    was read: of a step saved in the template's layout, the replicated
+    part with this rank's slices and moments added; of a step saved in
+    another layout, the step assembled whole (:func:`_whole_state`) and
+    restricted to the template's (``ShardPlan.restrict``). The payload's
+    ``fsdp`` stays the layout the step was saved in."""
     file = state_file(path, step)
     payload = torch.load(file, map_location="cpu", weights_only=True)
-    saved = payload.get("fsdp")
-    own = None if template.shards is None else template.shards.layout()
-    if saved != own:
-        raise LayoutMismatch(_layout_refusal(saved, own))
-    if saved is None:
-        return payload
-    mine = _shards(file, saved)[template.shards.mesh.fsdp_index]
+    saved, own = payload.get("fsdp"), layout_of(template)
+    if saved == own:
+        if saved is None:
+            return payload
+        mine = _shards(file, saved)[template.shards.mesh.fsdp_index]
+        optim = dict(payload["optimizer"])
+        optim["state"] = {**optim["state"], **mine["optimizer_state"]}
+        return dict(payload, model={**payload["model"], **mine["model"]},
+                    optimizer=optim)
+    from dexiraft_tpu_torch.parallel.fsdp import param_keys
+
+    model, optim = _whole_state(file, payload, param_keys(template.model))
+    if template.shards is not None:
+        model, optim = template.shards.restrict(model, optim)
+    return dict(payload, model=model, optimizer=optim)
+
+
+def _whole_state(file: str, payload: Dict[str, Any],
+                 keys: "list[Tuple[str, ...]]"
+                 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
+    """(model, optimizer) state dicts of the step ``payload`` (read from
+    ``file``) whole, as one process holds them: a sharded step's slices
+    of each parameter and of its two Adam moments joined along the
+    saved dim. ``keys``: every parameter's state-dict keys in
+    ``model.parameters()`` order (the optimizer's indices); a parameter
+    registered under two keys is one leaf, joined once."""
+    layout = payload.get("fsdp")
+    if layout is None:
+        return payload["model"], payload["optimizer"]
+    shards = _shards(file, layout)
+    model = _whole_model(file, payload, shards)
     optim = dict(payload["optimizer"])
-    optim["state"] = {**optim["state"], **mine["optimizer_state"]}
-    return dict(payload, model={**payload["model"], **mine["model"]},
-                optimizer=optim)
+    state = dict(optim["state"])
+    for i, leaf_keys in enumerate(keys):
+        dim = layout["dims"].get(leaf_keys[0])
+        parts = [s["optimizer_state"].get(i) for s in shards]
+        if dim is None or parts[0] is None:
+            continue  # replicated (moments in state.pt), or none yet
+        state[i] = {k: (torch.cat([p[k] for p in parts], dim=dim)
+                        if isinstance(v, torch.Tensor) and v.dim() else v)
+                    for k, v in parts[0].items()}
+    optim["state"] = state
+    return model, optim
 
 
 def save_sharded(directory: str, state, step: Optional[int] = None,
@@ -351,7 +380,7 @@ def save_sharded(directory: str, state, step: Optional[int] = None,
                                 if i in moments}}), part)
         os.replace(part, os.path.join(tmp, name))
     barrier(f"shards@{step}")
-    if mesh.world.rank != 0:
+    if not mesh.world.is_writer:
         return
     optim = dict(optim_sd, state={i: st for i, st in optim_sd["state"].items()
                                   if i not in moments})
@@ -446,17 +475,19 @@ def read_model_weights(path: str) -> Dict[str, torch.Tensor]:
             for k, v in obj.items()}
 
 
-def _whole_model(file: str, payload: Optional[Dict[str, Any]] = None
+def _whole_model(file: str, payload: Optional[Dict[str, Any]] = None,
+                 shards: "Optional[list[Dict[str, Any]]]" = None
                  ) -> Dict[str, torch.Tensor]:
     """The model state dict of the checkpoint ``state.pt`` at ``file``,
-    whole: a sharded step's slices joined along their dims, in the
-    state dict's key order."""
+    whole: a sharded step's slices (``shards``, read here when None)
+    joined along their dims, in the state dict's key order."""
     if payload is None:
         payload = torch.load(file, map_location="cpu", weights_only=True)
     layout = payload.get("fsdp")
     if layout is None:
         return payload["model"]
-    shards = _shards(file, layout)
+    if shards is None:
+        shards = _shards(file, layout)
     model = dict(payload["model"])
     for key, dim in layout["dims"].items():
         model[key] = torch.cat([s["model"][key] for s in shards], dim=dim)

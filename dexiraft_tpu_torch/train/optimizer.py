@@ -81,6 +81,16 @@ class AdamW(torch.optim.Optimizer):
         super().load_state_dict(state_dict)
         self.param_groups[0].update(hyper)
 
+    @torch.no_grad()
+    def init_state(self) -> None:
+        """Every parameter's moments, zeros shaped like it, where it has
+        none yet (optax's ``init``; the first update calls it)."""
+        for p in self.param_groups[0]["params"]:
+            st = self.state[p]
+            if not st:
+                st["mu"] = torch.zeros_like(p)
+                st["nu"] = torch.zeros_like(p)
+
     def current_lr(self) -> float:
         """The learning rate the next update applies."""
         g = self.param_groups[0]
@@ -117,11 +127,9 @@ class AdamW(torch.optim.Optimizer):
         b1, b2, eps, wd = group["b1"], group["b2"], group["eps"], group["weight_decay"]
         c1 = float(np.float32(1.0) - np.float32(b1) ** np.float32(count))
         c2 = float(np.float32(1.0) - np.float32(b2) ** np.float32(count))
+        self.init_state()
         for p, g in zip(params, grads):
             st = self.state[p]
-            if not st:
-                st["mu"] = torch.zeros_like(p)
-                st["nu"] = torch.zeros_like(p)
             mu, nu = st["mu"], st["nu"]
             mu.mul_(b1).add_(g, alpha=1.0 - b1)
             nu.mul_(b2).add_(g * g, alpha=1.0 - b2)

@@ -567,14 +567,14 @@ def make_train_step(cfg: RAFTConfig, tc: TrainConfig, mesh=None,
                     seq_sums = vec[accum:].reshape(accum, -1)
                 # each rank checked only its own slices
                 bad = (~finite).to(torch.float32).reshape(1)
-                dist.all_reduce(bad)
+                dist.all_reduce(bad, group=mesh.world.group)
                 finite = bad[0] == 0
             elif mesh is not None:
                 # one all-reduce: the ranks' losses, metric sums and
                 # non-finite verdicts
                 vec = torch.cat([losses, seq_sums.reshape(-1),
                                  (~finite).to(torch.float32).reshape(1)])
-                dist.all_reduce(vec)
+                dist.all_reduce(vec, group=mesh.group)
                 losses = vec[:accum] / mesh.size
                 seq_sums = vec[accum:-1].reshape(accum, -1)
                 finite = vec[-1] == 0
@@ -723,7 +723,7 @@ def _make_halo_train_step(cfg: RAFTConfig, tc: TrainConfig, mesh):
             state.step += 1
             bad = (~all_finite(_state_tensors(state))).to(
                 torch.float32).reshape(1)
-            dist.all_reduce(bad)
+            dist.all_reduce(bad, group=mesh.world.group)
             out = metrics_from_sums(sums)
             out["loss"] = loss
             out["lr"] = lr

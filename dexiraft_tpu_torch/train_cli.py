@@ -67,9 +67,10 @@ JAX's fence mode): the ranks form a (data, fsdp) grid
 refused), each rank reads the rows of its data index, the step gathers
 the parameters at entry and computes the replicated step. Checkpoints
 are written per shard by every rank together
-(``train.checkpoint.save_sharded``), and a ``--resume`` onto another
-layout is refused (A12.1, resharded resume); rank 0's validation runs
-on the gathered model. ``--stall_timeout``
+(``train.checkpoint.save_sharded``); a ``--resume`` restores a step
+saved in any layout (another fsdp size, or replicated) into this run's,
+and a replicated run resumes a sharded step the same way; rank 0's
+validation runs on the gathered model. ``--stall_timeout``
 arms the hang watchdog (``resilience.watchdog``): a step, barrier or
 save that makes no progress for that long (10x for checkpoint and
 validation windows) dumps the step, the region and every thread's stack
@@ -423,7 +424,7 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args, world=None) -> None:
     dev = world.device
     # rank 0 writes the checkpoints, retention.json and the logs, and
     # validates; every rank restores and trains
-    writer = world.rank == 0
+    writer = world.is_writer
     try:
         mesh = make_train_mesh(tc.batch_size, world, tc.accum_steps,
                                fsdp=args.fsdp)
@@ -515,8 +516,6 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args, world=None) -> None:
         wd.arm(0, "resume-restore", steady=False)
         try:
             state, last_saved = coord.agree_step(restore, None)
-        except ckpt.LayoutMismatch as e:
-            raise SystemExit(f"[resume] {e}")
         finally:
             wd.disarm()
         try:
@@ -604,8 +603,9 @@ def train(cfg: RAFTConfig, tc: TrainConfig, args, world=None) -> None:
     def sanctioned():
         """Host I/O (checkpoints, restores, validation): its compiles and
         host syncs are expected, not steady-state drift."""
-        with (watch.sanctioned() if watch is not None
-              else contextlib.nullcontext()), guards.sync_window():
+        window = (watch.sanctioned() if watch is not None
+                  else contextlib.nullcontext())
+        with window, guards.sync_window():
             yield
 
     def verdict():

@@ -91,6 +91,12 @@ LAYOUTS = {
 }
 CLI = BASE + ["--name", "f", "--fsdp", "2", "--val_freq", "2",
               "--validation", "chairs"]
+#: the resumes of a step-2 checkpoint onto another layout: name ->
+#: (world, fsdp, the checkpoint: "one" the one process's, "w2/ckpt-0"
+#: the 2-rank fsdp run's)
+RESHARD = {"one_to_fsdp2": (2, 2, "one"),
+           "fsdp2_to_fsdp4": (4, 4, "w2/ckpt-0"),
+           "fsdp2_to_data2": (2, None, "w2/ckpt-0")}
 
 
 @pytest.fixture(autouse=True)
@@ -124,21 +130,14 @@ def _pack(root):
 
 class _Children:
     """The 2-rank and 4-rank step runs and the CLI's first 2-rank run,
-    started at construction; the CLI's --resume once that run ended."""
+    started at construction; the CLI's --resume once that run ended; the
+    resharded resumes (RESHARD) once the 2-rank runs ended."""
 
     def __init__(self, spec, d):
-        self.d, self.procs, self._done = d, {}, {}
+        self.spec, self.d, self.procs, self._done = spec, d, {}, {}
         for world, scenarios in LAYOUTS.items():
-            out = d / f"w{world}"
-            out.mkdir()
-            torch.save(dict(spec, fsdp=2, scenarios=list(scenarios.values())),
-                       out / "spec.pt")
-            port = free_port()
-            self.procs[world] = [subprocess.Popen(
-                [sys.executable, os.path.join(HERE, "torch_parallel_child.py"),
-                 str(out / "spec.pt"), str(out)],
-                env=rank_env(r, world, port), stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True) for r in range(world)]
+            self._start(world, world, dict(
+                spec, fsdp=2, scenarios=list(scenarios.values())))
         self.root = str(d / "chairs")
         write_chairs_tree(self.root, n=8, n_val=2)
         self.pack = _pack(self.root)
@@ -146,6 +145,31 @@ class _Children:
         # with one emergency checkpoint, saved per shard
         self.procs["cli"] = self._cli(["--coord_every", "2"],
                                       {1: ["--chaos", "sigterm@2"]})
+
+    def _start(self, key, world, spec):
+        out = self.d / (f"w{key}" if isinstance(key, int) else key)
+        out.mkdir()
+        torch.save(spec, out / "spec.pt")
+        port = free_port()
+        self.procs[key] = [subprocess.Popen(
+            [sys.executable, os.path.join(HERE, "torch_parallel_child.py"),
+             str(out / "spec.pt"), str(out)],
+            env=rank_env(r, world, port), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(world)]
+
+    def _reshard(self):
+        """The one-process step-2 checkpoint (the 2-rank run's step 2,
+        restored whole and saved replicated), then every RESHARD run."""
+        cfg, tc = child.configs(self.spec, LAYOUTS[2]["fp32"])
+        state, _, _ = restore_verified(
+            str(self.d / "w2" / "ckpt-0"),
+            child.fresh_state(self.spec, cfg, tc, None), step=2,
+            delete_bad=False)
+        ckpt.save_checkpoint(str(self.d / "one"), state)
+        for name, (world, fsdp, source) in RESHARD.items():
+            self._start(name, world, dict(
+                self.spec, fsdp=fsdp, scenarios=[LAYOUTS[2]["fp32"]],
+                resume={"dir": str(self.d / source), "step": 2}))
 
     def _cli(self, extra, per_rank=None):
         port, procs = free_port(), []
@@ -161,6 +185,8 @@ class _Children:
         return procs
 
     def wait(self, key):
+        if key in RESHARD and key not in self.procs:
+            self.results(2)
         if key == "resume" and "resume" not in self.procs:
             assert self.wait("cli")[0] == [0, 0]
             self.procs["resume"] = self._cli(["--resume"])
@@ -170,11 +196,14 @@ class _Children:
             self._done[key] = ([p.returncode for p in procs], outs)
         return self._done[key]
 
-    def results(self, world):
-        rcs, outs = self.wait(world)
-        assert rcs == [0] * world, outs
-        return [torch.load(self.d / f"w{world}" / f"rank{r}.pt",
-                           weights_only=False) for r in range(world)]
+    def results(self, key):
+        rcs, outs = self.wait(key)
+        assert rcs == [0] * len(rcs), outs
+        if key == 2 and RESHARD.keys() - self.procs.keys():
+            self._reshard()
+        out = self.d / (f"w{key}" if isinstance(key, int) else key)
+        return [torch.load(out / f"rank{r}.pt", weights_only=False)
+                for r in range(len(rcs))]
 
     def kill(self):
         for procs in self.procs.values():
@@ -440,29 +469,163 @@ def test_truncated_shard_falls_back_a_step(runs, tmp_path):
         restore_verified(str(directory), _sharded_template(2))
 
 
-def test_resume_onto_another_layout_is_refused(runs, tmp_path, monkeypatch):
-    runs[2].results(2)
+def _storage_equal(got, want, what):
+    """Storage-form state dicts (model entries, optimizer state) equal
+    to the bit."""
+    assert got.keys() == want.keys(), what
+    for k, v in want.items():
+        if isinstance(v, dict):
+            _storage_equal(got[k], v, f"{what}.{k}")
+        elif isinstance(v, torch.Tensor):
+            assert torch.equal(got[k], v), (what, k)
+        else:
+            assert got[k] == v, (what, k)
+
+
+def _restricted(whole, n_fsdp, index):
+    """The whole state's storage under the n_fsdp-way plan of rank
+    ``index``: (model, optimizer state)."""
+    model, optim = _sharded_template(n_fsdp, index).shards.restrict(
+        whole.model.state_dict(), whole.optimizer.state_dict())
+    return model, optim["state"]
+
+
+def test_resume_onto_another_layout(runs, monkeypatch, tmp_path):
+    """The 2-way step 2 resumed on one process: the restored weights are
+    the step's whole ones, and the losses of steps 3-4 and the state
+    after step 4 equal the 2-way resume's to the bit (at the children's
+    2 threads); restored into a 4-way template, each slice and moment is
+    the whole's restriction. Through the CLI, one process resumes the
+    2-way run of the CLI test and trains a step."""
+    rec = runs[2].results(2)[0][0]
+    spec = runs[1]
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        one = child.resume(dict(spec, scenarios=[LAYOUTS[2]["fp32"]],
+                                resume={"dir": str(runs[2].d / "w2" /
+                                                   "ckpt-0"), "step": 2}),
+                           None)
+    finally:
+        torch.set_num_threads(n)
+    assert one["restored_step"] == 2
+    _storage_equal(one["storage"]["model"], rec["saved"][2], "weights")
+    assert one["metrics"] == rec["resumed_metrics"]
+    _storage_equal(one["state_dict"], rec["state_dict"], "step 4")
     directory = str(runs[2].d / "w2" / "ckpt-0")
     tc = TrainConfig(iters=2, batch_size=4, num_steps=NUM_STEPS, lr=LR)
-    for template in (create_state(raft_v1(), tc, device="cpu"),
-                     _sharded_template(4)):
-        with pytest.raises(ckpt.LayoutMismatch,
-                           match="A12.1, resharded resume"):
-            restore_verified(directory, template)
+    whole, _, _ = restore_verified(directory, create_state(raft_v1(), tc,
+                                                           device="cpu"),
+                                   step=2, delete_bad=False)
+    for index in range(4):
+        state, step, _ = restore_verified(directory,
+                                          _sharded_template(4, index),
+                                          step=2, delete_bad=False)
+        model, optim = state.state_dicts()
+        want_model, want_optim = _restricted(whole, 4, index)
+        _storage_equal(model, want_model, f"4-way rank {index}")
+        _storage_equal(optim["state"], want_optim, f"4-way rank {index}")
     # and through the CLI: one process resuming the 2-way run
     from dexiraft_tpu_torch import train_cli
 
-    root = runs[2].root
-    monkeypatch.setenv("DEXIRAFT_DATA_DIR", root)
-    monkeypatch.chdir(root)
     assert runs[2].wait("resume")[0] == [0, 0]
+    shutil.copytree(os.path.join(runs[2].root, "checkpoints", "f"),
+                    tmp_path / "checkpoints" / "f")
+    monkeypatch.setenv("DEXIRAFT_DATA_DIR", runs[2].root)
+    monkeypatch.chdir(tmp_path)
     i = CLI.index("--fsdp")
-    argv = CLI[:i] + CLI[i + 2:]
-    with pytest.raises(SystemExit, match="saved sharded 2-way over fsdp, "
-                                         "this run holds its state "
-                                         "replicated.*A12.1"):
-        train_cli.main(argv + ["--records_dir", runs[2].pack, "--num_steps",
-                               "6", "--resume"])
+    train_cli.main(CLI[:i] + CLI[i + 2:] + [
+        "--records_dir", runs[2].pack, "--num_steps", "5", "--resume"])
+    assert ckpt.all_steps("checkpoints/f") == [2, 4, 5]
+    payload = ckpt.load_payload("checkpoints/f", 5)
+    assert payload["step"] == 5 and "fsdp" not in payload
+    assert _logged(str(tmp_path), "loss").keys() == {5}
+
+
+@pytest.mark.parametrize("name", list(RESHARD))
+def test_resume_resharded_over_ranks(runs, name):
+    """A step-2 checkpoint resumed on ranks of another layout: each
+    rank's restored slices and moments are the whole step's restriction
+    (the whole weights for a replicated rank), and the steps after it
+    equal the resume onto the saved layout: to the bit with one data
+    index, at the data-parallel bounds over data 2 x fsdp 1."""
+    world, fsdp, _ = RESHARD[name]
+    ranks = runs[2].results(name)
+    rec = runs[2].results(2)[0][0]
+    tc = TrainConfig(iters=2, batch_size=4, num_steps=NUM_STEPS, lr=LR)
+    whole, _, _ = restore_verified(str(runs[2].d / "one"),
+                                   create_state(raft_v1(), tc, device="cpu"),
+                                   delete_bad=False)
+    _storage_equal(whole.model.state_dict(), rec["saved"][2], "one")
+    for r, got in enumerate(ranks):
+        assert got["restored_step"] == 2
+        assert got["storage"]["count"] == 2
+        if fsdp is None:
+            want_model = whole.model.state_dict()
+            want_optim = whole.optimizer.state_dict()["state"]
+        else:
+            want_model, want_optim = _restricted(whole, fsdp, r)
+        _storage_equal(got["storage"]["model"], want_model, (name, r))
+        _storage_equal(got["storage"]["optimizer"], want_optim, (name, r))
+        _storage_equal(got["state_dict"], ranks[0]["state_dict"], (name, r))
+        assert got["metrics"] == ranks[0]["metrics"]
+    got = ranks[0]
+    if fsdp is not None:  # one data index: the one-process step
+        assert got["metrics"] == rec["resumed_metrics"]
+        _storage_equal(got["state_dict"], rec["state_dict"], name)
+        return
+    for g, ref in zip(got["metrics"], rec["resumed_metrics"]):
+        for k in ("loss", "epe", "1px", "3px", "5px", "lr"):
+            assert g[k] == pytest.approx(ref[k], rel=1e-5, abs=1e-7), k
+    _close(got["state_dict"], rec["state_dict"], 1e-4, 3e-5, name)
+
+
+def test_resume_onto_other_dims_at_the_same_size(tmp_path, monkeypatch):
+    """A 2-way step whose plan sharded its leaves on other dims (the
+    smallest dividing one) restores into the policy's 2-way plan as the
+    whole's restriction; the saved and restored layouts differ."""
+    from dexiraft_tpu_torch.parallel import fsdp as fsdp_mod
+    from dexiraft_tpu_torch.parallel import layout as layout_mod
+
+    tc = TrainConfig(iters=2, batch_size=4, num_steps=NUM_STEPS, lr=LR)
+    whole = create_state(raft_v1(small=True), tc, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    for p in whole.model.parameters():
+        p.grad = torch.randn(p.shape, generator=g)
+    whole.optimizer.step()
+    whole.step = 1
+
+    def smallest(module, name, shape, n):
+        dim, logical = layout_mod.param_shard_dim(module, name, shape, n)
+        if dim is None:
+            return dim, logical
+        dims = [d for d, s in enumerate(shape) if s % n == 0]
+        return min(dims, key=lambda d: (shape[d], d)), None
+
+    def plan(index, n=2):
+        world = World(index, n, index, torch.device("cpu"), "gloo")
+        model = create_state(raft_v1(small=True), tc, device="cpu")
+        model.model.load_state_dict(whole.model.state_dict())
+        model.optimizer.load_state_dict(whole.optimizer.state_dict())
+        model.step = whole.step
+        return shard_state(model, FsdpMesh(world, 1, n))
+
+    with monkeypatch.context() as m:
+        m.setattr(fsdp_mod, "param_shard_dim", smallest)
+        saving = [plan(1), plan(0)]
+        for state in saving:  # rank 1's shard, then rank 0's commit
+            ckpt.save_sharded(str(tmp_path), state)
+    for index in range(2):
+        template = plan(index)
+        assert template.shards.layout() != saving[0].shards.layout()
+        state, step, _ = restore_verified(str(tmp_path), template,
+                                          delete_bad=False)
+        model, optim = state.state_dicts()
+        want_model, want_optim = template.shards.restrict(
+            whole.model.state_dict(), whole.optimizer.state_dict())
+        _storage_equal(model, want_model, index)
+        _storage_equal(optim["state"], want_optim["state"], index)
+        assert step == 1 and optim["param_groups"][0]["count"] == 1
 
 
 # ---- (i): the CLI ------------------------------------------------------

@@ -1,12 +1,16 @@
-"""The port's static half of strict mode: synclint (SL001-SL004) and the
-lock-discipline rules of its threadlint (JL020-JL024).
+"""The port's static half of strict mode: synclint (SL001-SL004) with the
+sharding contract of its shardlint (JL010-JL013), the lock-discipline
+rules of its threadlint (JL020-JL024) and the collective divergence of
+its distlint (JL030-JL034).
 
-One flagged and one clean fixture per synclint rule; the port's
-threadlint against the JAX package's on the JAX package's own fixtures
-(tests/test_zzzthreadlint.py), both linters loaded by file path; the
-whole port package clean against its reviewed baseline, every entry with
-a reason; and LOCK_ORDER holding every name an OrderedLock of the port
-uses, its static mirror equal to the live registry.
+One flagged and one clean fixture per synclint, shardlint and distlint
+rule (the last two on torch collectives); the port's threadlint and
+distlint against the JAX package's jaxlint on the JAX package's own
+fixtures (tests/test_zzzthreadlint.py, tests/test_zzzdistlint.py), both
+linters loaded by file path; the whole port package clean against its
+reviewed baseline, every entry with a reason; LOCK_ORDER holding every
+name an OrderedLock of the port uses, its static mirror equal to the
+live registry; and shardlint's LAYOUT_AXES equal to the live layout's.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import pytest
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 THREAD_RULES = {"JL020", "JL021", "JL022", "JL023", "JL024"}
+DIST_RULES = {"JL030", "JL031", "JL032", "JL033", "JL034"}
 
 
 def _load(path: str, name: str):
@@ -130,10 +135,10 @@ def test_suppression_and_loop_scope():
                                    "dexiraft_tpu_torch/ops/fixture.py")
 
 
-def _jax_fixtures():
-    """Every source string of the JAX threadlint tests' TestRuleFixtures
+def _jax_fixtures(name: str = "test_zzzthreadlint.py"):
+    """Every source string of a JAX lint test file's TestRuleFixtures
     that parses as a module holding a class or a function."""
-    with open(osp.join(REPO, "tests", "test_zzzthreadlint.py")) as f:
+    with open(osp.join(REPO, "tests", name)) as f:
         tree = ast.parse(f.read())
     cls = next(n for n in tree.body if isinstance(n, ast.ClassDef)
                and n.name == "TestRuleFixtures")
@@ -165,6 +170,212 @@ def test_threadlint_matches_jax_on_its_fixtures():
         assert got == want, src
         flagged.update(r for r, _, _ in want)
     assert flagged == THREAD_RULES
+
+
+@pytest.mark.parametrize("tier", ["serve", "resilience"])
+def test_distlint_matches_jax_on_its_fixtures(tier):
+    """The port's distlint flags what JAX's jaxlint flags with JL030-JL034
+    at the same (rule, line, col) on every fixture of
+    tests/test_zzzdistlint.py's TestRuleFixtures, at a neutral path and
+    on the distributed tier (where JL032 applies)."""
+    fixtures = _jax_fixtures("test_zzzdistlint.py")
+    assert len(fixtures) >= 20
+    flagged = set()
+    for src in fixtures:
+        want = [(f.rule, f.line, f.col) for f in jaxlint.lint_source(
+            src, f"dexiraft_tpu/{tier}/fixture.py", DIST_RULES)]
+        got = [(f.rule, f.line, f.col) for f in synclint.lint_source(
+            src.replace("jaxlint: disable", "synclint: disable"),
+            f"dexiraft_tpu_torch/{tier}/fixture.py", DIST_RULES)]
+        assert got == want, src
+        flagged.update(r for r, _, _ in want)
+    assert flagged == (DIST_RULES if tier == "resilience"
+                       else DIST_RULES - {"JL032"})
+
+
+#: rule -> (flagged, clean, path): torch-collective fixtures of the
+#: port's shardlint and distlint rules
+PORT_FIXTURES = {
+    "JL010": ("""
+        import torch.distributed as dist
+
+        def groups(world, n):
+            return [dist.new_group(list(range(i, i + n)))
+                    for i in range(0, world.size, n)]
+    """, """
+        from dexiraft_tpu_torch.parallel import make_train_mesh
+
+        def mesh_of(world):
+            return make_train_mesh(8, world, fsdp=2)
+    """, "dexiraft_tpu_torch/train/fixture.py"),
+    "JL011": ("""
+        from dexiraft_tpu_torch.parallel.layout import FsdpMesh, \
+            virtual_mesh
+
+        def meshes(world):
+            return (FsdpMesh(world, 1, 2),
+                    virtual_mesh(0, 2, 2, mesh_axes=("data", "fsdp")))
+    """, """
+        from dexiraft_tpu_torch.parallel.layout import DATA_AXIS, \
+            virtual_mesh
+
+        def meshes(world):
+            print("data", DATA_AXIS)
+            return virtual_mesh(0, 2, 2).fsdp
+    """, "dexiraft_tpu_torch/analysis/fixture.py"),
+    "JL012": ("""
+        import torch.distributed as dist
+
+        def save(world, write):
+            if world.rank == 0 or dist.get_rank() != 0:
+                write()
+    """, """
+        def save(world, write):
+            if world.is_writer:
+                write()
+    """, "dexiraft_tpu_torch/train/fixture.py"),
+    "JL013": ("""
+        import torch.distributed as dist
+
+        def make_step(cfg, mesh=None):
+            def step(x):
+                if mesh is None:
+                    dist.all_reduce(x)
+                dist.all_reduce(x)
+                return x
+            return step
+    """, """
+        import torch.distributed as dist
+
+        def make_step(cfg, mesh=None):
+            def step(x):
+                if mesh is None:
+                    dist.all_reduce(x)
+                else:
+                    dist.all_reduce(x, group=mesh.data.group)
+                return x
+            return step
+    """, "dexiraft_tpu_torch/train/fixture.py"),
+    "JL030": ("""
+        import torch.distributed as dist
+
+        def verdict(bad, mesh):
+            if mesh.fsdp_index == 0:
+                dist.all_reduce(bad, group=mesh.data.group)
+            return bad
+    """, """
+        import torch
+
+        from dexiraft_tpu_torch.parallel.fsdp import all_gather_flat
+
+        def swap(up, down, axis):
+            every = all_gather_flat(torch.cat([down, up]), axis.size,
+                                    axis.group)
+            if axis.rank > 0:
+                prev = every[axis.rank - 1, :down.numel()]
+            else:
+                prev = torch.zeros_like(down)
+            return prev
+    """, "dexiraft_tpu_torch/parallel/fixture.py"),
+    "JL031": ("""
+        def restore(coord, load, ok):
+            coord.barrier("restore")
+            if not ok:
+                return None
+            return coord.agree_step(load, None)
+    """, """
+        def restore(coord, load, ok):
+            coord.barrier("restore")
+            if coord.any_flag(not ok):
+                return None
+            return coord.agree_step(load, None)
+    """, "dexiraft_tpu_torch/resilience/fixture.py"),
+    "JL032": ("""
+        import torch.distributed as dist
+
+        def finish(t, group):
+            work = dist.all_reduce(t, group=group, async_op=True)
+            work.wait()
+    """, """
+        import datetime
+
+        import torch.distributed as dist
+
+        def finish(t, group):
+            work = dist.all_reduce(t, group=group, async_op=True)
+            work.wait(timeout=datetime.timedelta(seconds=30))
+    """, "dexiraft_tpu_torch/parallel/fixture.py"),
+    "JL033": ("""
+        import torch.distributed as dist
+
+        def verdict(bad, group):
+            try:
+                dist.all_reduce(bad, group=group)
+            except RuntimeError:
+                return False
+            return bad
+    """, """
+        import torch.distributed as dist
+
+        def verdict(bad, group):
+            try:
+                dist.all_reduce(bad, group=group)
+            except RuntimeError as e:
+                raise RuntimeError("the verdict's all-reduce failed") from e
+            return bad
+    """, "dexiraft_tpu_torch/resilience/fixture.py"),
+    "JL034": ("""
+        def restore(wd, coord, load):
+            wd.arm(0, "resume-restore", steady=False)
+            out = coord.agree_step(load, None)
+            wd.disarm()
+            return out
+    """, """
+        def restore(wd, coord, load):
+            wd.arm(0, "resume-restore", steady=False)
+            try:
+                return coord.agree_step(load, None)
+            finally:
+                wd.disarm()
+    """, "dexiraft_tpu_torch/train/fixture.py"),
+}
+
+
+@pytest.mark.parametrize("rule", sorted(PORT_FIXTURES))
+def test_port_rule_flags_its_torch_fixture_and_passes_the_clean_one(rule):
+    flagged, clean, path = PORT_FIXTURES[rule]
+    assert rule in rules_of(flagged, path)
+    assert rule not in rules_of(clean, path)
+
+
+def test_port_rule_scopes():
+    """Where the contract places things, the same source is clean: the
+    layout and the process-group module build groups and meshes, rank
+    literals belong to parallel/ and the coordinator, and JL032 holds
+    the distributed tier only."""
+    groups = PORT_FIXTURES["JL010"][0]
+    assert "JL010" not in rules_of(
+        groups, "dexiraft_tpu_torch/parallel/distributed.py")
+    assert "JL011" not in rules_of(PORT_FIXTURES["JL011"][0],
+                                   "dexiraft_tpu_torch/parallel/layout.py")
+    for path in ("dexiraft_tpu_torch/parallel/fixture.py",
+                 "dexiraft_tpu_torch/resilience/coord.py"):
+        assert "JL012" not in rules_of(PORT_FIXTURES["JL012"][0], path)
+    assert "JL032" not in rules_of(PORT_FIXTURES["JL032"][0],
+                                   "dexiraft_tpu_torch/serve/fixture.py")
+    assert "JL032" in rules_of(PORT_FIXTURES["JL032"][0],
+                               "dexiraft_tpu_torch/train/checkpoint.py")
+
+
+def test_layout_axes_mirror_equals_the_live_layout():
+    from dexiraft_tpu_torch.parallel import layout
+
+    shardlint = _load("dexiraft_tpu_torch/analysis/shardlint.py",
+                      "_t_shardlint")
+    assert shardlint.LAYOUT_AXES == frozenset(layout.LAYOUT_AXES)
+    assert layout.LAYOUT_AXES == (layout.DATA_AXIS, layout.FSDP_AXIS,
+                                  layout.SEQ_AXIS)
+    assert {"JL010", "JL013", "JL030", "JL034"} <= set(synclint.RULES)
 
 
 def test_port_package_lints_clean_against_its_baseline():

@@ -208,8 +208,9 @@ def test_package_imports_no_jax():
     """The port's package, model, engine, kernel, bridge, splat, session,
     video, scheduler, server, router, trainer, data, records, native
     decode, eval, resilience (coordinator, watchdog, preemption, the
-    collective trace), data-parallel, DexiNed workload, runtime guard,
-    linter and CLI modules,
+    collective trace), data-parallel, fsdp, halo, DexiNed workload,
+    runtime guard, linter (distlint and shardlint too), placement audit
+    (and its halo leg, run) and CLI modules,
     and the lock-registry fixture and data-parallel child of its tests,
     load neither
     jax/flax/optax/orbax nor any dexiraft_tpu module, nor an image library
@@ -272,6 +273,14 @@ def test_package_imports_no_jax():
         "import dexiraft_tpu_torch.analysis.guards\n"
         "import dexiraft_tpu_torch.analysis.synclint\n"
         "import dexiraft_tpu_torch.analysis.threadlint\n"
+        "import dexiraft_tpu_torch.analysis.shardaudit\n"
+        "import dexiraft_tpu_torch.analysis.distlint\n"
+        "import dexiraft_tpu_torch.analysis.shardlint\n"
+        "import dexiraft_tpu_torch.parallel.fsdp\n"
+        "import dexiraft_tpu_torch.parallel.halo\n"
+        "import dexiraft_tpu_torch.parallel.context\n"
+        "from dexiraft_tpu_torch.analysis import shardaudit\n"
+        "shardaudit.run_audit('halo')\n"
         "sys.path.insert(0, 'tests')\n"
         "import torch_parallel_child\n"
         "import test_torch_lock_registry\n"

@@ -1,0 +1,186 @@
+"""The port's placement audit (``dexiraft_tpu_torch.analysis.shardaudit``)
+against the JAX package's goldens.
+
+JAX's ``dexiraft_tpu/analysis/layout_golden_{fsdp,halo}.json`` are read
+as JSON (nothing of JAX is imported): the port's ``train_fsdp`` and
+``train_halo`` state groups equal JAX's (``[0].params`` whole; the Adam
+moments plus JAX's two int32 counts make JAX's ``[0].opt_state``), the
+halo leg's batch groups equal JAX's ``P('data', 'seq')`` entries, and
+every declared group's spec, megabytes and replication equal JAX's. The
+CLI passes on the shipped goldens and exits nonzero on a changed spec, a
+vanished group, a new group and a replicated 100 MB group.
+"""
+
+import copy
+import json
+import os
+
+import pytest
+
+from dexiraft_tpu_torch.analysis import shardaudit
+from test_torch_train_ops import few_torch_threads  # noqa: F401
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+JAX_GOLDEN = os.path.join(REPO, "dexiraft_tpu", "analysis",
+                          "layout_golden_{}.json")
+LEGS = ["fsdp", "halo"]
+
+
+@pytest.fixture(autouse=True)
+def _two_threads(few_torch_threads):  # noqa: F811
+    yield
+
+
+def _golden(leg, jax=False):
+    path = (JAX_GOLDEN.format(leg) if jax else os.path.join(
+        os.path.dirname(shardaudit.__file__), f"layout_golden_{leg}.json"))
+    with open(path) as f:
+        return json.load(f)
+
+
+@pytest.fixture(scope="module")
+def reports():
+    return {leg: shardaudit.run_audit(leg) for leg in LEGS}
+
+
+@pytest.mark.parametrize("leg", LEGS)
+def test_report_equals_the_shipped_golden(reports, leg):
+    assert shardaudit.diff_golden(reports[leg], _golden(leg)) == []
+    assert shardaudit.flagged_groups(reports[leg]) == []
+
+
+@pytest.mark.parametrize("io", ["in", "out"])
+@pytest.mark.parametrize("leg", LEGS)
+def test_state_groups_equal_jax(leg, io):
+    port = _golden(leg)["steps"][f"train_{leg}"][io]
+    jax = _golden(leg, jax=True)["steps"][f"train_{leg}"][io]
+    assert port["[0].params"] == jax["[0].params"]
+    assert port["[0].params"]["leaves"] == 106
+    assert port["[0].params"]["bytes"] == 3_960_648
+    assert port["[0].params"]["specs"] == [
+        "P()", "P(None, None, 'fsdp', None)", "P(None, None, None, 'fsdp')"]
+    # JAX's opt_state: the two moments of every parameter plus optax's
+    # two int32 counts; the port's one count is its own group
+    scalars = _golden(leg)["opt_state_scalars"]
+    moments, want = port["[0].opt_state"], jax["[0].opt_state"]
+    assert moments["specs"] == want["specs"]
+    assert moments["max_leaf_bytes"] == want["max_leaf_bytes"]
+    assert moments["leaves"] == 2 * port["[0].params"]["leaves"]
+    assert moments["bytes"] == 2 * port["[0].params"]["bytes"]
+    assert moments["leaves"] + scalars["jax_scalar_leaves"] == \
+        want["leaves"] == 214
+    assert moments["bytes"] + scalars["jax_scalar_bytes"] == \
+        want["bytes"] == 7_921_304
+    assert port["[0].opt_count"]["specs"] == ["P()"]
+    # renamed: JAX's rng key is the port's generator state
+    assert _golden(leg)["renamed_from_jax"] == {"[0].rng": "[0].generator"}
+    for jax_name, name in _golden(leg)["renamed_from_jax"].items():
+        assert port[name]["specs"] == jax[jax_name]["specs"] == ["P()"]
+    assert port["[0].step"]["specs"] == jax["[0].step"]["specs"]
+    state = {k for k in port if k.startswith("[0]")}
+    assert state == {"[0].params", "[0].opt_state", "[0].opt_count",
+                     "[0].generator", "[0].step"}
+
+
+def test_halo_batch_groups_equal_jax():
+    port = _golden("halo")["steps"]["train_halo"]["in"]
+    jax = _golden("halo", jax=True)["steps"]["train_halo"]["in"]
+    batch = sorted(k for k in jax if k.startswith("[1]"))
+    assert batch == ["[1]['flow']", "[1]['image1']", "[1]['image2']",
+                     "[1]['valid']"]
+    for key in batch:
+        assert jax[key]["specs"] == ["P('data', 'seq')"]
+        assert port[key] == jax[key], key
+
+
+def test_fsdp_leg_batch_is_split_over_data_only():
+    """The fence step's rows: the data axis cuts them, no seq axis."""
+    port = _golden("fsdp")["steps"]["train_fsdp"]
+    assert port["mesh"] == {"data": 2, "fsdp": 2}
+    jax = _golden("fsdp", jax=True)["steps"]["train_fsdp"]["in"]
+    for key in ("[1]['flow']", "[1]['image1']", "[1]['image2']",
+                "[1]['valid']"):
+        assert port["in"][key]["specs"] == ["P('data')"]
+        assert port["in"][key]["bytes"] == jax[key]["bytes"]
+
+
+@pytest.mark.parametrize("leg", LEGS)
+def test_declared_groups_equal_jax(leg):
+    port, jax = _golden(leg)["declared"], _golden(leg, jax=True)["declared"]
+    assert port.keys() == jax.keys()
+    for name, want in jax.items():
+        for field in ("spec", "total_mb", "per_device_mb", "replicated",
+                      "flagged"):
+            assert port[name][field] == want[field], (name, field)
+
+
+def test_plans_pin_the_production_leaf_policy():
+    plans = _golden("fsdp")["plans"]
+    assert sorted(plans) == ["v1@2", "v1@4", "v5@2", "v5@4"]
+    for name, plan in plans.items():
+        assert plan["layout"]["n_fsdp"] == int(name.split("@")[1])
+        assert plan["layout"]["dims"]
+        assert "P()" in plan["params"]["specs"]
+
+
+def test_cli_passes_on_the_shipped_goldens(capsys):
+    assert shardaudit.main([]) == 0
+    out = capsys.readouterr().out
+    for leg in LEGS:
+        assert f"[{leg}] 0 drift line(s), 0 flagged group(s)" in out
+
+
+def _mutated(tmp_path, mutate):
+    for leg in LEGS:
+        golden = _golden(leg)
+        if leg == "halo":
+            mutate(golden["steps"]["train_halo"]["in"])
+        with open(tmp_path / f"layout_golden_{leg}.json", "w") as f:
+            json.dump(golden, f)
+    return ["--golden_dir", str(tmp_path)]
+
+
+def _spec_change(groups):
+    groups["[0].params"]["specs"] = ["P()"]
+
+
+def _vanished(groups):  # the golden holds a group the audit no longer sees
+    groups["[0].rng"] = copy.deepcopy(groups["[0].step"])
+
+
+def _new_group(groups):  # the audit sees a group the golden lacks
+    del groups["[0].opt_count"]
+
+
+@pytest.mark.parametrize("mutate, says", [
+    (_spec_change, "train_halo.in.[0].params: golden"),
+    (_vanished, "train_halo.in.[0].rng: vanished"),
+    (_new_group, "train_halo.in.[0].opt_count: new group"),
+])
+def test_cli_exits_nonzero_on_drift(tmp_path, capsys, mutate, says):
+    assert shardaudit.main(_mutated(tmp_path, mutate)) == 1
+    out = capsys.readouterr().out
+    assert says in out
+    assert "[fsdp] 0 drift line(s)" in out
+
+
+def test_cli_exits_nonzero_on_a_replicated_100mb_group(tmp_path, capsys,
+                                                       monkeypatch):
+    """A declared group of 100 MB that resolves replicated and is not in
+    REPLICATED_OK trips the wire (and a golden regenerated with it still
+    fails: a flag is never written away)."""
+    from dexiraft_tpu_torch.parallel import layout
+
+    entries, spec = shardaudit.declared_entries, layout.group_spec
+    monkeypatch.setattr(shardaudit, "declared_entries", lambda halo: (
+        entries(halo) + [("replicated_copy", 100 * 2**20)]))
+    monkeypatch.setattr(layout, "group_spec", lambda group, axes: (
+        () if group == "replicated_copy" else spec(group, axes)))
+    report = shardaudit.run_audit("fsdp")
+    assert report["declared"]["replicated_copy"]["flagged"]
+    assert shardaudit.flagged_groups(report) == [
+        "declared.replicated_copy: 100.0 MB resolves fully replicated "
+        "(spec P()): shard it or pin it in parallel.layout.REPLICATED_OK"]
+    assert shardaudit.main(["--write", "--golden_dir", str(tmp_path)]) == 1
+    assert shardaudit.main(["--golden_dir", str(tmp_path)]) == 1
+    assert "FLAGGED declared.replicated_copy" in capsys.readouterr().out

@@ -20,6 +20,9 @@ import torch
 
 from dexiraft_tpu_torch import train_cli
 from dexiraft_tpu_torch.config import TrainConfig, raft_v1
+from dexiraft_tpu_torch.parallel import World
+from dexiraft_tpu_torch.parallel.fsdp import shard_state
+from dexiraft_tpu_torch.parallel.layout import FsdpMesh
 from dexiraft_tpu_torch.data.flow_io import read_flo, read_image, write_flo, \
     write_ppm
 from dexiraft_tpu_torch.train import checkpoint as ckpt
@@ -149,24 +152,47 @@ def test_cli_trains_in_bf16_under_remat(chairs_env):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--fsdp", "1", "--resume"], "A12"),
     (["--elastic"], "A12"),
     (["--join", "host1"], "A12"),
-    (["--fsdp", "auto", "--resume"], "A12"),
 ])
 def test_refused_flags_name_their_item(flags, item, tmp_path, monkeypatch):
-    """--elastic and --join are refused; --fsdp runs (on one process an
-    fsdp axis of 1 or 'auto' is the one-device step), and what it refuses
-    is a --resume of a checkpoint saved in another storage layout, here
-    a step saved sharded 2-way (A12.1, resharded resume)."""
+    """--elastic and --join are refused naming their ROADMAP item."""
     monkeypatch.chdir(tmp_path)
-    if "--resume" in flags:
-        step = tmp_path / "checkpoints" / "refused" / "2"
-        step.mkdir(parents=True)
-        torch.save({"step": 2, "fsdp": {"n_fsdp": 2, "dims": {}}},
-                   step / ckpt.STATE_FILE)
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
         train_cli.main(BASE + ["--name", "refused"] + flags)
+
+
+@pytest.mark.parametrize("fsdp", ["1", "auto"])
+def test_resume_of_a_sharded_step_runs(fsdp, chairs_env, capsys):
+    """--fsdp runs on one process (an fsdp axis of 1 or 'auto' is the
+    one-device step), and its --resume of a step saved sharded 2-way
+    restores the step whole and trains on from it, saving replicated."""
+    args = train_cli.build_parser().parse_args(BASE + ["--num_steps", "3"])
+    cfg, tc = train_cli.resolve_configs(args)
+    whole = create_state(cfg, tc, device="cpu", seed=5)
+    whole.step = 2
+    saving = []
+    for index in (1, 0):  # rank 1's shard, then rank 0's commit
+        state = create_state(cfg, tc, device="cpu", seed=5)
+        state.step = 2
+        world = World(index, 2, index, torch.device("cpu"), "gloo")
+        saving.append(shard_state(state, FsdpMesh(world, 1, 2)))
+        ckpt.save_sharded("checkpoints/resharded", saving[-1])
+    train_cli.main(BASE + ["--name", "resharded", "--num_steps", "3",
+                           "--fsdp", fsdp, "--resume"])
+    out = capsys.readouterr().out
+    assert ("step 2 was saved sharded 2-way over fsdp; restored into this "
+            "run's layout (replicated)") in out
+    assert "Resumed full state at step 2" in out
+    assert ckpt.all_steps("checkpoints/resharded") == [2, 3]
+    saved = ckpt.read_model_weights("checkpoints/resharded/2")
+    for k, v in whole.model.state_dict().items():
+        assert torch.equal(saved[k], v), k
+    resumed = ckpt.read_model_weights("checkpoints/resharded")
+    assert resumed.keys() == saved.keys()
+    assert all(torch.isfinite(v).all() for v in resumed.values())
+    assert not all(torch.equal(resumed[k], v) for k, v in saved.items())
+    assert "fsdp" not in ckpt.load_payload("checkpoints/resharded", 3)
 
 
 def test_cli_strict_run_equals_the_default_run(chairs_env, capsys,

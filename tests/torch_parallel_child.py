@@ -22,6 +22,15 @@ records the gathered state dicts at both, then restores a fresh sharded
 state from the ``save_at`` step (``resilience.verify.restore_verified``)
 and records the steps after it again.
 
+With ``resume`` in the spec (``dir``, ``step``, ``fsdp``) the rank joins
+the mesh of that fsdp size (None: data-parallel), restores the step into
+a fresh state of the mesh's layout (``resilience.verify.
+restore_verified``: a step saved in another layout is resharded) and
+writes one record: the restored storage (this rank's model entries and
+Adam moments as it holds them), then the first scenario's steps on the
+batches after the restored step (per-step metrics, the gathered state
+dict).
+
 With ``halo`` in the spec (tests/test_torch_halo.py) the rank joins a
 (data 1, fsdp ``halo["fsdp"]``, seq 2) mesh instead and writes one
 record: the halo eval step of the initial weights on ``eval_batch``, the
@@ -62,31 +71,47 @@ def gathered(state) -> dict:
         return {k: v.clone() for k, v in model.state_dict().items()}
 
 
+def configs(spec: dict, sc: dict):
+    """(RAFTConfig, TrainConfig) of scenario ``sc``."""
+    cfg = raft_v1(dropout=sc["dropout"])
+    tc = TrainConfig(iters=spec["iters"], batch_size=4,
+                     num_steps=sc["num_steps"], lr=sc["lr"],
+                     accum_steps=sc["accum"], add_noise=sc["add_noise"],
+                     precision=sc.get("precision", "fp32"),
+                     remat=sc.get("remat", "none"))
+    return cfg, tc
+
+
+def fresh_state(spec: dict, cfg, tc, mesh):
+    """The spec's weights in a fresh state, in ``mesh``'s storage
+    layout."""
+    model = RAFT(train_model_config(cfg, tc))
+    model.load_state_dict(spec["state_dict"], strict=True)
+    state = create_state(cfg, tc, device="cpu", model=model)
+    return shard_state(state, mesh) if isinstance(mesh, FsdpMesh) else state
+
+
+def local_batch(batch: dict, accum: int, mesh) -> dict:
+    """This rank's rows of a global batch."""
+    rows = local_rows(batch["image1"].shape[0], accum, data_axis(mesh))
+    return {k: v if rows is None else v[rows.numpy()]
+            for k, v in batch.items()}
+
+
 def run(spec: dict, mesh, out_dir: str = None) -> list:
     out = []
     fsdp = isinstance(mesh, FsdpMesh)
     for i, sc in enumerate(spec["scenarios"]):
-        cfg = raft_v1(dropout=sc["dropout"])
-        tc = TrainConfig(iters=spec["iters"], batch_size=4,
-                         num_steps=sc["num_steps"], lr=sc["lr"],
-                         accum_steps=sc["accum"], add_noise=sc["add_noise"],
-                         precision=sc.get("precision", "fp32"),
-                         remat=sc.get("remat", "none"))
+        cfg, tc = configs(spec, sc)
 
         def fresh():
-            model = RAFT(train_model_config(cfg, tc))
-            model.load_state_dict(spec["state_dict"], strict=True)
-            state = create_state(cfg, tc, device="cpu", model=model)
-            return shard_state(state, mesh) if fsdp else state
+            return fresh_state(spec, cfg, tc, mesh)
 
         state, step = fresh(), make_train_step(cfg, tc, mesh=mesh)
-        rows_of = data_axis(mesh)
         batches = spec["batches"][:sc.get("steps", len(spec["batches"]))]
 
         def local(batch):
-            rows = local_rows(batch["image1"].shape[0], sc["accum"], rows_of)
-            return {k: v if rows is None else v[rows.numpy()]
-                    for k, v in batch.items()}
+            return local_batch(batch, sc["accum"], mesh)
 
         save_at = sc.get("save_at")
         ckpt_dir = os.path.join(out_dir or ".", f"ckpt-{i}")
@@ -113,6 +138,36 @@ def run(spec: dict, mesh, out_dir: str = None) -> list:
             rec.update(restored_step=restored, resumed_metrics=resumed)
         out.append(rec)
     return out
+
+
+def _copy(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().clone()
+    if isinstance(obj, dict):
+        return {k: _copy(v) for k, v in obj.items()}
+    return obj
+
+
+def resume(spec: dict, mesh) -> dict:
+    """The ``resume`` record (module docstring)."""
+    sc = spec["scenarios"][0]
+    cfg, tc = configs(spec, sc)
+    r = spec["resume"]
+    state, restored, _ = restore_verified(
+        r["dir"], fresh_state(spec, cfg, tc, mesh), step=r["step"],
+        delete_bad=False)
+    model_sd, optim_sd = state.state_dicts()
+    rec = {"restored_step": restored,
+           "storage": {"model": _copy(model_sd),
+                       "optimizer": _copy(optim_sd["state"]),
+                       "count": optim_sd["param_groups"][0]["count"]}}
+    step = make_train_step(cfg, tc, mesh=mesh)
+    metrics = []
+    for batch in spec["batches"][restored:]:
+        state, m = step(state, local_batch(batch, sc["accum"], mesh))
+        metrics.append({k: float(v) for k, v in m.items()})
+    rec.update(metrics=metrics, state_dict=gathered(state))
+    return rec
 
 
 def gathered_grads(state, mesh) -> dict:
@@ -223,7 +278,8 @@ def main(spec_path: str, out_dir: str) -> None:
         return
     mesh = make_train_mesh(4, world, accum_steps=max(
         sc["accum"] for sc in spec["scenarios"]), fsdp=spec.get("fsdp"))
-    results = run(spec, mesh, out_dir)
+    results = (resume(spec, mesh) if "resume" in spec
+               else run(spec, mesh, out_dir))
     torch.save(results, f"{out_dir}/rank{world.rank}.pt")
     teardown()
 
