@@ -127,7 +127,21 @@ Phases, one JSON line each:
               drift; then viz over that
               submission: each PNG decodes to flow_to_image of its .flo;
               then eval --mixed_precision --dataset sintel in a child:
-              its EPEs within the argued bf16 bound of the fp32 child's
+              its EPEs within the argued bf16 bound of the fp32 child's;
+              and eval --data_parallel 1 --batch_size 2 --strict in a
+              child: its EPEs equal phase eval's engine at batch 2 within
+              1e-3 px, no drift
+  data_parallel  v5 on B1 over a serve mesh of two entries on the card
+              (make_serve_mesh(devices=("cuda:0", "cuda:0"))), engine
+              batch 4 over 4 Sintel and 4 KITTI pairs, 32 iterations: the
+              replicas equal the source to the bit (the first is the
+              source: one copy on the card), every row within
+              1e-4 px of the one-device engine at batch 2, B1 launched 32
+              x 2 shards x 2 dispatches and no other kernel,
+              make_serve_mesh(2) refused on one card; the serve CLI's
+              builders at --data_parallel 1 (v1 on B1): HTTP pairs and a
+              warm session request within 1e-2 px of the eval step, host
+              carry, the streaming endpoint disabled
   train       the train step at the chairs preset's geometry (368x496,
               12 iterations, fp32, seed-0 weights, a random batch): v1 on
               allpairs and on B1 at batch 10, v5 on B1 at the largest
@@ -2669,6 +2683,7 @@ def phase_eval(torch, ck, dev, card, root) -> dict:
     Sintel frame."""
     from dexiraft_tpu_torch.config import raft_v5
     from dexiraft_tpu_torch.data.flow_io import read_flo
+    from dexiraft_tpu_torch.data.padder import InputPadder
     from dexiraft_tpu_torch.eval import submission, validate
     from dexiraft_tpu_torch.models.raft import RAFT, create_model
     from dexiraft_tpu_torch.serve.engine import InferenceEngine, ServeConfig
@@ -2707,12 +2722,17 @@ def phase_eval(torch, ck, dev, card, root) -> dict:
                 "launches": dict(ck.LAUNCHES), "forwards": forwards,
                 "ms_per_frame": wall * 1e3 / n_pairs[name]}
 
-    # each path runs twice: the first pass searches cuDNN's algorithms
-    # for its shapes, the second is the one checked and measured
-    results = {}
-    for path in ("per_image", "engine"):
-        for _ in range(2):
-            results[path] = {n: run(path, n) for n in steps}
+    # one forward of each shape the paths run (batch 1 per image, 2 in
+    # the engine) lets cuDNN search it first; then each path runs once,
+    # checked and measured
+    for name, hw, mode in (("sintel", EVAL_SINTEL_HW, "sintel"),
+                           ("kitti", EVAL_KITTI_HW, "kitti")):
+        bh, bw = InputPadder(hw + (3,), mode).padded_shape
+        for b in (1, 2):
+            frame = np.zeros((b, bh, bw, 3), np.float32)
+            steps[name](frame, frame)
+    results = {path: {n: run(path, n) for n in steps}
+               for path in ("per_image", "engine")}
     launches = 0
     for path, per in results.items():
         b1 = sum(r["launches"]["flash_fused_step"] for r in per.values())
@@ -2868,10 +2888,15 @@ def phase_eval_cli(torch, card, root, ev, mixed_rms_px) -> dict:
                PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
                                                              ""))
     t0 = time.perf_counter()
-    # the mixed-precision child (below) runs beside the fp32 one
+    # the mixed-precision child (below) and the data-parallel one (one
+    # entry, the engine at batch 2, both halves of strict mode armed on
+    # the mesh path) run beside the fp32 one
     mixed_child = _start_child(["eval", "--variant", "v5", "--model",
                                 weights, "--dataset", "sintel",
                                 "--mixed_precision"], env)
+    dp_child = _start_child(["eval", "--variant", "v5", "--model", weights,
+                             "--dataset", "sintel", "--data_parallel", "1",
+                             "--batch_size", "2", "--strict"], env)
     proc = _start_child(["eval", "--variant", "v5", "--model", weights,
                          "--dataset", "sintel", "--submission", "sintel",
                          "--warm_start", "--output", out_dir, "--strict"],
@@ -2905,6 +2930,23 @@ def phase_eval_cli(torch, card, root, ev, mixed_rms_px) -> dict:
     # mixed, the same weights at the same geometry), plus the rounding
     mixed_out = _finish_child(mixed_child)
     mixed_s = time.perf_counter() - t0
+    # --data_parallel 1 against phase eval's engine at batch 2
+    try:
+        dp_out, dp_err = dp_child.communicate(timeout=420)
+    finally:
+        if dp_child.poll() is None:
+            dp_child.kill()
+            dp_child.wait()
+    if dp_child.returncode != 0:
+        raise AssertionError(f"eval --data_parallel 1 exited "
+                             f"{dp_child.returncode}: {dp_out[-2000:]} "
+                             f"{dp_err[-3000:]}")
+    dp_s = time.perf_counter() - t0
+    dp_epe = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"Validation \((\w+)\) EPE: ([\d.]+)", dp_out)}
+    engine_epe = ev["metrics"]["engine"]["sintel"]
+    dp_diff = {k: abs(dp_epe.get(k, np.inf) - engine_epe[k])
+               for k in ("clean", "final")}
     mixed_epe = {m.group(1): float(m.group(2)) for m in re.finditer(
         r"Validation \((\w+)\) EPE: ([\d.]+)", mixed_out)}
     mixed_bound = (MIXED_A * E_J_FLOW["v5"][1] * mixed_rms_px + 1e-3)
@@ -2913,6 +2955,11 @@ def phase_eval_cli(torch, card, root, ev, mixed_rms_px) -> dict:
     rec = {"phase": "eval_cli", "card": card, "printed_epe": printed,
            "mixed_precision_epe": mixed_epe, "mixed_epe_diff": mixed_diff,
            "mixed_epe_bound": mixed_bound, "mixed_seconds": mixed_s,
+           "data_parallel_epe": dp_epe, "data_parallel_epe_diff": dp_diff,
+           "data_parallel_seconds": dp_s,
+           "data_parallel_mesh": "data-parallel over 1 entries: cuda:0"
+           in dp_out, "data_parallel_strict_no_drift": "[guards]"
+           not in dp_err,
            "in_process_epe": {k: want[k] for k in ("clean", "final")},
            "epe_diff_px": diff, "auto_resolved": "[eval] corr_impl auto -> "
            "flash + fused_update" in out,
@@ -2922,14 +2969,188 @@ def phase_eval_cli(torch, card, root, ev, mixed_rms_px) -> dict:
     STRICT["eval_cli"] = {"strict": True, "epe": printed,
                           "in_process_epe": rec["in_process_epe"],
                           "epe_diff_px": diff,
-                          "no_drift": rec["strict_no_drift"]}
+                          "no_drift": rec["strict_no_drift"],
+                          "data_parallel_epe": dp_epe,
+                          "data_parallel_no_drift":
+                              rec["data_parallel_strict_no_drift"]}
     emit(rec)
     # the printed EPE is rounded to 3 decimals
     if (max(diff.values()) > TOL_EVAL_PATHS_PX + 5e-4 or len(flos) != 8
             or not all(pngs_equal) or not rec["auto_resolved"]
             or not max(mixed_diff.values()) <= mixed_bound
+            or max(dp_diff.values()) > TOL_EVAL_PATHS_PX + 5e-4
+            or not rec["data_parallel_mesh"]
+            or not rec["data_parallel_strict_no_drift"]
             or not rec["strict_no_drift"]):
         raise AssertionError(f"eval_cli: {rec}")
+    return rec
+
+
+DP_SHARDS = ("cuda:0", "cuda:0")  # the serve mesh's entries: one card
+DP_BATCH = 4                       # engine batch: 2 rows a shard
+TOL_DP_PX = 1e-4                   # a shard's row vs the one-device engine
+
+
+def phase_data_parallel(torch, ck, dev, card) -> dict:
+    """Data-parallel inference (``--data_parallel``; JAX's serve mesh) on
+    v5's main path (flash fused, B1), seed-0 weights, 32 iterations, under
+    the eval step's arithmetic: ``make_serve_mesh(devices=DP_SHARDS)``
+    (two entries on the one card), the model replicated onto both, and an
+    engine at batch DP_BATCH over 4 Sintel (440x1024) and 4 KITTI
+    (376x1248) pairs, so each shard's batch of 2 is phase eval's engine
+    batch and reuses its cuDNN searches on this thread. Checked: the
+    replicas' parameters and buffers equal the source's to the bit, the
+    first replica the source itself (no second copy on the card); every
+    row's flow_low and flow_up within TOL_DP_PX of the one-device engine
+    at batch 2 on the same pairs; B1 launched ITERS x 2 shards x 2
+    dispatches with B1's count set to 0 just before and read just after,
+    no other kernel; ``make_serve_mesh(2)`` without ``devices=`` refused
+    on a one-card machine (JAX's range message). Then the serve CLI's own
+    builders with ``--data_parallel 1`` (v1 on B1, ``serve_cli.main`` up
+    to its service loop): two HTTP pair requests and a session's cold and
+    warm request, each within TOL_FLOW_PX of the eval step (the warm one
+    with forward_interpolate of the cold one's flow_low), host carry,
+    the streaming endpoint disabled with JAX's reason. Measured: host ms
+    per pair of each engine (the shards share one card: no gain is
+    expected or claimed), the replicas' device bytes."""
+    from dexiraft_tpu_torch import serve_cli
+    from dexiraft_tpu_torch.config import raft_v1, raft_v5
+    from dexiraft_tpu_torch.data.padder import InputPadder
+    from dexiraft_tpu_torch.eval.interpolate import forward_interpolate
+    from dexiraft_tpu_torch.models.raft import create_model
+    from dexiraft_tpu_torch.parallel.layout import make_serve_mesh, replicate
+    from dexiraft_tpu_torch.serve.engine import InferenceEngine, ServeConfig
+    from dexiraft_tpu_torch.serve.server import decode_response, encode_request
+    from dexiraft_tpu_torch.train.step import make_eval_step
+
+    t_phase = time.perf_counter()
+    rec = {"phase": "data_parallel", "card": card, "model": "v5",
+           "path": "flash_fused", "iters": ITERS, "entries": list(DP_SHARDS),
+           "engine_batch": DP_BATCH}
+    try:
+        make_serve_mesh(2)
+        rec["mesh_2_refused"] = None
+    except ValueError as e:
+        rec["mesh_2_refused"] = str(e)
+    model = create_model(raft_v5(corr_impl="flash", fused_update=True),
+                         seed=0, device=dev)
+    mesh = make_serve_mesh(devices=DP_SHARDS)
+    mem0 = torch.cuda.memory_allocated(dev)
+    reps = replicate(model, mesh)
+    rec["replica_bytes"] = torch.cuda.memory_allocated(dev) - mem0
+    src = model.state_dict()
+    rec["replicas_equal"] = all(
+        r.state_dict().keys() == src.keys()
+        and all(torch.equal(v, src[k]) for k, v in r.state_dict().items())
+        and r.state_dict()[next(iter(src))].device == torch.device(d)
+        for r, d in zip(reps, DP_SHARDS))
+    # the first entry on the source's card is the source: one copy there
+    rec["replica_0_is_source"] = reps[0] is model
+    items = [it for seed in (200, 201) for it in frame_pairs(seed)]
+
+    def run(engine):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = {r.index: r for r in engine.stream(dict(it) for it in items)}
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3 / len(items)
+
+    one = InferenceEngine(make_eval_step(model, ITERS, dev),
+                          ServeConfig(batch_size=2), device=dev)
+    want, rec["one_device_ms_per_pair"] = run(one)
+    sharded = InferenceEngine(make_eval_step(reps, ITERS, mesh=mesh),
+                              ServeConfig(batch_size=DP_BATCH), mesh=mesh)
+    ck.reset_launches()
+    got, rec["mesh_ms_per_pair"] = run(sharded)
+    launches = dict(ck.LAUNCHES)
+    rec.update(launches=launches, dispatches=sharded.stats.batches,
+               b1_launches=launches["flash_fused_step"],
+               b1_expected=ITERS * mesh.size * sharded.stats.batches)
+    rec["row_max_diff_px"] = {
+        key: max(float(np.abs(np.asarray(getattr(got[i], key))
+                              - np.asarray(getattr(want[i], key))).max())
+                 for i in want) for key in ("flow_low", "flow_up")}
+    rec["finite"] = all(np.isfinite(r.flow_up).all() for r in got.values())
+    del reps, sharded, one
+
+    # the serve CLI's builders at --data_parallel 1, up to its loop
+    frames = sintel_frames(seed=31, n=3)
+    pairs = frame_pairs(seed=32)[:2]
+    answers = {}
+
+    def serve_loop(args, cfg, dev_, engine, service, sessions_on):
+        service.start()
+        try:
+            answers["pairs"] = [decode_response(http_post(
+                service.url, "/v1/flow", encode_request(
+                    it["image1"], it["image2"]))[0]) for it in pairs]
+            answers["session"] = []
+            for j in range(2):
+                body, hdr = http_post(service.url, "/v1/flow", encode_request(
+                    frames[j], frames[j + 1]), session="dp")
+                answers["session"].append((decode_response(body),
+                                           hdr["X-Warm-Start"]))
+        finally:
+            answers["drained"] = service.drain_and_stop(timeout=120.0)
+        answers["device_carry"] = engine.config.device_carry
+        answers["mesh"] = [str(d) for d in engine.mesh.devices]
+        answers["video"] = service.video is not None
+
+    real_loop = serve_cli._run_service
+    serve_cli._run_service = serve_loop
+    t0 = time.perf_counter()
+    try:
+        _, printed = _quiet(serve_cli.main, [
+            "--synthetic_init", "--variant", "v1", "--corr_impl", "flash",
+            "--fused_update", "--iters", str(ITERS), "--batch_size", "2",
+            "--bucket_multiple", "8", "--port", "0", "--data_parallel", "1",
+            "--warmup", f"{SINTEL_BUCKET[0]}x{SINTEL_BUCKET[1]}"])
+    finally:
+        serve_cli._run_service = real_loop
+    rec["serve_cli_s"] = time.perf_counter() - t0
+    v1 = create_model(raft_v1(corr_impl="flash", fused_update=True), seed=0,
+                      device=dev)
+    step = make_eval_step(v1, ITERS, dev)
+    pad = InputPadder(frames[0].shape, "sintel", target=SINTEL_BUCKET)
+    diffs = []
+    for it, flow in zip(pairs, answers["pairs"]):
+        _, up = step(pad_batch(pad, [it["image1"]]),
+                     pad_batch(pad, [it["image2"]]))
+        diffs.append(float(np.abs(flow - pad.unpad(up[0].cpu().numpy()))
+                           .max()))
+    low, up = step(pad_batch(pad, frames[0:1]), pad_batch(pad, frames[1:2]))
+    diffs.append(float(np.abs(answers["session"][0][0]
+                              - pad.unpad(up[0].cpu().numpy())).max()))
+    _, up = step(pad_batch(pad, frames[1:2]), pad_batch(pad, frames[2:3]),
+                 forward_interpolate(low[0])[None])
+    diffs.append(float(np.abs(answers["session"][1][0]
+                              - pad.unpad(up[0].cpu().numpy())).max()))
+    reason = ("[serve] streaming endpoint disabled: --data_parallel "
+              "(batch-1 chunks do not shard)")
+    rec["serve_cli"] = {
+        "vs_eval_step_px": diffs, "mesh": answers["mesh"],
+        "device_carry": answers["device_carry"],
+        "session_warm": [w for _, w in answers["session"]],
+        "streaming_disabled": reason in printed and not answers["video"],
+        "drained": answers["drained"]}
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    others = {k: v for k, v in launches.items()
+              if k != "flash_fused_step" and v}
+    if (not rec["replicas_equal"] or not rec["replica_0_is_source"]
+            or not rec["finite"]
+            or max(rec["row_max_diff_px"].values()) > TOL_DP_PX
+            or rec["b1_launches"] != rec["b1_expected"] or others
+            or rec["dispatches"] != 2
+            or (torch.cuda.device_count() < 2 and not (
+                rec["mesh_2_refused"] or "").startswith(
+                    "n_chips 2 out of range"))):
+        raise AssertionError(f"data_parallel: {rec}")
+    cli = rec["serve_cli"]
+    if (max(diffs) > TOL_FLOW_PX or cli["device_carry"]
+            or cli["mesh"] != ["cuda:0"] or cli["session_warm"] != ["0", "1"]
+            or not cli["streaming_disabled"] or not cli["drained"]):
+        raise AssertionError(f"data_parallel serve_cli: {cli}")
     return rec
 
 
@@ -4865,6 +5086,8 @@ def main(argv=None) -> int:
                 os.environ.pop("DEXIRAFT_DATA_DIR", None)
             else:
                 os.environ["DEXIRAFT_DATA_DIR"] = data_dir
+    # data-parallel inference over a serve mesh of two entries on the card
+    dp = phase_data_parallel(torch, ck, dev, smi)
     # training: the train step at the chairs geometry, the demo that
     # learns, and the CLI with --resume, each through B1 where fused
     train = phase_train(torch, ck, dev, smi)
@@ -4911,6 +5134,8 @@ def main(argv=None) -> int:
     kernels[0]["serve_launches"] = serve["launches"]["flash_fused_step"]
     # and on the eval phase's validators and submissions
     kernels[0]["eval_launches"] = ev["b1_launches_total"]
+    # the data-parallel leg's two shards (ITERS a shard a dispatch)
+    kernels[0]["data_parallel_launches"] = dp["b1_launches"]
     # the router phase's replicas, as they counted them
     kernels[0]["router_launches"] = router["launches"]["flash_fused_step"]
     # the mixed phase's forwards

@@ -36,9 +36,31 @@ Legs (one golden file each, beside this module):
   * ``train_halo`` (``layout_golden_halo.json``): the same model on
     (data 2, fsdp 2, seq 2), through ``halo.check_halo_support``.
 
-Both carry the declared groups of JAX's ``declared_groups`` at the
-production geometry (440x1024, batch 8), resolved on JAX's audit mesh
-(data 2, fsdp 2, seq 2): each group's canonical spec
+  * ``serve``, ``serve_encode``, ``serve_refine`` (``layout_golden.json``,
+    JAX's file's name): the data-parallel eval step and the streaming
+    encode and refine steps (``train.step.make_*_step(mesh=)``) on JAX's
+    serve mesh, ``{data: 8}``, here 8 entries of the CPU
+    (``parallel.layout.make_serve_mesh(devices=("cpu",) * 8)``), in JAX's
+    geometry and production configuration: v1 small with
+    ``corr_impl="flash"``, ``fused_update=True``, 48x64, batch 8, 2
+    iterations. The audit runs each step once on index-coded inputs put
+    by ``parallel.layout.shard_batch`` and reads what each entry holds:
+    the parameters of its replica that the step reads (recorded by a
+    ``TorchFunctionMode``: JAX's compiled step drops the variables it
+    does not use, so encode reads the encoders' 88 leaves and refine
+    the update block's 18), the input rows of each shard the step reads
+    (features2's ``ctx`` is not read by refine, as in JAX) and the rows
+    of each output's shards (``RowShards.rows``). Groups carry JAX's
+    positional names (``[0]['params']``, ``[1]``, ``['ctx']``, ...); the
+    golden's header lists the port argument each stands for
+    (:data:`SERVE_NAMES`). JAX's file also has ``train`` and ``eval``
+    sections, the fence steps on ``{data: 4, seq: 2}``: they wait for
+    the fence step on a seq mesh (ROADMAP A12.2b).
+
+All three carry the declared groups of JAX's ``declared_groups`` at the
+production geometry (440x1024, batch 8), resolved on each golden's JAX
+mesh (data 2, fsdp 2, seq 2 for the train legs; JAX's train mesh, data 4,
+seq 2, for the serve golden): each group's canonical spec
 (``parallel.layout.group_spec``), total and per-rank megabytes, whether
 it is replicated, and the flag of a replicated group over the threshold
 (64 MB) that ``parallel.layout.REPLICATED_OK`` does not exempt.
@@ -54,8 +76,8 @@ goldens' header lists these correspondences.
 
   python -m dexiraft_tpu_torch.analysis.shardaudit [--write]
 
-audits both legs against their goldens and exits nonzero on any drift
-or flagged group; ``--write`` regenerates the goldens instead.
+audits every leg against its golden and exits nonzero on any drift or
+flagged group; ``--write`` regenerates the goldens instead.
 """
 
 from __future__ import annotations
@@ -71,6 +93,7 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 FSDP_GOLDEN = "layout_golden_fsdp.json"
 HALO_GOLDEN = "layout_golden_halo.json"
+SERVE_GOLDEN = "layout_golden.json"
 
 #: JAX's audit geometry and its production reference geometry
 AUDIT_IMAGE = (48, 64)
@@ -83,6 +106,10 @@ DEFAULT_THRESHOLD_MB = 64.0
 FSDP_MESH = {"data": 2, "fsdp": 2}
 HALO_MESH = {"data": 2, "fsdp": 2, "seq": 2}
 DECLARED_MESH = {"data": 2, "fsdp": 2, "seq": 2}
+#: the serve legs' mesh, and the mesh the serve golden's declared groups
+#: resolve on (JAX's serve mesh and its train mesh)
+SERVE_MESH = {"data": 8}
+SERVE_DECLARED_MESH = {"data": 4, "seq": 2}
 #: the production plans pinned: (variant, fsdp size)
 PLANS = (("v1", 2), ("v1", 4), ("v5", 2), ("v5", 4))
 #: bytes of a Python int the state holds (the step, the optimizer count)
@@ -95,6 +122,25 @@ OPT_STATE_SCALARS = {
     "port": "[0].opt_state holds the moments; the one count is "
             "[0].opt_count (the optimizer's parameter group)",
     "jax_scalar_leaves": 2, "jax_scalar_bytes": 8,
+}
+#: the serve legs' groups: JAX's positional name -> what it is in the
+#: port (the step's argument or output)
+SERVE_NAMES = {
+    "serve": {
+        "in": {"[0]['params']": "each replica's parameters",
+               "[1]": "image1", "[2]": "image2", "[5]": "flow_init"},
+        "out": {"[0]": "flow_low", "[1]": "flow_up"}},
+    "serve_encode": {
+        "in": {"[0]['params']": "each replica's parameters",
+               "[1]": "frame"},
+        "out": {"['ctx']": "ctx", "['fmap']": "fmap"}},
+    "serve_refine": {
+        "in": {"[0]['params']": "each replica's parameters",
+               "[1]['ctx']": "features1['ctx']",
+               "[1]['fmap']": "features1['fmap']",
+               "[2]['ctx']": "features2['ctx']",
+               "[2]['fmap']": "features2['fmap']", "[3]": "flow_init"},
+        "out": {"[0]": "flow_low", "[1]": "flow_up"}},
 }
 
 
@@ -411,18 +457,20 @@ def declared_entries(halo: bool) -> List[Tuple[str, int]]:
     return entries
 
 
-def declared_groups(halo: bool) -> Dict[str, Any]:
-    """Each declared group's spec, total and per-rank MB, replication
-    and the over-threshold flag (module docstring)."""
+def declared_groups(halo: bool, axes: Dict[str, int] = DECLARED_MESH
+                    ) -> Dict[str, Any]:
+    """Each declared group's spec on a mesh of ``axes``, total and
+    per-rank MB, replication and the over-threshold flag (module
+    docstring)."""
     from dexiraft_tpu_torch.parallel.layout import (REPLICATED_OK,
                                                     group_spec, spec_str)
 
     out = {}
     for name, total in declared_entries(halo):
-        spec = group_spec(name, DECLARED_MESH)
+        spec = group_spec(name, axes)
         shards = 1
         for axis in spec:
-            shards *= DECLARED_MESH.get(axis, 1)
+            shards *= axes.get(axis, 1)
         per_rank = total // shards
         replicated = shards == 1
         out[name] = {
@@ -437,17 +485,191 @@ def declared_groups(halo: bool) -> Dict[str, Any]:
     return out
 
 
-def _header() -> Dict[str, Any]:
+def _header(serve: bool = False) -> Dict[str, Any]:
     from dexiraft_tpu_torch.parallel.layout import LAYOUT_AXES
 
-    return {"version": 1, "axes": {a: a for a in LAYOUT_AXES},
-            "audit_image": list(AUDIT_IMAGE), "audit_batch": AUDIT_BATCH,
-            "renamed_from_jax": dict(RENAMED),
+    head = {"version": 1, "axes": {a: a for a in LAYOUT_AXES},
+            "audit_image": list(AUDIT_IMAGE), "audit_batch": AUDIT_BATCH}
+    if serve:  # JAX's group names, each standing for a port argument
+        return {**head, "renamed_from_jax": {},
+                "positional_names": SERVE_NAMES}
+    return {**head, "renamed_from_jax": dict(RENAMED),
             "opt_state_scalars": dict(OPT_STATE_SCALARS)}
 
 
+# ---- the serve legs -------------------------------------------------------
+
+
+def _tensors(tree, out: List[torch.Tensor]) -> List[torch.Tensor]:
+    if isinstance(tree, torch.Tensor):
+        out.append(tree)
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            _tensors(v, out)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _tensors(v, out)
+    return out
+
+
+def _reading():
+    """A ``TorchFunctionMode`` that records the id of every tensor an op
+    takes as an argument (``.ids``): what a step reads."""
+    from torch.overrides import TorchFunctionMode
+
+    class Reads(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.ids = set()
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            self.ids.update(id(t) for t in _tensors([args, kwargs], []))
+            return func(*args, **kwargs)
+
+    return Reads()
+
+
+def _coded(shape: Sequence[int]) -> "np.ndarray":
+    """A float32 batch whose every value is its row's index."""
+    import numpy as np
+
+    rows = np.arange(shape[0], dtype=np.float32)
+    return np.broadcast_to(rows.reshape((-1,) + (1,) * (len(shape) - 1)),
+                           shape).copy()
+
+
+def _rows_group(pieces: List[Tuple[int, ...]], shape: Sequence[int],
+                n: int) -> Dict[str, Any]:
+    """The group of one batch tensor of ``shape`` whose entry i holds the
+    rows ``pieces[i]`` (every other dim whole)."""
+    from dexiraft_tpu_torch.parallel.layout import DATA_AXIS
+
+    coords = [{DATA_AXIS: i} for i in range(n)]
+    dims = [pieces] + [[tuple(range(d))] * n for d in shape[1:]]
+    g = _Group()
+    g.add(_spec(dims, coords, shape, (DATA_AXIS,), trim=True),
+          _nbytes(shape, 4))
+    return g.summary()
+
+
+def _params_group(replicas, mesh, reads) -> Dict[str, Any]:
+    """``[0]['params']``: the parameters of each replica that the step
+    read, each whole on its entry (P() when every entry holds all of
+    it); every entry must have read the same set."""
+    from dexiraft_tpu_torch.parallel.layout import DATA_AXIS
+
+    read = [[(name, p) for name, p in rep.named_parameters()
+             if id(p) in reads] for rep in replicas]
+    names = {tuple(name for name, _ in r) for r in read}
+    if len(names) != 1:
+        raise ValueError("the entries' replicas read different parameters")
+    coords = [{DATA_AXIS: i} for i in range(mesh.size)]
+    g = _Group()
+    for j, (name, p0) in enumerate(read[0]):
+        held = [r[j][1] for r in read]
+        if any(p.device != d for p, d in zip(held, mesh.devices)):
+            raise ValueError(f"{name}: a replica's copy is off its entry")
+        pieces = [[tuple(range(n)) for n in p.shape] for p in held]
+        g.add(_spec(list(zip(*pieces)) if p0.dim() else [], coords,
+                    p0.shape, (DATA_AXIS,)),
+              _nbytes(p0.shape, p0.element_size()))
+    return g.summary()
+
+
+def _shard_rows(x) -> List[Tuple[int, ...]]:
+    """Each shard's rows of an index-coded RowShards, read off its
+    values."""
+    return [tuple(int(v) for v in s.reshape(s.shape[0], -1)[:, 0].tolist())
+            for s in x.shards]
+
+
+def _out_group(x, n: int) -> Dict[str, Any]:
+    return _rows_group([tuple(range(a, b)) for a, b in x.rows], x.shape, n)
+
+
+def audit_serve_leg(step_name: str) -> Dict[str, Any]:
+    """One serve leg's section (module docstring): ``serve`` (the
+    data-parallel eval step), ``serve_encode`` or ``serve_refine``."""
+    from dexiraft_tpu_torch.config import raft_v1
+    from dexiraft_tpu_torch.models.raft import create_model
+    from dexiraft_tpu_torch.parallel.layout import (DATA_AXIS,
+                                                    make_serve_mesh,
+                                                    replicate, shard_batch)
+    from dexiraft_tpu_torch.train.step import (make_encode_step,
+                                               make_eval_step,
+                                               make_refine_step)
+
+    n = SERVE_MESH[DATA_AXIS]
+    mesh = make_serve_mesh(devices=("cpu",) * n)
+    cfg = raft_v1(small=True, corr_impl="flash", fused_update=True)
+    replicas = replicate(create_model(cfg, seed=0, device="cpu"), mesh)
+    b, (h, w) = AUDIT_BATCH, AUDIT_IMAGE
+    image = (b, h, w, 3)
+    flow = (b, h // 8, w // 8, 2)
+    names = SERVE_NAMES[step_name]
+    if step_name == "serve":
+        inputs = {"image1": image, "image2": image, "flow_init": flow}
+    elif step_name == "serve_encode":
+        inputs = {"frame": image}
+    else:  # index-coded features of the encode step's shapes
+        encode = make_encode_step(replicas, mesh=mesh)
+        feats = {f"features{k}": {
+            key: shard_batch(_coded(v.shape), mesh)
+            for key, v in encode(shard_batch(_coded(image), mesh)).items()}
+            for k in (1, 2)}
+        inputs = {"flow_init": flow}
+    put = {k: shard_batch(_coded(shape), mesh) for k, shape in inputs.items()}
+    args = dict(put)
+    if step_name == "serve_refine":
+        args.update({f"{f}[{k!r}]": v for f, d in feats.items()
+                     for k, v in d.items()})
+    held = {name: _shard_rows(x) for name, x in args.items()}
+    if step_name == "serve":
+        step = make_eval_step(replicas, AUDIT_ITERS, mesh=mesh)
+    elif step_name == "serve_encode":
+        step = make_encode_step(replicas, mesh=mesh)
+    else:
+        step = make_refine_step(replicas, AUDIT_ITERS, mesh=mesh)
+    reads = _reading()
+    with reads:  # the step's call only
+        if step_name == "serve":
+            outs = dict(zip(("flow_low", "flow_up"), step(
+                put["image1"], put["image2"], put["flow_init"])))
+        elif step_name == "serve_encode":
+            outs = step(put["frame"])
+        else:
+            outs = dict(zip(("flow_low", "flow_up"), step(
+                feats["features1"], feats["features2"], put["flow_init"])))
+    groups_in = {"[0]['params']": _params_group(replicas, mesh, reads.ids)}
+    for name, x in args.items():
+        if not any(id(s) in reads.ids for s in x.shards):
+            continue  # the step does not read it
+        groups_in[_positional(names["in"], name)] = _rows_group(
+            held[name], x.shape, n)
+    groups_out = {_positional(names["out"], k): _out_group(v, n)
+                  for k, v in outs.items()}
+    return {"mesh": mesh.axes, "in": dict(sorted(groups_in.items())),
+            "out": dict(sorted(groups_out.items()))}
+
+
+def _positional(names: Dict[str, str], port_name: str) -> str:
+    for jax_name, what in names.items():
+        if what == port_name:
+            return jax_name
+    raise ValueError(f"no positional name for {port_name!r}")
+
+
+SERVE_STEPS = ("serve", "serve_encode", "serve_refine")
+
+
 def run_audit(leg: str) -> Dict[str, Any]:
-    """The report of ``leg`` ("fsdp" or "halo")."""
+    """The report of ``leg`` ("fsdp", "halo" or "serve")."""
+    if leg == "serve":
+        return {**_header(serve=True),
+                "declared": declared_groups(False, SERVE_DECLARED_MESH),
+                "steps": {name: audit_serve_leg(name)
+                          for name in SERVE_STEPS}}
     halo = leg == "halo"
     report = {**_header(),
               "declared": declared_groups(halo),
@@ -468,7 +690,8 @@ def diff_golden(report: Dict[str, Any], golden: Dict[str, Any]
     every plan."""
     drift: List[str] = []
     for key in ("version", "axes", "audit_image", "audit_batch",
-                "renamed_from_jax", "opt_state_scalars"):
+                "renamed_from_jax", "opt_state_scalars",
+                "positional_names"):
         if report.get(key) != golden.get(key):
             drift.append(f"{key}: golden {golden.get(key)!r} != current "
                          f"{report.get(key)!r}")
@@ -543,7 +766,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                         "module)")
     args = p.parse_args(argv)
     bad = 0
-    for leg, name in (("fsdp", FSDP_GOLDEN), ("halo", HALO_GOLDEN)):
+    for leg, name in (("fsdp", FSDP_GOLDEN), ("halo", HALO_GOLDEN),
+                      ("serve", SERVE_GOLDEN)):
         report = run_audit(leg)
         path = os.path.join(args.golden_dir, name)
         flagged = flagged_groups(report)

@@ -21,7 +21,9 @@ each row carries ITS OWN flow_init (the engine materializes zeros for
 rows whose sequence just started or already ended — numerically the
 cold start). The engine runs with its device carry on: each row's
 flow_low stays where the forward left it, is splatted there, and goes
-back as that row's flow_init. Frame j+1 still waits for frame j's
+back as that row's flow_init. On a serve mesh the carry goes through
+the host (the mesh engine refuses device carry, as JAX does): each row
+comes back, is splatted on the mesh's first device and fetched again. Frame j+1 still waits for frame j's
 flow_low, but the forward amortizes its prelude over a whole batch of
 sequences.
 """
@@ -35,6 +37,7 @@ from typing import Callable, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from dexiraft_tpu_torch.analysis import guards
 from dexiraft_tpu_torch.data.flow_io import write_flo, write_flow_kitti
 from dexiraft_tpu_torch.data.padder import InputPadder
 from dexiraft_tpu_torch.eval.interpolate import forward_interpolate
@@ -54,6 +57,18 @@ def _splat(flow_low) -> torch.Tensor:
     """forward_interpolate of one (h, w, 2) flow_low, on its device (a
     host array splats on the CPU)."""
     return forward_interpolate(torch.as_tensor(flow_low))
+
+
+def _carry(engine, flow_low):
+    """The next frame's flow_init from a row's flow_low, splatted on the
+    engine's device. A device-carry engine's row stays there; a
+    host-carry engine (a mesh's) gets its row back on the host, after
+    the splat on its first device."""
+    if engine.config.device_carry:
+        return _splat(flow_low)
+    if engine.device is None:  # a host engine: the splat runs on the CPU
+        return _splat(flow_low).numpy()
+    return guards.fetch(_splat(guards.put(flow_low, engine.device)))
 
 
 def _sequence_indices(ds) -> "Dict[str, List[int]]":
@@ -109,7 +124,7 @@ def _sintel_batched(eval_fn: EvalFn, ds, dstype: str, output_path: str,
             for sequence, r in zip(names, engine.run_batch(items)):
                 _, frame = r.item["extra_info"]
                 _write_sintel(output_path, dstype, sequence, frame, r.flow_up)
-                carry[sequence] = _splat(r.flow_low)
+                carry[sequence] = _carry(engine, r.flow_low)
 
 
 def create_sintel_submission(

@@ -20,9 +20,17 @@ the JAX CLI's flag does. ``--strict`` runs every evaluation and submission
 in one ``analysis.guards.strict_mode`` region: on a card an implicit host
 sync raises (on the CPU only the recompile half is armed), and a compile
 on a geometry already seen fails the run (``_strict_wrap``, or the
-engine's check on a searched bucket). Refused, each naming the ROADMAP
-item that ports it: ``--data_parallel`` > 0 (A12), an orbax ``--model``
-directory (A10). PyTorch runs eagerly, so
+engine's check on a searched bucket). On a mesh both halves stay armed:
+every put and fetch there is ``guards.put``/``guards.fetch``.
+
+``--data_parallel N`` (> 0) evaluates data-parallel over a serve mesh
+of N entries (``parallel.layout.make_serve_mesh``: the first N cards,
+or N entries of the CPU with ``--device cpu``): the model is replicated
+once onto every entry and each engine batch's rows are cut into one
+block per entry. It implies the engine path; ``--batch_size`` must
+divide by N, a warm-start submission carries its flows through the host,
+and the ``--adaptive_iters`` sweep stays per image on one device. Refused, naming its ROADMAP item: an orbax ``--model`` directory
+(A10). PyTorch runs eagerly, so
 ``--scan_unroll`` changes nothing and only says so. v2/v3 take their edge
 frames from the data, which the validators never pass: they fail with the
 model's ValueError, as in the JAX package.
@@ -113,7 +121,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "batch_size 1 (async in-flight dispatch, bucket "
                         "accounting)")
     p.add_argument("--data_parallel", type=int, default=0,
-                   help="nonzero is refused: ROADMAP A12")
+                   help="shard each engine batch over N devices (a serve "
+                        "mesh of the first N cards, or N CPU entries with "
+                        "--device cpu); implies the engine path, and "
+                        "--batch_size must divide by N (default 0: one "
+                        "device)")
     p.add_argument("--strict", action="store_true",
                    help="run evaluation inside analysis.guards."
                         "strict_mode: an implicit host sync raises (on a "
@@ -125,16 +137,24 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def refuse_unported(args) -> None:
-    """Exit naming the ROADMAP item of the first flag the port lacks."""
-    refused = (
-        (args.data_parallel > 0, "--data_parallel", "A12"),
-    )
-    for bad, flag, item in refused:
-        if bad:
-            raise SystemExit(f"eval: {flag} is not ported to PyTorch yet "
-                             f"(ROADMAP {item}); use the JAX package "
-                             "(python -m dexiraft_tpu eval) for it")
+def check_args(args) -> None:
+    """Exit on flags that do not go together (JAX's checks)."""
+    if args.data_parallel < 0:
+        raise SystemExit(f"--data_parallel must be >= 0, got "
+                         f"{args.data_parallel}")
+    if args.data_parallel and args.batch_size % args.data_parallel:
+        raise SystemExit(f"--batch_size {args.batch_size} must divide by "
+                         f"--data_parallel {args.data_parallel}")
+
+
+def make_mesh(args, model, dev):
+    """(serve mesh, replicas) for --data_parallel N > 0: the mesh of N
+    entries on ``dev``'s kind and the model's replicas, made once (every
+    eval step of the run shares them); (None, model) otherwise."""
+    from dexiraft_tpu_torch.parallel.layout import cli_serve_mesh, replicate
+
+    mesh = cli_serve_mesh(args.data_parallel, dev, "eval")
+    return (None, model) if mesh is None else (mesh, replicate(model, mesh))
 
 
 def load_model(args, dev):
@@ -186,7 +206,7 @@ def _dataset_arg(args):
 
 
 def _serving(args) -> bool:
-    return args.serve or args.batch_size > 1
+    return args.serve or args.batch_size > 1 or args.data_parallel > 0
 
 
 def _adaptive_pair_view(eval_fn, sink=None):
@@ -218,18 +238,21 @@ def _sink_summary(sink) -> dict:
     }
 
 
-def _make_engine(args, eval_fn, dev, mode, warm_start=False, watch=None):
-    """The engine over ``eval_fn`` on ``dev``; a warm-start engine keeps
-    each row's carry on the device (ServeConfig.device_carry). ``watch``:
-    the strict region's, which the engine's expected bucket searches
-    re-baseline."""
+def _make_engine(args, eval_fn, dev, mode, warm_start=False, watch=None,
+                 mesh=None):
+    """The engine over ``eval_fn`` on ``dev`` (or over ``mesh``); a
+    warm-start engine on one device keeps each row's carry there
+    (ServeConfig.device_carry), on a mesh the carry goes through the
+    host. ``watch``: the strict region's, which the engine's expected
+    bucket searches re-baseline."""
     from dexiraft_tpu_torch.serve.engine import InferenceEngine, ServeConfig
 
+    device_carry = warm_start and mesh is None
     engine = InferenceEngine(
         eval_fn,
         ServeConfig.from_args(args, mode=mode, warm_start=warm_start,
-                              device_carry=warm_start),
-        device=dev)
+                              device_carry=device_carry),
+        mesh=mesh, device=None if mesh is not None else dev)
     if watch is not None:
         engine.watch = watch
     return engine
@@ -260,7 +283,6 @@ def _strict_wrap(eval_fn, watch):
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    refuse_unported(args)
     if not args.dataset and not args.submission:
         raise SystemExit("need --dataset or --submission")
     from dexiraft_tpu_torch.device import resolve_device
@@ -272,7 +294,11 @@ def main(argv=None) -> None:
     if args.scan_unroll != 1:
         print(f"[eval] --scan_unroll {args.scan_unroll} changes nothing: "
               "the PyTorch port runs eagerly", flush=True)
+    check_args(args)
     cfg, model = load_model(args, dev)
+    # the --adaptive_iters sweep runs per image, on one device
+    mesh, replicas = ((None, model) if args.adaptive_iters
+                      else make_mesh(args, model, dev))
     import contextlib
 
     from dexiraft_tpu_torch.analysis import guards
@@ -291,24 +317,28 @@ def main(argv=None) -> None:
         if args.adaptive_iters:
             _adaptive_sweep(args, cfg, model, dev)
             return
-        _run_eval(args, model, dev, watch)
+        _run_eval(args, model, dev, watch, mesh, replicas)
 
 
-def _run_eval(args, model, dev, watch=None) -> None:
+def _run_eval(args, model, dev, watch=None, mesh=None, replicas=None
+              ) -> None:
     from dexiraft_tpu_torch.train.step import make_eval_step
 
+    if mesh is not None:  # every step runs over the mesh's replicas
+        model = replicas
     if args.dataset:
         from dexiraft_tpu_torch.eval.validate import run_validation
 
         dataset = _dataset_arg(args)
         iters = args.iters or _VAL_ITERS.get(args.dataset, 24)
         eval_fn = make_eval_step(model, iters=iters, device=dev,
-                                 adaptive=args.adaptive)
+                                 adaptive=args.adaptive, mesh=mesh)
         engine = None
         sink: list = []
         if _serving(args):
             mode = "kitti" if args.dataset in ("kitti", "hd1k") else "sintel"
-            engine = _make_engine(args, eval_fn, dev, mode, watch=watch)
+            engine = _make_engine(args, eval_fn, dev, mode, watch=watch,
+                                  mesh=mesh)
         else:
             if args.adaptive:
                 eval_fn = _adaptive_pair_view(eval_fn, sink)
@@ -333,9 +363,10 @@ def _run_eval(args, model, dev, watch=None) -> None:
         from dexiraft_tpu_torch.eval.submission import create_sintel_submission
 
         eval_fn = make_eval_step(model, iters=args.iters or 32, device=dev,
-                                 adaptive=args.adaptive)
+                                 adaptive=args.adaptive, mesh=mesh)
         engine = (_make_engine(args, eval_fn, dev, "sintel",
-                               warm_start=args.warm_start, watch=watch)
+                               warm_start=args.warm_start, watch=watch,
+                               mesh=mesh)
                   if _serving(args) else None)
         if engine is None and args.adaptive:
             eval_fn = _adaptive_pair_view(eval_fn)
@@ -351,8 +382,9 @@ def _run_eval(args, model, dev, watch=None) -> None:
         from dexiraft_tpu_torch.eval.submission import create_kitti_submission
 
         eval_fn = make_eval_step(model, iters=args.iters or 24, device=dev,
-                                 adaptive=args.adaptive)
-        engine = (_make_engine(args, eval_fn, dev, "kitti", watch=watch)
+                                 adaptive=args.adaptive, mesh=mesh)
+        engine = (_make_engine(args, eval_fn, dev, "kitti", watch=watch,
+                               mesh=mesh)
                   if _serving(args) else None)
         if engine is None and args.adaptive:
             eval_fn = _adaptive_pair_view(eval_fn)

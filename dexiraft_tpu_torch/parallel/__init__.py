@@ -9,7 +9,9 @@ process group's :class:`World` (data parallelism), or an
 moments sharded between steps (``fsdp.shard_state``; JAX's fence mode),
 with ``seq=`` a seq axis whose ranks each compute a block of image rows
 (``halo``, the halo train and eval steps; ``context``, the row-sharded
-correlation lookups). Elastic membership is ROADMAP A12.
+correlation lookups). ``layout.make_serve_mesh`` is inference's data
+axis in one process (the test-mode steps' and the engine's ``mesh=``).
+Elastic membership is ROADMAP A12.
 """
 
 from dexiraft_tpu_torch.parallel.distributed import (

@@ -50,19 +50,33 @@ The mesh-axis names (:data:`LAYOUT_AXES`), the canonical group specs
 the placement audit declares (``analysis/shardaudit.py``), its
 :data:`REPLICATED_OK` exemptions and :func:`virtual_mesh` (every rank of
 a mesh in one process, no process group) are the port's copies of JAX's
-``SpecLayout`` vocabulary. The serve mesh is ROADMAP A12.
+``SpecLayout`` vocabulary.
+
+**The serve mesh** (:func:`make_serve_mesh`, a :class:`ServeMesh`; JAX's
+``make_serve_mesh``): data-parallel inference in one process. JAX runs
+one SPMD program over a 1-D ``data`` mesh, the variables replicated and
+each batch's rows sharded. Here the mesh is a tuple of devices, one
+entry each: :func:`replicate` copies the model once onto every entry,
+:func:`shard_batch` cuts a batch into one contiguous block of rows per
+entry (in entry order) and puts each on its entry's device, and a mesh
+step (``train.step.make_eval_step(mesh=)``) launches each block's
+forward on its own device and returns :class:`RowShards`, the outputs
+still on their devices in row order. The serve mesh has no fsdp or seq
+axis, as in JAX.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Any, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
 from dexiraft_tpu_torch.data.loader import rank_rows, world_compatible
+from dexiraft_tpu_torch.device import resolve_device
 from dexiraft_tpu_torch.parallel.distributed import World, mesh_groups
 
 #: The mesh-axis names, JAX's ``SpecLayout`` axes: specs and the
@@ -371,3 +385,176 @@ def local_rows(batch: int, accum_steps: int, axis
         return None
     return torch.from_numpy(rank_rows(batch, accum_steps, axis.rank,
                                       axis.size))
+
+
+# ---- the serve mesh ---------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeMesh:
+    """A 1-D ``data`` mesh for inference (module docstring): entry i is
+    ``devices[i]``; an entry may repeat another's device (the tests' CPU
+    entries, two shards on one card)."""
+
+    devices: Tuple[torch.device, ...]
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    @property
+    def axes(self) -> Dict[str, int]:
+        return {DATA_AXIS: self.size}
+
+    @property
+    def is_cuda(self) -> bool:
+        return any(d.type == "cuda" for d in self.devices)
+
+
+def make_serve_mesh(n_chips: Optional[int] = None, *,
+                    devices: Optional[Sequence[Union[str, torch.device]]]
+                    = None) -> ServeMesh:
+    """The serve mesh over the first ``n_chips`` devices (default all),
+    as JAX's ``make_serve_mesh``: an ``n_chips`` outside 1..(devices
+    present) raises ``ValueError`` with JAX's message.
+
+    The devices are the cards of ``torch.cuda.device_count()`` (a
+    process without one raises: ``device.resolve_device``), or the
+    entries ``devices`` names, each resolved (a CUDA entry that is not
+    there raises). Entries may repeat: ``("cpu",) * 8`` is the
+    counterpart of the JAX suite's 8 forced host devices."""
+    if devices is None:
+        resolve_device("cuda")
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    devs = tuple(resolve_device(d) for d in devices)
+    if n_chips is not None:
+        if not 1 <= n_chips <= len(devs):
+            raise ValueError(f"n_chips {n_chips} out of range "
+                             f"1..{len(devs)}")
+        devs = devs[:n_chips]
+    if not devs:
+        raise ValueError("a serve mesh needs at least one device")
+    return ServeMesh(devs)
+
+
+def cli_serve_mesh(n: int, dev: torch.device, prog: str
+                   ) -> Optional[ServeMesh]:
+    """The CLIs' ``--data_parallel N``: None for N 0; else the serve mesh
+    of the first N cards, or of N CPU entries when ``dev`` is the CPU
+    (the CLI's ``--cpu``/``--device cpu``), printed as ``[prog] ...``. A
+    mesh the devices present cannot hold exits naming the flag."""
+    if n <= 0:
+        return None
+    try:
+        mesh = (make_serve_mesh(n, devices=(dev,) * n) if dev.type == "cpu"
+                else make_serve_mesh(n))
+    except (ValueError, RuntimeError) as e:
+        raise SystemExit(f"{prog}: --data_parallel {n}: {e}")
+    print(f"[{prog}] data-parallel over {mesh.size} entries: "
+          f"{', '.join(str(d) for d in mesh.devices)}", flush=True)
+    return mesh
+
+
+def check_serve_mesh(mesh) -> ServeMesh:
+    """``mesh`` itself when it is a :class:`ServeMesh`; a train mesh (a
+    World, an fsdp or seq mesh) or anything else raises ``TypeError``."""
+    if not isinstance(mesh, ServeMesh):
+        raise TypeError(f"mesh={mesh!r} is no ServeMesh: inference shards "
+                        "its batch over parallel.layout.make_serve_mesh's "
+                        "1-D data mesh (no fsdp or seq axis)")
+    return mesh
+
+
+def replicate(model: nn.Module, mesh: ServeMesh) -> Tuple[nn.Module, ...]:
+    """One eval-mode replica of ``model`` on each entry's device, made
+    once (JAX's ``replicate``: the variables put fully replicated up
+    front): every parameter and buffer equals the source's to the bit.
+    The first entry on the source's own device takes the source itself,
+    so that device holds no second copy of it; every other entry a deep
+    copy, made on the source's device and then moved."""
+    check_serve_mesh(mesh)
+    home = next(model.parameters()).device
+    reps = []
+    for dev in mesh.devices:
+        if dev == home and not any(r is model for r in reps):
+            reps.append(model.eval())
+        else:
+            reps.append(copy.deepcopy(model).to(dev).eval())
+    return tuple(reps)
+
+
+def row_blocks(batch: int, n: int) -> Tuple[Tuple[int, int], ...]:
+    """[start, stop) of each of ``n`` contiguous, equal row blocks of a
+    batch of ``batch`` rows; a batch that ``n`` does not divide raises."""
+    if batch % n:
+        raise ValueError(f"batch of {batch} rows is not divisible by the "
+                         f"mesh's {n} entries: every entry needs a full "
+                         "shard of each batch")
+    k = batch // n
+    return tuple((i * k, (i + 1) * k) for i in range(n))
+
+
+class RowShards:
+    """A batch tensor held as contiguous row blocks, one per serve-mesh
+    entry, in row order (JAX's array sharded over ``data``):
+    ``shards[i]`` lies on entry i's device and holds rows
+    ``rows[i][0]:rows[i][1]`` of the whole."""
+
+    __slots__ = ("shards", "rows")
+
+    def __init__(self, shards: Sequence[torch.Tensor],
+                 rows: Sequence[Tuple[int, int]]):
+        if len(shards) != len(rows) or any(
+                s.shape[0] != b - a for s, (a, b) in zip(shards, rows)):
+            raise ValueError(f"{len(shards)} shards do not hold the row "
+                             f"blocks {tuple(rows)}")
+        self.shards = tuple(shards)
+        self.rows = tuple(rows)
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return (self.rows[-1][1],) + tuple(self.shards[0].shape[1:])
+
+    def __len__(self) -> int:
+        return self.rows[-1][1]
+
+    def fetch(self) -> np.ndarray:
+        """The whole batch on the host, in row order (``guards.fetch`` of
+        every shard: the explicit device->host copies)."""
+        from dexiraft_tpu_torch.analysis import guards
+
+        return np.concatenate(guards.fetch(list(self.shards)), axis=0)
+
+
+def fetch_rows(x):
+    """``x.fetch()`` for :class:`RowShards`, ``guards.fetch(x)``
+    otherwise (a tensor, a tree of tensors, host arrays, None)."""
+    from dexiraft_tpu_torch.analysis import guards
+
+    return x.fetch() if isinstance(x, RowShards) else guards.fetch(x)
+
+
+def shard_batch(batch, mesh: ServeMesh):
+    """Each entry's block of rows of ``batch`` on its device, as
+    :class:`RowShards` (JAX's ``shard_batch``): ``batch`` is a host
+    array, a CPU tensor (pinned: the copies do not block the host) or a
+    dict of them; None passes. A batch that the mesh size does not
+    divide raises."""
+    from dexiraft_tpu_torch.analysis import guards
+
+    if batch is None or isinstance(batch, RowShards):
+        return batch
+    if isinstance(batch, dict):
+        return {k: shard_batch(v, mesh) for k, v in batch.items()}
+    rows = row_blocks(int(batch.shape[0]), mesh.size)
+    return RowShards([guards.put(batch[a:b], dev)
+                      for (a, b), dev in zip(rows, mesh.devices)], rows)
+
+
+def batch_putter(mesh: Optional[ServeMesh]):
+    """batch -> its row blocks on the mesh's devices (:func:`shard_batch`);
+    ``mesh`` None: the batch as it is (a one-device step moves it)."""
+    if mesh is None:
+        return lambda batch: batch
+    check_serve_mesh(mesh)
+    return lambda batch: shard_batch(batch, mesh)

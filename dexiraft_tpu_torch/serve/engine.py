@@ -58,8 +58,15 @@ default warns once. Fetches go through ``guards.fetch`` and host carry
 rows up through ``guards.put``, so a dispatch runs clean under
 ``guards.strict_mode``'s sync half.
 
-Not ported: the JAX engine's data-parallel mesh (ROADMAP A12); it is
-refused.
+Data-parallel serving (``mesh=``, a ``parallel.layout.ServeMesh``; the
+JAX engine's mesh): the eval_fn is a mesh step
+(``make_eval_step(mesh=)``). Each dispatch pads into one staging buffer
+(pinned on a CUDA mesh), ``parallel.layout.batch_putter`` copies each
+entry's block of rows to its device, and one CUDA event per entry is
+recorded on its device's current stream; the fetch waits on each and
+fetches the blocks in row order. ``batch_size`` must divide by the mesh
+size, and the carry goes through the host (``device_carry`` is refused,
+as JAX's serve CLI forces host carry on a mesh).
 """
 
 from __future__ import annotations
@@ -170,7 +177,7 @@ class _Ticket(NamedTuple):
     t_dispatch: float
     iters_used: Any = None    # adaptive: (B,)
     final_delta: Any = None   # adaptive: (B,)
-    event: Any = None         # CUDA event recorded after the dispatch
+    events: Any = ()          # CUDA events recorded after the dispatch
     staging: Any = None       # (key, pinned buffer) back to the pool
 
 
@@ -179,15 +186,33 @@ class InferenceEngine:
 
     ``device``: where the step runs. None (numpy stubs) or the CPU pass
     host arrays; a CUDA device gets pinned staging and per-dispatch
-    events. Not thread-safe: one thread dispatches (the scheduler's)."""
+    events. ``mesh``: a serve mesh instead of ``device`` (module
+    docstring); ``device`` then reads its first entry. Not thread-safe:
+    one thread dispatches (the scheduler's)."""
 
     def __init__(self, eval_fn: EvalFn, config: ServeConfig = ServeConfig(),
                  *, mesh=None,
                  device: Optional[Union[str, torch.device]] = None):
+        # (parallel.layout imports the data loader, which imports this
+        # package's locks)
+        from dexiraft_tpu_torch.parallel.layout import (batch_putter,
+                                                        check_serve_mesh)
+
+        self.mesh = None if mesh is None else check_serve_mesh(mesh)
+        self.put = batch_putter(self.mesh)
         if mesh is not None:
-            raise ValueError(
-                "a data-parallel mesh is not supported by the PyTorch port "
-                "yet (multi-GPU serving is ROADMAP item A12)")
+            if device is not None:
+                raise ValueError("pass mesh= or device=, not both: a mesh "
+                                 "names its devices")
+            if config.batch_size % mesh.size:
+                raise ValueError(
+                    f"batch_size {config.batch_size} not divisible by the "
+                    f"mesh's {mesh.size} devices — every device needs a "
+                    "full shard of each dispatched batch")
+            if config.device_carry:
+                raise ValueError("device_carry is off on a mesh: the carry "
+                                 "goes through the host")
+            device = mesh.devices[0]
         self.eval_fn = eval_fn
         self.config = config
         self.device = None if device is None else torch.device(device)
@@ -205,7 +230,13 @@ class InferenceEngine:
 
     @property
     def _cuda(self) -> bool:
+        if self.mesh is not None:
+            return self.mesh.is_cuda
         return self.device is not None and self.device.type == "cuda"
+
+    def _devices(self):
+        return (self.mesh.devices if self.mesh is not None
+                else (self.device,))
 
     # ---- input validation ----------------------------------------------
 
@@ -296,18 +327,20 @@ class InferenceEngine:
             with win:
                 fi = self._assemble_fi(bucket, inits) if will_fi else None
                 t1 = time.perf_counter()
+                im1, im2, fi = (self.put(x) for x in (buf[0], buf[1], fi))
                 if cfg.adaptive:
                     flow_low, flow_up, iters_used, final_delta = \
-                        self.eval_fn(buf[0], buf[1], fi, iter_budget)
+                        self.eval_fn(im1, im2, fi, iter_budget)
                 else:
-                    flow_low, flow_up = self.eval_fn(buf[0], buf[1], fi)
+                    flow_low, flow_up = self.eval_fn(im1, im2, fi)
         except BaseException:
             self._release(staging)
             raise
-        event = None
-        if self._cuda:
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
+        events = []
+        if self._cuda:  # one per device: this batch's work on each
+            for dev in self._devices():
+                events.append(torch.cuda.Event())
+                events[-1].record(torch.cuda.current_stream(dev))
         t2 = time.perf_counter()
         if fresh:
             # cuDNN's search runs inside this first call: compile_s only
@@ -326,7 +359,7 @@ class InferenceEngine:
             flow_low, flow_up,
             [(idx, it, p) for (idx, it), p in zip(group, padders)],
             t_dispatch=t0, iters_used=iters_used, final_delta=final_delta,
-            event=event, staging=staging))
+            events=tuple(events), staging=staging))
         self.stats.peak_inflight = max(self.stats.peak_inflight,
                                        len(self._inflight))
 
@@ -377,22 +410,26 @@ class InferenceEngine:
     # ---- fetch side ----------------------------------------------------
 
     def _fetch_one(self) -> Iterator[Result]:
+        from dexiraft_tpu_torch.parallel.layout import fetch_rows
+
         ticket = self._inflight.popleft()
         t0 = time.perf_counter()
         try:
-            if ticket.event is not None:
-                # this batch's work only, not whatever was queued after it
-                with guards.sync_window():
-                    ticket.event.synchronize()
+            # this batch's work only, not whatever was queued after it:
+            # one event per mesh entry (one on a single device)
+            with guards.sync_window():
+                for event in ticket.events:
+                    event.synchronize()  # synclint: disable=SL002 the fetch's one wait, per device of the batch
             if self.config.device_carry and isinstance(ticket.flow_low,
                                                        torch.Tensor):
                 low = ticket.flow_low      # the carry stays on the device
             else:
-                low = guards.fetch(ticket.flow_low)
+                low = fetch_rows(ticket.flow_low)
                 if self.config.warm_start:
                     self.stats.carry_d2h_bytes += low.nbytes
-            up, iu, fd = guards.fetch((ticket.flow_up, ticket.iters_used,
-                                       ticket.final_delta))
+            # the blocks of a mesh's outputs come back in row order
+            up, iu, fd = (fetch_rows(x) for x in (
+                ticket.flow_up, ticket.iters_used, ticket.final_delta))
         finally:
             self._release(ticket.staging)
         now = time.perf_counter()

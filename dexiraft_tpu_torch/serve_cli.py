@@ -30,10 +30,19 @@ port's trainer (its newest step's model), loaded with ``strict=True``.
 the warm-up: on a card an implicit host sync raises (on the CPU only the
 recompile half is armed), a compile on a searched bucket fails its
 request (the pair and streaming engines share one RecompileWatch), and the
-lock-order runtime raises on an inverted nesting. Refused, each naming its
-ROADMAP item: an orbax checkpoint directory (A10) and ``--data_parallel``
-> 0 (A12). The JAX CLI's XLA flags (``--compile_cache_dir``,
-``--no_compile_cache``, ``--scan_unroll``) have no counterpart here.
+lock-order runtime raises on an inverted nesting. Refused, naming its
+ROADMAP item: an orbax checkpoint directory (A10). The JAX CLI's XLA
+flags (``--compile_cache_dir``, ``--no_compile_cache``,
+``--scan_unroll``) have no counterpart here.
+
+``--data_parallel N`` (> 0) serves data-parallel over a serve mesh of N
+entries (``parallel.layout.make_serve_mesh``: the first N cards, or N
+entries of the CPU with ``--cpu``): the model is replicated once onto
+each entry, every pair batch's rows are cut into one block per entry
+(``--batch_size`` must divide by N), the pair forwards still run on the
+pair engine's DeviceThread, the session carry goes through the host, and
+the streaming endpoint is off (its batch-1 chunks do not shard), as in
+JAX.
 
 SIGTERM drains: admitted requests finish and flush before exit; a second
 signal aborts.
@@ -96,7 +105,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="pad placement for bucket padding")
     add_engine_args(p, batch_size=4, bucket_multiple=64)
     p.add_argument("--data_parallel", type=int, default=0,
-                   help="refused above 0: multi-GPU serving is ROADMAP A12")
+                   help="shard each pair batch over N devices (a serve "
+                        "mesh of the first N cards, or N CPU entries with "
+                        "--cpu); --batch_size must divide by N, the carry "
+                        "goes through the host and the streaming endpoint "
+                        "is off (default 0: one device)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--slo_ms", type=float, default=200.0,
@@ -145,12 +158,14 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unported(args) -> None:
-    """Flags the port cannot honour yet: one line naming the item."""
-    if args.data_parallel > 0:
-        raise SystemExit("serve: --data_parallel is not supported by the "
-                         "PyTorch port yet (multi-GPU serving is ROADMAP "
-                         "A12)")
+def _check_args(args) -> None:
+    """Flags that do not go together: one line saying why."""
+    if args.data_parallel < 0:
+        raise SystemExit(f"serve: --data_parallel must be >= 0, got "
+                         f"{args.data_parallel}")
+    if args.data_parallel and args.batch_size % args.data_parallel:
+        raise SystemExit(f"serve: --batch_size {args.batch_size} must "
+                         f"divide by --data_parallel {args.data_parallel}")
 
 
 # ---- multi-worker pool --------------------------------------------------
@@ -259,14 +274,15 @@ def _on_device_thread(fns, dev, name):
     return [worker.wrap(fn) for fn in fns]
 
 
-def _make_eval_fn(args, model, iters, dev):
-    """The engine's eval_fn: the test-mode step on ``dev`` (on CUDA, run
-    on the pair engine's DeviceThread); with --adaptive, the gated loop
-    with a trailing iter_budget (None = the full ``iters``)."""
+def _make_eval_fn(args, model, iters, dev, mesh=None):
+    """The engine's eval_fn: the test-mode step on ``dev``, or over
+    ``mesh`` on replicas of ``model`` made once here (on CUDA, run on the
+    pair engine's DeviceThread); with --adaptive, the gated loop with a
+    trailing iter_budget (None = the full ``iters``)."""
     from dexiraft_tpu_torch.train.step import make_eval_step
 
     step = make_eval_step(model, iters=iters, device=dev,
-                          adaptive=args.adaptive)
+                          adaptive=args.adaptive, mesh=mesh)
     (step,) = _on_device_thread([step], dev, "serve-pairs")
     return step
 
@@ -326,16 +342,21 @@ def _warmup(engine, geometries, carry_fn=None, video=None) -> float:
     return search_s
 
 
-def _make_video_engine(args, cfg, model, dev, sessions_on, watch=None):
-    """The streaming tier (serve/video.py), or None with a printed why.
-    ``watch``: the pair engine's, shared (the compile counter is
-    process-wide, so a separate watch would read one engine's expected
-    searches as the other's drift)."""
+def _make_video_engine(args, cfg, model, dev, sessions_on, watch=None,
+                       mesh=None):
+    """The streaming tier (serve/video.py), or None with a printed why
+    (on a mesh: the chunk loop is batch-1 and serially dependent, and a
+    frame's rows are the wrong axis to shard). ``watch``: the pair
+    engine's, shared (the compile counter is process-wide, so a separate
+    watch would read one engine's expected searches as the other's
+    drift)."""
     why = None
     if args.stream_sessions_mb <= 0:
         why = "--stream_sessions_mb 0"
     elif not sessions_on:
         why = "sessions off (the carry needs a session store)"
+    elif mesh is not None:
+        why = "--data_parallel (batch-1 chunks do not shard)"
     elif cfg.variant in ("early", "separate") and not cfg.embed_dexined:
         why = (f"variant {cfg.variant!r} needs data-supplied edge "
                "frames the stream wire format does not carry")
@@ -386,6 +407,7 @@ def _serve_one(args) -> None:
 
     from dexiraft_tpu_torch.analysis import guards
     from dexiraft_tpu_torch.ops import corr_kernels
+    from dexiraft_tpu_torch.parallel.layout import cli_serve_mesh
     from dexiraft_tpu_torch.serve import locks
     from dexiraft_tpu_torch.serve.engine import InferenceEngine
     from dexiraft_tpu_torch.serve.server import FlowService
@@ -396,20 +418,23 @@ def _serve_one(args) -> None:
         locks.set_strict(True)
     dev = _device(args)
     cfg, model = _load(args, dev)
+    mesh = cli_serve_mesh(args.data_parallel, dev, "serve")
     # one resident copy of the weights: the pair step and the streaming
-    # encode/refine steps all run this model
-    eval_fn = _make_eval_fn(args, model, args.iters, dev)
+    # encode/refine steps all run this model (on a mesh: one replica per
+    # entry, the source itself on its own device, and no streaming)
+    eval_fn = _make_eval_fn(args, model, args.iters, dev, mesh)
     sessions_on = args.session_ttl_s > 0
-    device_carry = sessions_on and not args.host_carry
+    # the carry goes through the host on a mesh, as in JAX
+    device_carry = sessions_on and not args.host_carry and mesh is None
     engine = InferenceEngine(
         eval_fn,
         ServeConfig.from_args(args, mode=args.mode, warm_start=sessions_on,
                               device_carry=device_carry),
-        device=dev)
+        mesh=mesh, device=None if mesh is not None else dev)
     carry_fn = (_make_carry_fn(dev, device=device_carry)
                 if sessions_on else None)
     video = _make_video_engine(args, cfg, model, dev, sessions_on,
-                               watch=engine.watch)
+                               watch=engine.watch, mesh=mesh)
     if args.warmup:
         search_s = _warmup(engine, args.warmup.split(","), carry_fn, video)
         print(f"[serve] warmup: {engine.registry.searches} signature(s) "
@@ -450,6 +475,8 @@ def _run_service(args, cfg, dev, engine, service, sessions_on) -> None:
     print(f"[serve] listening on {service.url}{tag} — device={dev} "
           f"batch_size={args.batch_size} slo_ms={args.slo_ms:g} "
           f"sessions={'on' if sessions_on else 'off'}"
+          + (f" data_parallel={engine.mesh.size}"
+             if engine.mesh is not None else "")
           + (f" adaptive=on (tol={cfg.converge_tol:g}, "
              f"iters {args.min_iters}..{args.iters})"
              if args.adaptive else ""), flush=True)
@@ -472,7 +499,7 @@ def main(argv=None) -> None:
     if bool(args.model) == bool(args.synthetic_init):
         raise SystemExit("serve: exactly one of --model or "
                          "--synthetic_init is required")
-    _refuse_unported(args)
+    _check_args(args)
     if args.workers < 1:
         raise SystemExit(f"serve: --workers must be >= 1, got "
                          f"{args.workers}")

@@ -4,7 +4,12 @@ Counterpart of ``make_train_step``, ``make_eval_step``, ``make_encode_step``
 and ``make_refine_step`` in ``dexiraft_tpu/train/step.py``, on one device;
 the train step also runs data-parallel over ranks, and with its
 parameters and Adam moments stored sharded over an fsdp axis (its
-``mesh=``).
+``mesh=``). The test-mode steps also run data-parallel in one process
+over a serve mesh (``parallel.layout.make_serve_mesh``, their
+``mesh=``): one replica of the model per entry, each batch's rows cut
+into one block per entry, each block's forward launched on its entry's
+device in turn (launches return at once, so the shards overlap on the
+devices), the outputs ``parallel.layout.RowShards`` in row order.
 PyTorch runs eagerly, so there is nothing to compile: a test-mode step
 moves host arrays to the device, runs the model under
 ``torch.inference_mode()`` and returns device tensors; the train step runs
@@ -43,8 +48,11 @@ from dexiraft_tpu_torch.ops.losses import (METRIC_KEYS, metrics_from_sums,
                                            sequence_loss_sums)
 from dexiraft_tpu_torch.parallel import halo
 from dexiraft_tpu_torch.parallel.distributed import World
-from dexiraft_tpu_torch.parallel.layout import (FsdpMesh, data_axis, has_seq,
-                                                local_rows)
+from dexiraft_tpu_torch.parallel.layout import (FsdpMesh, RowShards,
+                                                ServeMesh, check_serve_mesh,
+                                                data_axis, has_seq,
+                                                local_rows, replicate,
+                                                row_blocks)
 from dexiraft_tpu_torch.train.state import TrainState, train_model_config
 
 # The eval step's convolutions: fp32 (TF32 off). On an H100 at 440x1024,
@@ -202,6 +210,17 @@ def make_eval_step(model: RAFT, iters: int = 24,
 
     ``compute_sharding="halo"`` on a seq mesh (``parallel.make_train_mesh
     (..., seq=N)``): the row-sharded forward (:func:`_make_halo_eval_step`).
+
+    ``mesh`` a :class:`~dexiraft_tpu_torch.parallel.layout.ServeMesh`:
+    the data-parallel step, this step built once per entry over its
+    replica on its device (:func:`_on_mesh`; ``device`` is then the
+    mesh's), each output :class:`RowShards`. ``model`` is a RAFT, copied
+    onto every entry here, or the replicas of
+    ``parallel.layout.replicate``, which steps built over one mesh then
+    share. ``iter_budget`` is one value for every block; the gated loop
+    freezes each row on its own, so a block whose loop ends early gives
+    the rows the whole batch would. A fence step on a seq mesh is refused
+    (ROADMAP A12.2b).
     """
     if compute_sharding not in ("fence", "halo"):
         raise ValueError(f"compute_sharding must be fence|halo, "
@@ -213,10 +232,18 @@ def make_eval_step(model: RAFT, iters: int = 24,
                 "compute_sharding='halo' (the row-slab forward drives the "
                 "fixed-iteration halo loop)")
         return _make_halo_eval_step(model, iters, device, tf32, mesh, shards)
-    if mesh is not None or shards is not None:
-        raise ValueError("mesh= and shards= belong to "
-                         "compute_sharding='halo'; the fence eval step "
-                         "runs on one device")
+    if shards is not None:
+        raise ValueError("shards= belongs to compute_sharding='halo'")
+    if has_seq(mesh):
+        raise ValueError(
+            "a fence eval step on a seq mesh is not ported to PyTorch "
+            "(ROADMAP A12.2b, seq in the fence step); rows shard over seq "
+            "in compute_sharding='halo'")
+    if mesh is not None:
+        mesh = check_serve_mesh(mesh)
+        return _on_mesh([make_eval_step(rep, iters, dev, tf32, adaptive)
+                         for rep, dev in zip(_replicas(model, mesh),
+                                             mesh.devices)], mesh)
     dev = resolve_device(device)
     model = model.to(dev).eval()
     to_dev = _nchw(dev)
@@ -226,7 +253,8 @@ def make_eval_step(model: RAFT, iters: int = 24,
 
     def run(image1, image2, flow_init, edges1, edges2, **kw):
         guards.note_new_key("eval_step", (
-            token, _signature(image1, image2, flow_init, edges1, edges2),
+            token, str(dev),
+            _signature(image1, image2, flow_init, edges1, edges2),
             tf32, iters, adaptive, model.cfg.mixed_precision), per_thread)
         with eval_arithmetic(tf32):
             out = model(to_dev(image1), to_dev(image2), iters=iters,
@@ -252,7 +280,8 @@ def make_eval_step(model: RAFT, iters: int = 24,
     return step
 
 
-def make_encode_step(model: RAFT, device: Union[str, torch.device] = "cuda"
+def make_encode_step(model: RAFT, device: Union[str, torch.device] = "cuda",
+                     *, mesh: Optional[ServeMesh] = None
                      ) -> Callable[..., Features]:
     """encode(frame, edges=None) -> the frame's feature dict {fmap, ctx[,
     efmap, ectx]} (RAFT.encode_frame: NCHW device tensors at 1/8
@@ -261,8 +290,14 @@ def make_encode_step(model: RAFT, device: Union[str, torch.device] = "cuda"
     frame is a batched NHWC array or tensor in [0, 255]; edges is v2/v3's
     (B, H, W, 3) edge image. The streaming engine runs this once per new
     frame; composed with :func:`make_refine_step` it gives the eval step's
-    flow.
+    flow. ``mesh`` (a serve mesh): every entry encodes its block of rows
+    and each feature is :class:`RowShards` (``model`` as in
+    :func:`make_eval_step`).
     """
+    if mesh is not None:
+        mesh = check_serve_mesh(mesh)
+        return _on_mesh([make_encode_step(rep, dev) for rep, dev in
+                         zip(_replicas(model, mesh), mesh.devices)], mesh)
     dev = resolve_device(device)
     model = model.to(dev).eval()
     to_dev = _nchw(dev)
@@ -270,8 +305,9 @@ def make_encode_step(model: RAFT, device: Union[str, torch.device] = "cuda"
 
     @torch.inference_mode()
     def encode(frame, edges=None) -> Features:
-        guards.note_new_key("encode", (token, _signature(frame, edges),
-                                       EVAL_TF32, model.cfg.mixed_precision),
+        guards.note_new_key("encode", (token, str(dev),
+                                       _signature(frame, edges), EVAL_TF32,
+                                       model.cfg.mixed_precision),
                             per_thread)
         with eval_arithmetic(EVAL_TF32):
             return model.encode_frame(to_dev(frame), to_dev(edges))
@@ -281,7 +317,8 @@ def make_encode_step(model: RAFT, device: Union[str, torch.device] = "cuda"
 
 def make_refine_step(model: RAFT, iters: int = 24,
                      device: Union[str, torch.device] = "cuda",
-                     adaptive: bool = False
+                     adaptive: bool = False, *,
+                     mesh: Optional[ServeMesh] = None
                      ) -> Callable[..., Tuple[torch.Tensor, ...]]:
     """refine(features1, features2, flow_init[, iter_budget]) ->
     (flow_low, flow_up), NHWC device tensors.
@@ -290,8 +327,15 @@ def make_refine_step(model: RAFT, iters: int = 24,
     flow_init, (B, H/8, W/8, 2), is always materialized: zeros are a cold
     start (None is taken as zeros). ``adaptive=True``: a trailing
     ``iter_budget`` and (flow_low, flow_up, iters_used, final_delta), as
-    :func:`make_eval_step`.
+    :func:`make_eval_step`. ``mesh`` (a serve mesh): the feature dicts are
+    the mesh encode step's (:class:`RowShards`), flow_init a host batch or
+    RowShards, and the outputs RowShards.
     """
+    if mesh is not None:
+        mesh = check_serve_mesh(mesh)
+        return _on_mesh([make_refine_step(rep, iters, dev, adaptive)
+                         for rep, dev in zip(_replicas(model, mesh),
+                                             mesh.devices)], mesh)
     dev = resolve_device(device)
     model = model.to(dev).eval()
     to_dev = _nchw(dev)
@@ -314,7 +358,8 @@ def make_refine_step(model: RAFT, iters: int = 24,
             kw = dict(adaptive=True, iter_budget=None if iter_budget is None
                       else int(iter_budget))
         guards.note_new_key("refine", (
-            token, _signature(*(features1[k] for k in sorted(features1))),
+            token, str(dev),
+            _signature(*(features1[k] for k in sorted(features1))),
             _signature(fi), EVAL_TF32, iters, adaptive,
             model.cfg.mixed_precision), per_thread)
         with eval_arithmetic(EVAL_TF32):
@@ -322,6 +367,87 @@ def make_refine_step(model: RAFT, iters: int = 24,
         return _nhwc(*out[:2]) + tuple(out[2:])
 
     return refine
+
+
+# ---- the test-mode steps on a serve mesh -----------------------------------
+
+
+def _replicas(model, mesh: ServeMesh) -> Tuple[RAFT, ...]:
+    """A mesh step's replicas: ``model`` copied onto every entry
+    (``parallel.layout.replicate``), or the replicas ``replicate`` made
+    already (a sequence, one per entry on its device), which steps built
+    over one mesh then share."""
+    if isinstance(model, RAFT):
+        return replicate(model, mesh)
+    reps = tuple(model)
+    devs = [next(r.parameters()).device for r in reps]
+    if len(reps) != mesh.size or any(
+            d != torch.device(e) for d, e in zip(devs, mesh.devices)):
+        raise ValueError(f"{len(reps)} replicas on {[str(d) for d in devs]} "
+                         f"do not match the mesh's entries "
+                         f"{[str(d) for d in mesh.devices]}")
+    return tuple(r.eval() for r in reps)
+
+
+def _on(dev: torch.device):
+    """``dev`` as the current CUDA device (a no-op for the CPU)."""
+    return (torch.cuda.device(dev) if dev.type == "cuda"
+            else contextlib.nullcontext())
+
+
+def _rows_of(x) -> int:
+    """The batch size of a step's first argument (an input batch, its
+    RowShards, or the encode step's feature dict)."""
+    if isinstance(x, dict):
+        x = x["fmap"]
+    return len(x) if isinstance(x, RowShards) else int(np.shape(x)[0])
+
+
+def _block(x, i: int, rows):
+    """Entry ``i``'s block ``rows`` of a step argument: a
+    :class:`RowShards`' own shard (put there by
+    ``parallel.layout.shard_batch``, cut as this batch is), the rows of a
+    host array or tensor, or those of each value of a feature dict; None
+    and scalars (``iter_budget``) pass."""
+    if isinstance(x, dict):
+        return {k: _block(v, i, rows) for k, v in x.items()}
+    if isinstance(x, RowShards):
+        if x.rows[i] != rows:
+            raise ValueError(f"input rows {x.rows} are not the mesh's "
+                             "blocks of this batch")
+        return x.shards[i]
+    if x is None or np.ndim(x) == 0:
+        return x
+    return x[rows[0]:rows[1]]
+
+
+def _on_mesh(steps, mesh: ServeMesh):
+    """One step over ``mesh`` from the one-device steps ``steps`` (entry
+    i's, over its replica on its device; JAX's steps with ``mesh=``).
+
+    A call cuts the batch's rows into one block per entry (a batch the
+    mesh size does not divide raises) and calls each entry's step on its
+    block, on its device, in entry order: launches return at once, so
+    the shards overlap on the devices. Each output comes back as
+    :class:`RowShards` in row order (the encode step's dict, one per
+    feature). The one-device steps keep their compile keys with their
+    device (``guards.note_new_key``): cuDNN's searches are per device
+    and thread."""
+
+    def call(*args, **kwargs):
+        rows = row_blocks(_rows_of(args[0]), mesh.size)
+        outs = []
+        for i, (step, dev, r) in enumerate(zip(steps, mesh.devices, rows)):
+            a = [_block(x, i, r) for x in args]
+            kw = {k: _block(v, i, r) for k, v in kwargs.items()}
+            with _on(dev):
+                outs.append(step(*a, **kw))
+        if isinstance(outs[0], dict):
+            return {k: RowShards([o[k] for o in outs], rows)
+                    for k in outs[0]}
+        return tuple(RowShards(list(o), rows) for o in zip(*outs))
+
+    return call
 
 
 Batch = Dict[str, object]  # image1, image2, flow, valid [, edges1, edges2]

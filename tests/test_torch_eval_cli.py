@@ -172,6 +172,31 @@ def test_eval_cli_submissions(env, capsys):
     assert flow.shape == (60, 90, 2) and valid.all()
 
 
+def test_eval_cli_data_parallel_warm_start_submission(env, capsys):
+    """--data_parallel 2 --batch_size 2 --warm_start: the mesh engine's
+    carry goes through the host (splatted on the mesh's first device),
+    and the .flo files are the one-device engine's within 1e-4 px."""
+    _run(env, capsys, "--submission", "sintel", "--warm_start",
+         "--batch_size", "2", "--output", "one")
+    out = _run(env, capsys, "--submission", "sintel", "--warm_start",
+               "--batch_size", "2", "--data_parallel", "2", "--output",
+               "dp")
+    assert "data-parallel over 2 entries: cpu, cpu" in out
+    files = _tree("one")
+    assert files == _tree("dp") and len(files) == 8
+    for rel in files:
+        a, b = read_flo(os.path.join("one", rel)), read_flo(
+            os.path.join("dp", rel))
+        assert np.isfinite(b).all()
+        np.testing.assert_allclose(b, a, rtol=0, atol=1e-4, err_msg=rel)
+    # the warm start reached the mesh: a cold mesh run writes other flows
+    _run(env, capsys, "--submission", "sintel", "--batch_size", "2",
+         "--data_parallel", "2", "--output", "cold")
+    assert any(not np.array_equal(read_flo(os.path.join("cold", rel)),
+                                  read_flo(os.path.join("dp", rel)))
+               for rel in files)
+
+
 def test_eval_cli_frontier_record_has_jax_keys(env, capsys):
     from dexiraft_tpu.eval_cli import FRONTIER_LEG_KEYS, \
         FRONTIER_RECORD_KEYS
@@ -198,7 +223,7 @@ def test_eval_cli_mixed_precision_reaches_the_model(env, capsys):
     args = eval_cli.build_parser().parse_args(
         ["--device", "cpu", "--small", "--model", env.weights,
          "--dataset", "chairs", "--mixed_precision"])
-    eval_cli.refuse_unported(args)
+    eval_cli.check_args(args)
     cfg, model = eval_cli.load_model(args, torch.device("cpu"))
     assert cfg.mixed_precision and model.compute_dtype == torch.bfloat16
     assert {p.dtype for p in model.parameters()} == {torch.float32}
@@ -212,10 +237,14 @@ def test_eval_cli_mixed_precision_reaches_the_model(env, capsys):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--data_parallel", "2"], "A12"),
+    (["--data_parallel", "2", "--batch_size", "3"],
+     "--batch_size 3 must divide by --data_parallel 2"),
+    (["--data_parallel", "-1"], "--data_parallel must be >= 0"),
 ])
 def test_eval_cli_refused_flags_name_their_item(env, flags, item):
-    with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
+    """--data_parallel runs (tests/test_torch_data_parallel.py); a batch
+    it does not divide is refused, as in JAX."""
+    with pytest.raises(SystemExit, match=item):
         eval_cli.main(["--device", "cpu", "--model", env.weights,
                        "--dataset", "chairs"] + flags)
 

@@ -274,7 +274,7 @@ def test_engine_inflight_window_and_search_accounting():
     list(eng.stream([_item()]))
     assert eng.registry.searches == 1          # no second search
     assert ServeConfig(strict=True).strict     # ported: accepted
-    with pytest.raises(ValueError, match="A12"):
+    with pytest.raises(TypeError, match="is no ServeMesh"):
         InferenceEngine(_stub_carry, mesh=object())
 
 

@@ -201,14 +201,15 @@ def test_mixed_precision_reaches_the_model():
     """--mixed_precision serves the model in bf16 over fp32 weights."""
     args = serve_cli.build_parser().parse_args(
         ["--cpu", "--small", "--synthetic_init", "--mixed_precision"])
-    serve_cli._refuse_unported(args)
+    serve_cli._check_args(args)
     cfg, model = serve_cli._load(args, torch.device("cpu"))
     assert cfg.mixed_precision and model.compute_dtype == torch.bfloat16
     assert {p.dtype for p in model.parameters()} == {torch.float32}
 
 
 @pytest.mark.parametrize("flags, message", [
-    (["--data_parallel", "2"], "ROADMAP A12"),
+    (["--data_parallel", "2", "--batch_size", "3"],
+     "--batch_size 3 must divide by --data_parallel 2"),
     (["--fused_update", "--corr_impl", "local"], "requires --corr_impl"),
     (["--workers", "0"], "--workers must be >= 1"),
     ([], "exactly one of --model or --synthetic_init"),

@@ -1,14 +1,18 @@
 """The port's placement audit (``dexiraft_tpu_torch.analysis.shardaudit``)
 against the JAX package's goldens.
 
-JAX's ``dexiraft_tpu/analysis/layout_golden_{fsdp,halo}.json`` are read
+JAX's ``dexiraft_tpu/analysis/layout_golden{,_fsdp,_halo}.json`` are read
 as JSON (nothing of JAX is imported): the port's ``train_fsdp`` and
 ``train_halo`` state groups equal JAX's (``[0].params`` whole; the Adam
 moments plus JAX's two int32 counts make JAX's ``[0].opt_state``), the
-halo leg's batch groups equal JAX's ``P('data', 'seq')`` entries, and
-every declared group's spec, megabytes and replication equal JAX's. The
-CLI passes on the shipped goldens and exits nonzero on a changed spec, a
-vanished group, a new group and a replicated 100 MB group.
+halo leg's batch groups equal JAX's ``P('data', 'seq')`` entries, the
+serve legs (the data-parallel eval step, the streaming encode and refine
+steps on 8 CPU entries) equal JAX's ``serve``, ``serve_encode`` and
+``serve_refine`` sections group by group, and every declared group's
+spec, megabytes and replication equal JAX's. The CLI passes on the
+shipped goldens and exits nonzero on a changed spec (in a train golden
+and in the serve golden), a vanished group, a new group and a replicated
+100 MB group.
 """
 
 import copy
@@ -21,9 +25,9 @@ from dexiraft_tpu_torch.analysis import shardaudit
 from test_torch_train_ops import few_torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-JAX_GOLDEN = os.path.join(REPO, "dexiraft_tpu", "analysis",
-                          "layout_golden_{}.json")
+JAX_GOLDENS = os.path.join(REPO, "dexiraft_tpu", "analysis")
 LEGS = ["fsdp", "halo"]
+SERVE_STEPS = ["serve", "serve_encode", "serve_refine"]
 
 
 @pytest.fixture(autouse=True)
@@ -31,10 +35,15 @@ def _two_threads(few_torch_threads):  # noqa: F811
     yield
 
 
+def _file(leg):
+    return ("layout_golden.json" if leg == "serve"
+            else f"layout_golden_{leg}.json")
+
+
 def _golden(leg, jax=False):
-    path = (JAX_GOLDEN.format(leg) if jax else os.path.join(
-        os.path.dirname(shardaudit.__file__), f"layout_golden_{leg}.json"))
-    with open(path) as f:
+    """A leg's golden ("fsdp", "halo", or "serve": layout_golden.json)."""
+    where = JAX_GOLDENS if jax else os.path.dirname(shardaudit.__file__)
+    with open(os.path.join(where, _file(leg))) as f:
         return json.load(f)
 
 
@@ -123,19 +132,76 @@ def test_plans_pin_the_production_leaf_policy():
         assert "P()" in plan["params"]["specs"]
 
 
+@pytest.fixture(scope="module")
+def serve_report():
+    return shardaudit.run_audit("serve")
+
+
+def test_serve_report_equals_the_shipped_golden(serve_report):
+    assert sorted(serve_report["steps"]) == SERVE_STEPS
+    assert shardaudit.diff_golden(serve_report, _golden("serve")) == []
+    assert shardaudit.flagged_groups(serve_report) == []
+
+
+@pytest.mark.parametrize("io", ["in", "out"])
+@pytest.mark.parametrize("step", SERVE_STEPS)
+def test_serve_sections_equal_jax(step, io):
+    """Group by group JAX's, under JAX's positional names: the golden
+    renames none of JAX's groups, and its header names the port argument
+    behind each."""
+    port, jax = _golden("serve"), _golden("serve", jax=True)
+    assert port["renamed_from_jax"] == {}
+    assert port["steps"][step]["mesh"] == jax["steps"][step]["mesh"] == \
+        {"data": 8}
+    mine, want = port["steps"][step][io], jax["steps"][step][io]
+    assert mine == want
+    assert set(mine) <= set(port["positional_names"][step][io])
+
+
+def test_serve_groups_hold_jax_figures():
+    steps = _golden("serve")["steps"]
+    serve = steps["serve"]
+    assert serve["in"]["[0]['params']"] == {
+        "specs": ["P()"], "leaves": 106, "bytes": 3_960_648,
+        "max_leaf_bytes": 836_352}
+    for key, nbytes in (("[1]", 294_912), ("[2]", 294_912), ("[5]", 3_072)):
+        assert serve["in"][key]["specs"] == ["P('data')"]
+        assert serve["in"][key]["bytes"] == nbytes
+    assert [serve["out"][k]["bytes"] for k in ("[0]", "[1]")] == [
+        3_072, 196_608]
+    encode = steps["serve_encode"]
+    assert encode["in"]["[0]['params']"]["leaves"] == 88
+    assert encode["in"]["[0]['params']"]["bytes"] == 454_528
+    assert encode["out"]["['ctx']"]["bytes"] == 245_760
+    assert encode["out"]["['fmap']"]["bytes"] == 196_608
+    refine = steps["serve_refine"]
+    assert refine["in"]["[0]['params']"]["leaves"] == 18
+    assert refine["in"]["[0]['params']"]["bytes"] == 3_506_120
+    # refine reads features2's fmap only, as JAX's step keeps it
+    assert sorted(refine["in"]) == ["[0]['params']", "[1]['ctx']",
+                                    "[1]['fmap']", "[2]['fmap']", "[3]"]
+
+
+def test_serve_declared_groups_equal_jax():
+    port = _golden("serve")["declared"]
+    jax = _golden("serve", jax=True)["declared"]
+    assert port == jax
+    assert port["batch"]["spec"] == "P('data', 'seq')"
+
+
 def test_cli_passes_on_the_shipped_goldens(capsys):
     assert shardaudit.main([]) == 0
     out = capsys.readouterr().out
-    for leg in LEGS:
+    for leg in LEGS + ["serve"]:
         assert f"[{leg}] 0 drift line(s), 0 flagged group(s)" in out
 
 
-def _mutated(tmp_path, mutate):
-    for leg in LEGS:
+def _mutated(tmp_path, mutate, leg_of=("halo", "train_halo")):
+    for leg in LEGS + ["serve"]:
         golden = _golden(leg)
-        if leg == "halo":
-            mutate(golden["steps"]["train_halo"]["in"])
-        with open(tmp_path / f"layout_golden_{leg}.json", "w") as f:
+        if leg == leg_of[0]:
+            mutate(golden["steps"][leg_of[1]]["in"])
+        with open(tmp_path / _file(leg), "w") as f:
             json.dump(golden, f)
     return ["--golden_dir", str(tmp_path)]
 
@@ -162,6 +228,18 @@ def test_cli_exits_nonzero_on_drift(tmp_path, capsys, mutate, says):
     out = capsys.readouterr().out
     assert says in out
     assert "[fsdp] 0 drift line(s)" in out
+
+
+def test_cli_flags_a_changed_spec_in_the_serve_golden(tmp_path, capsys):
+    def mutate(groups):
+        groups["[1]"]["specs"] = ["P()"]
+
+    assert shardaudit.main(_mutated(tmp_path, mutate,
+                                    ("serve", "serve"))) == 1
+    out = capsys.readouterr().out
+    assert "[serve] DRIFT steps.serve.in.[1]: golden" in out
+    assert "[serve] 1 drift line(s)" in out
+    assert "[halo] 0 drift line(s)" in out
 
 
 def test_cli_exits_nonzero_on_a_replicated_100mb_group(tmp_path, capsys,
