@@ -43,8 +43,11 @@ Phases, one JSON line each:
               against B1 / B2, NaN coords included, on the jitter field
               and on the smooth, scattered and edge fields (clip limits,
               integer centers half out of the frame), with B3's and B4's
-              TMA box sizes and per-pixel tiles per level; max abs error
-              <= 1e-3, TF32 off
+              TMA box sizes and per-pixel tiles per level; each pair on a
+              row block of queries as the fence step on row slabs calls
+              it (rows [h/2, h) of level 0, global coords, full-height
+              levels) against its plain version and the same rows of the
+              full-height call; max abs error <= 1e-3, TF32 off
   4 slice v1  4 frame pairs (2 Sintel 436x1024, 2 KITTI 375x1242) through
               the engine at batch 2, 32 iterations: path "fused" (B1) and
               "lookup" (B2), launch counts set to 0 before and read after
@@ -146,7 +149,7 @@ Phases, one JSON line each:
               12 iterations, fp32, seed-0 weights, a random batch): v1 on
               allpairs and on B1 at batch 10, v5 on B1 at the largest
               batch <= 10 that fits without remat; ms per step (median of
-              3 after 1, CUDA events), peak allocated memory, B1 launches
+              TRAIN_TIMED after 1, CUDA events), peak allocated memory, B1 launches
               per step (12), every loss finite and state_finite, and one
               profiled step with the share of B1's backward recompute
               (fused_reference); each B1 step against the corr_impl=
@@ -154,8 +157,8 @@ Phases, one JSON line each:
               1e-4 relative, flattened gradient within 1e-3 relative L2
   train_precision_remat  v5 on B1 at the train phase's geometry, batch
               and seed-0 weights: precision bf16, remat per_iter and
-              dots_saveable (fp32): ms per step (median of 3 after 1),
-              peak allocated memory, B1 launches per step (12 in bf16,
+              dots_saveable (fp32): ms per step (median of TRAIN_TIMED
+              after 1), peak allocated memory, B1 launches per step (12 in bf16,
               24 under remat: the backward re-runs B1); each remat step's
               loss and gradients against the no-remat step (1e-4, 1e-3
               relative L2), the bf16 step's against the fp32 step within
@@ -234,19 +237,25 @@ Phases, one JSON line each:
               within 1e-5 relative of the uninterrupted pair, and
               read_model_weights of its step 4 equal to the state two
               ranks gather from that step to the bit
-  halo        halo compute sharding and the row-block correlation, v1
-              full width on corr_impl allpairs, fp32, frozen BatchNorm,
-              ranks on cuda:0 (gloo): two ranks (data 1 x fsdp 1 x seq
-              2) take 3 halo steps at 368x496, batch 2, 12 iterations,
-              and four (data 1 x fsdp 2 x seq 2) one, beside the
-              one-process fence step on the same seeded state and
-              batches: per-step losses and the gathered parameters
-              within atol 1e-4 / rtol 1e-3 of it; the pair's halo eval
-              step on a Sintel pair padded with InputPadder(seq=2) to
-              448x1024, 32 iterations, flow_low and flow_up within 1e-3
-              px of the one-process eval step; each rank's peak
-              allocated bytes beside the one process's, its pyramid's
-              bytes beside the estimate; no kernel launched
+  halo        halo compute sharding, the row-block correlation and the
+              fence step on row slabs, v1 full width, ranks on cuda:0
+              (gloo): two ranks (data 1 x fsdp 1 x seq 2) take 2 halo
+              steps (corr_impl allpairs, fp32, frozen BatchNorm) at
+              368x496, batch 2, 12 iterations, then 2 fence steps on row
+              slabs (v1 on B1, train-mode BatchNorm, noise), and four
+              (data 1 x fsdp 2 x seq 2) one of each, beside the
+              one-process steps of the same configs on the same seeded
+              states and batches: per-step losses and the gathered
+              parameters within atol 1e-4 / rtol 1e-3 of them, B1 12 a
+              fence step on every rank; the pair's halo eval step and
+              its fence eval step (v1 on B1) on a Sintel pair padded
+              with InputPadder(seq=2) to 448x1024, 32 iterations,
+              flow_low and flow_up (the fence step's row slabs put back
+              together) within 1e-3 px of the one-process eval steps, B1
+              32 a fence forward on every rank; each rank's peak
+              allocated bytes beside the one process's, the halo
+              pyramid's bytes beside the estimate; no kernel launched on
+              the halo path
   6 times     CUDA-event medians: v1 and v5 forward ms at 440x1024, B=1
               (TF32 off and PyTorch's default, and the main paths under
               the eval step's arithmetic), v5's DexiNed and prelude
@@ -329,7 +338,7 @@ PAIRS = (((436, 1024), 3), ((436, 1024), -5), ((375, 1242), 4),
          ((375, 1242), 2))
 # CUDA-event timings per forward of the times, adaptive, variants and
 # video phases (few: the whole smoke stays inside its time limit)
-FORWARD_REPS = 3
+FORWARD_REPS = 2
 SINTEL_BUCKET = (440, 1024)
 
 
@@ -709,6 +718,50 @@ def phase_kernels(torch, ck, gen, dev):
                         f"{err} (tol {TOL_KERNEL})")
     worst["flash_local_corr_level"] = max(worst["flash_local_corr_level"],
                                           check_b2_fields(torch, ck, gen, dev))
+    rows = row_block_errors(torch, ck, gen, dev, KERNEL_CASES[0],
+                            "flash_fused_step", "flash_local_corr_level")
+    return {k: max(v, rows[k]) for k, v in worst.items()}
+
+
+def row_block_errors(torch, ck, gen, dev, case, fused, level) -> dict:
+    """The fused kernel ``fused`` (B1 or B3) and the level kernel
+    ``level`` (B2 or B4) on a row block of queries, as the fence step on
+    row slabs calls them: rows [h/2, h) of level 0's queries with their
+    global coords against the full-height levels, held against each
+    kernel's plain version on the same block and against the same rows of
+    the kernel's full-height call (fp32, jitter field)."""
+    from dexiraft_tpu_torch.ops.local_corr import local_corr_level
+
+    label, b, h, w, levels, r, c, feat = case
+    pyr, co, weight, bias = make_inputs(gen, b, h, w, c, levels, r, feat,
+                                        "fp32", dev)
+    h0 = h // 2
+    q, cq = pyr.fmap1[:, h0:].contiguous(), co[:, h0:].contiguous()
+    fn = getattr(ck, fused)
+    full = fn(pyr.fmap1, pyr.fmap2_pyramid, co, weight, bias, r)
+    block = fn(q, pyr.fmap2_pyramid, cq, weight, bias, r)
+    torch.cuda.synchronize()
+    ref = ck.fused_reference(q, pyr.fmap2_pyramid, cq, weight, bias, r, 8)
+    rec = {fused: {"vs_plain": max_diff(block, ref),
+                   "vs_full_rows": max_diff(block, full[:, h0:])},
+           level: {"vs_plain": 0.0, "vs_full_rows": 0.0}}
+    for lvl, f2 in enumerate(pyr.fmap2_pyramid):
+        c_l = cq / 2.0 ** lvl
+        o = getattr(ck, level)(q, f2, c_l, r)
+        o_full = getattr(ck, level)(pyr.fmap1, f2, co / 2.0 ** lvl, r)
+        torch.cuda.synchronize()
+        rr = local_corr_level(q, f2, c_l, r, 8)
+        rec[level]["vs_plain"] = max(rec[level]["vs_plain"], max_diff(o, rr))
+        rec[level]["vs_full_rows"] = max(rec[level]["vs_full_rows"],
+                                         max_diff(o, o_full[:, h0:]))
+    emit({"phase": "kernels", "kernels": f"{fused}/{level} row block",
+          "case": label, "query_rows": [h0, h],
+          "levels": [list(x.shape[1:3]) for x in pyr.fmap2_pyramid],
+          "dtype": "fp32", **rec, "tol": TOL_KERNEL})
+    worst = {k: max(v.values()) for k, v in rec.items()}
+    if max(worst.values()) > TOL_KERNEL:
+        raise AssertionError(f"a kernel on a row block of queries disagrees: "
+                             f"{label} {rec} (tol {TOL_KERNEL})")
     return worst
 
 
@@ -839,7 +892,9 @@ def phase_kernels_v5(torch, ck, gen, dev):
                 raise AssertionError(
                     f"B3/B4 disagree with their plain versions or with B1/B2: "
                     f"{label} {field} {dtype} {rec} (tol {TOL_KERNEL})")
-    return worst
+    rows = row_block_errors(torch, ck, gen, dev, V5_KERNEL_CASES[0],
+                            "pallas_fused_step", "pallas_local_corr_level")
+    return {k: max(v, rows[k]) for k, v in worst.items()}
 
 
 def frame_pairs(seed):
@@ -1904,7 +1959,7 @@ def phase_serve_cli(torch) -> dict:
 TRAIN_BATCH = 10            # STANDARD_STAGES chairs: batch 10, 368x496
 TRAIN_SIZE = (368, 496)
 # steps timed per train case (few: the smoke's time limit)
-TRAIN_WARMUP, TRAIN_TIMED = 1, 3
+TRAIN_WARMUP, TRAIN_TIMED = 1, 2
 TOL_TRAIN_LOSS_REL = 1e-4   # B1 step vs corr_impl="local" step
 TOL_TRAIN_GRAD_REL_L2 = 1e-3
 TOL_RESUME_REL = 1e-5       # resumed train_cli losses vs the full run's
@@ -4713,26 +4768,35 @@ def phase_ddp(torch, dev, card) -> dict:
 
 
 HALO_BATCH = 2                # the train pair's global batch at 368x496
-HALO_STEPS = 3                # the pair's steps; the fsdp x seq run takes 1
+HALO_STEPS = 2                # the pair's steps; the fsdp x seq run takes 1
 HALO_ITERS = 12               # the train steps' iterations
 HALO_EVAL_ITERS = 32
 # JAX's fence-vs-halo bounds (tests/test_zzzhalo.py): losses and
 # parameters, halo against the one-process fence step
 TOL_HALO_ATOL, TOL_HALO_RTOL = 1e-4, 1e-3
 TOL_HALO_EVAL_PX = 1e-3       # flow_low / flow_up, halo vs one process
+# the fence step on row slabs: v1 on B1, the chairs state with train-mode
+# BatchNorm and noise
+FENCE_CFG = dict(corr_impl="flash", fused_update=True)
+FENCE_TC = dict(freeze_bn=False, add_noise=True)
 
 #: ``python -c HALO_CHILD SPEC OUT``: one rank (torchrun's variables, on
-#: cuda:0, so gloo) of the halo phase. It trains the seeded v1 state
-#: (``create_state``: the same weights as the parent's) over a (data 1,
-#: fsdp SPEC["fsdp"], seq 2) mesh with the halo train step on SPEC's
-#: batches (global batch, full height; the step keeps its rows), and
-#: writes OUT/rank<r>.json: per-step losses and EPEs, its peak allocated
-#: bytes over what it held before the steps (the state), that state,
-#: kernel launches and seconds; rank 0 saves the gathered state dict.
-#: With SPEC["eval"]: the halo eval step of the seed-0 model on the
+#: cuda:0, so gloo) of the halo phase, on a (data 1, fsdp SPEC["fsdp"],
+#: seq 2) mesh. With SPEC["batches"] it trains the seeded v1 state
+#: (``create_state``: the same weights as the parent's) with the halo
+#: train step on them (global batch, full height; the step keeps its
+#: rows) and writes OUT/rank<r>.json: per-step losses and EPEs, its peak
+#: allocated bytes over what it held before the steps (the state), that
+#: state, kernel launches and seconds; rank 0 saves the gathered state
+#: dict. With SPEC["eval"]: the halo eval step of the seed-0 model on the
 #: padded pair (a warm call, then a measured one), its peak bytes over
 #: what it held before the call and each pyramid level's bytes on this
-#: rank; rank 0 saves the flows.
+#: rank; rank 0 saves the flows. With SPEC["fence"] (cfg, tc, batches):
+#: the fence train step on the same mesh (row slabs, B1), its losses, B1
+#: launches per step, peak bytes and seconds, rank 0 saving the gathered
+#: state dict; with SPEC["fence_eval"]: the fence eval step of the seed-0
+#: model (a warm call, then a measured one), its B1 launches, peak bytes
+#: and seconds, each rank saving its slabs.
 HALO_CHILD = """
 import json, sys, time, torch
 from dexiraft_tpu_torch.config import TrainConfig, raft_v1
@@ -4755,50 +4819,75 @@ def recorded(*a, **k):
     volumes.append([t.numel() * t.element_size() for t in pyr.levels])
     return pyr
 halo.row_block_pyramid = recorded
-state = shard_state(create_state(cfg, tc, device=dev), mesh)
-step = make_train_step(cfg, tc, mesh=mesh, compute_sharding="halo")
 rec = {"rank": world.rank, "backend": world.backend,
-       "mesh": [mesh.data_index, mesh.fsdp_index, mesh.seq_index],
-       "losses": [], "epe": [], "finite": []}
-ck.reset_launches()
-torch.cuda.synchronize()
-torch.cuda.reset_peak_memory_stats(dev)
-rec["train_base_bytes"] = torch.cuda.memory_allocated(dev)
-t0 = time.perf_counter()
-for b in spec["batches"]:
-    state, m = step(state, {k: v.to(dev) for k, v in b.items()})
-    rec["losses"].append(float(m["loss"]))
-    rec["epe"].append(float(m["epe"]))
-    rec["finite"].append(bool(m["state_finite"]))
-torch.cuda.synchronize()
-rec["train_s"] = time.perf_counter() - t0
-rec["train_peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
-                           - rec["train_base_bytes"])
-rec["train_volume_bytes"] = volumes[0]
-rec["state_bytes"] = state.shards.state_bytes(state.optimizer)
-with state.shards.gathered_params() as model:
-    if world.rank == 0:
-        torch.save({k: v.cpu() for k, v in model.state_dict().items()},
-                   out + "/state.pt")
-if "eval" in spec:
-    e = spec["eval"]
-    ev = make_eval_step(create_model(cfg, seed=e["seed"], device=dev),
-                        iters=e["iters"], device=dev, mesh=mesh,
-                        compute_sharding="halo")
+       "mesh": [mesh.data_index, mesh.fsdp_index, mesh.seq_index]}
+def train(cfg, tc, batches, sharding):
+    state = shard_state(create_state(cfg, tc, device=dev), mesh)
+    step = make_train_step(cfg, tc, mesh=mesh, compute_sharding=sharding)
+    r = {"losses": [], "epe": [], "finite": [], "b1": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    r["base_bytes"] = torch.cuda.memory_allocated(dev)
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    for b in batches:
+        before = ck.LAUNCHES["flash_fused_step"]
+        state, m = step(state, {k: v.to(dev) for k, v in b.items()})
+        r["losses"].append(float(m["loss"]))
+        r["epe"].append(float(m["epe"]))
+        r["finite"].append(bool(m["state_finite"]))
+        r["b1"].append(ck.LAUNCHES["flash_fused_step"] - before)
+    torch.cuda.synchronize()
+    r["s"] = time.perf_counter() - t0
+    r["peak_bytes"] = torch.cuda.max_memory_allocated(dev) - r["base_bytes"]
+    r["state_bytes"] = state.shards.state_bytes(state.optimizer)
+    r["launches"] = dict(ck.LAUNCHES)
+    with state.shards.gathered_params() as model:
+        if world.rank == 0:
+            torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+                       out + "/state_" + sharding + ".pt")
+    return r
+def evaluate(ev, e):
     ev(e["image1"], e["image2"])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     base = torch.cuda.memory_allocated(dev)
     del volumes[:]
+    ck.reset_launches()
     t0 = time.perf_counter()
     low, up = ev(e["image1"], e["image2"])
     torch.cuda.synchronize()
-    rec["eval_s"] = time.perf_counter() - t0
-    rec["eval_peak_bytes"] = torch.cuda.max_memory_allocated(dev) - base
-    rec["eval_volume_bytes"] = volumes[0]
+    return low, up, {"s": time.perf_counter() - t0,
+                     "peak_bytes": torch.cuda.max_memory_allocated(dev) - base,
+                     "launches": dict(ck.LAUNCHES)}
+if spec["batches"]:
+    r = train(cfg, tc, spec["batches"], "halo")
+    rec.update({k: r[k] for k in ("losses", "epe", "finite", "state_bytes")},
+               train_s=r["s"], train_peak_bytes=r["peak_bytes"],
+               train_base_bytes=r["base_bytes"],
+               train_volume_bytes=volumes[0], launches=r["launches"])
+if "eval" in spec:
+    e = spec["eval"]
+    ev = make_eval_step(create_model(cfg, seed=e["seed"], device=dev),
+                        iters=e["iters"], device=dev, mesh=mesh,
+                        compute_sharding="halo")
+    low, up, r = evaluate(ev, e)
+    rec.update(eval_s=r["s"], eval_peak_bytes=r["peak_bytes"],
+               eval_volume_bytes=volumes[0], eval_launches=r["launches"])
     if world.rank == 0:
         torch.save({"low": low.cpu(), "up": up.cpu()}, out + "/eval.pt")
-rec["launches"] = dict(ck.LAUNCHES)
+if "fence" in spec:
+    f = spec["fence"]
+    rec["fence"] = train(raft_v1(**f["cfg"]), TrainConfig(**f["tc"]),
+                         f["batches"], "fence")
+if "fence_eval" in spec:
+    e = spec["fence_eval"]
+    ev = make_eval_step(create_model(raft_v1(**e["cfg"]), seed=e["seed"],
+                                     device=dev),
+                        iters=e["iters"], device=dev, mesh=mesh)
+    low, up, rec["fence_eval"] = evaluate(ev, e)
+    torch.save({"low": low.cpu(), "up": up.cpu()},
+               out + "/fence_eval%d.pt" % mesh.seq_index)
 with open(out + "/rank%d.json" % world.rank, "w") as f:
     json.dump(rec, f)
 distributed.teardown()
@@ -4813,43 +4902,55 @@ def bound_excess(torch, ours, ref, atol, rtol) -> float:
 
 
 def phase_halo(torch, dev, card) -> dict:
-    """Halo compute sharding (A12.2) and the row-block correlation
-    (A12.3): v1 full width (basic encoders, hidden 128), corr_impl
-    allpairs, fp32, frozen BatchNorm, on ranks that share cuda:0 (gloo).
-      * train: two ranks, data 1 x fsdp 1 x seq 2, the seeded chairs
-        state, HALO_STEPS halo steps at 368x496, batch HALO_BATCH, 12
+    """Halo compute sharding (A12.2), the row-block correlation (A12.3)
+    and the fence step on row slabs (A12.2b): v1 full width (basic
+    encoders, hidden 128), on ranks that share cuda:0 (gloo).
+      * halo train: two ranks, data 1 x fsdp 1 x seq 2, corr_impl
+        allpairs, fp32, frozen BatchNorm, the seeded chairs state,
+        HALO_STEPS halo steps at 368x496, batch HALO_BATCH, 12
         iterations; per-step losses and the gathered parameters after
         the last step against the one-process fence step of the same
         config on the same batches, at JAX's fence-halo bounds
         (TOL_HALO_ATOL / TOL_HALO_RTOL);
-      * fsdp inside halo: four ranks, data 1 x fsdp 2 x seq 2, one step,
-        the same bounds against the one-process step's first;
-      * eval: the pair ranks' halo eval step of the seed-0 model on a
-        Sintel-shaped pair padded with InputPadder(seq=2) to 448x1024,
+      * fence train on row slabs: the same two ranks, v1 on B1
+        (FENCE_CFG), the chairs state with train-mode BatchNorm and
+        noise (FENCE_TC), HALO_STEPS fence steps on the same batches, B1
+        HALO_ITERS times a step on every rank; losses and parameters
+        against the one-process B1 step at the same bounds;
+      * fsdp inside both: four ranks, data 1 x fsdp 2 x seq 2, one halo
+        step and one fence step, the same bounds against the one-process
+        steps' first;
+      * halo eval: the pair ranks' halo eval step of the seed-0 model on
+        a Sintel-shaped pair padded with InputPadder(seq=2) to 448x1024,
         HALO_EVAL_ITERS iterations, flow_low and flow_up within
-        TOL_HALO_EVAL_PX of the one-process eval step (the engine's
-        forward) on the same padding.
+        TOL_HALO_EVAL_PX of the one-process eval step on the same
+        padding;
+      * fence eval on row slabs: the pair ranks' fence eval step of the
+        seed-0 v1 on B1 on the same pair, each rank's slabs put back
+        together within TOL_HALO_EVAL_PX of the one-process B1 eval step,
+        B1 HALO_EVAL_ITERS times a forward on every rank.
     Printed: each rank's peak allocated bytes over what it held before
     the steps (its state) or the eval call, beside the one process's
     (whose earlier phases' models stay allocated), with the states'
-    bytes; its pyramid's bytes beside the estimate (B·(H/8/2)·(W/8) queries x
-    (H/8)·(W/8) targets x 4 B at level 0), seconds. No kernel runs on
-    this path (all-pairs lookup): every rank's launch counts stay 0. The
-    two runs start together and the one-process references run beside
-    them: what this checks is parity and memory, not speed on one card."""
+    bytes; the halo pyramid's bytes beside the estimate (B·(H/8/2)·(W/8)
+    queries x (H/8)·(W/8) targets x 4 B at level 0); B1 launches;
+    seconds. The halo path launches no kernel (all-pairs lookup). The
+    runs start together and the one-process references run beside them:
+    what this checks is parity and memory, not speed on one card."""
     import tempfile
 
     from dexiraft_tpu_torch.config import TrainConfig, raft_v1
     from dexiraft_tpu_torch.data.padder import InputPadder
     from dexiraft_tpu_torch.models.raft import create_model
+    from dexiraft_tpu_torch.ops import corr_kernels as ck
     from dexiraft_tpu_torch.train.state import create_state
     from dexiraft_tpu_torch.train.step import make_eval_step, make_train_step
 
     t_start = time.perf_counter()
-    cfg = raft_v1()
+    cfg, fence_cfg = raft_v1(), raft_v1(**FENCE_CFG)
     tc_kw = dict(batch_size=HALO_BATCH, image_size=TRAIN_SIZE,
                  iters=HALO_ITERS, freeze_bn=True)
-    tc = TrainConfig(**tc_kw)
+    fence_kw = dict(tc_kw, **FENCE_TC)
     batches = [{k: v.cpu() for k, v in train_batch(
         torch, dev, HALO_BATCH, seed=40 + i).items()}
         for i in range(HALO_STEPS)]
@@ -4863,8 +4964,15 @@ def phase_halo(torch, dev, card) -> dict:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_halo_") as root:
         specs = {2: dict(tc=tc_kw, fsdp=1, batches=batches,
                          eval=dict(seed=0, iters=HALO_EVAL_ITERS,
-                                   image1=im1, image2=im2)),
-                 4: dict(tc=tc_kw, fsdp=2, batches=batches[:1])}
+                                   image1=im1, image2=im2),
+                         fence=dict(cfg=FENCE_CFG, tc=fence_kw,
+                                    batches=batches),
+                         fence_eval=dict(cfg=FENCE_CFG, seed=0,
+                                         iters=HALO_EVAL_ITERS, image1=im1,
+                                         image2=im2)),
+                 4: dict(tc=tc_kw, fsdp=2, batches=batches[:1],
+                         fence=dict(cfg=FENCE_CFG, tc=fence_kw,
+                                    batches=batches[:1]))}
         for world, spec in specs.items():
             d = os.path.join(root, f"w{world}")
             os.makedirs(d)
@@ -4880,30 +4988,41 @@ def phase_halo(torch, dev, card) -> dict:
                 for r in range(world)]
         try:
             # the one-process references, beside the ranks
-            state = create_state(cfg, tc, device=dev)
-            step = make_train_step(cfg, tc)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats(dev)
-            base = torch.cuda.memory_allocated(dev)
-            one_losses, one_states = [], []
-            for b in batches:
-                state, m = step(state, {k: v.to(dev) for k, v in b.items()})
-                one_losses.append(float(m["loss"]))
-                one_states.append({k: v.detach().cpu().clone() for k, v in
+            one = {}
+            for name, c, kw in (("halo", cfg, tc_kw),
+                                ("fence", fence_cfg, fence_kw)):
+                tc = TrainConfig(**kw)
+                state = create_state(c, tc, device=dev)
+                step = make_train_step(c, tc)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                base = torch.cuda.memory_allocated(dev)
+                losses, states = [], []
+                for b in batches:
+                    state, m = step(state, {k: v.to(dev)
+                                            for k, v in b.items()})
+                    losses.append(float(m["loss"]))
+                    states.append({k: v.detach().cpu().clone() for k, v in
                                    state.model.state_dict().items()})
-            torch.cuda.synchronize()
-            one_train_peak = torch.cuda.max_memory_allocated(dev) - base
-            del state, step
-            ev = make_eval_step(create_model(cfg, seed=0, device=dev),
-                                iters=HALO_EVAL_ITERS, device=dev)
-            ev(im1, im2)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats(dev)
-            base = torch.cuda.memory_allocated(dev)
-            low, up = (t.cpu() for t in ev(im1, im2))
-            torch.cuda.synchronize()
-            one_eval_peak = torch.cuda.max_memory_allocated(dev) - base
-            del ev
+                torch.cuda.synchronize()
+                one[name] = dict(losses=losses, states=states,
+                                 peak=torch.cuda.max_memory_allocated(dev)
+                                 - base)
+                del state, step
+            for name, c in (("halo", cfg), ("fence", fence_cfg)):
+                ev = make_eval_step(create_model(c, seed=0, device=dev),
+                                    iters=HALO_EVAL_ITERS, device=dev)
+                ev(im1, im2)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                base = torch.cuda.memory_allocated(dev)
+                ck.reset_launches()
+                one[name]["flows"] = [t.cpu() for t in ev(im1, im2)]
+                torch.cuda.synchronize()
+                one[name].update(
+                    eval_peak=torch.cuda.max_memory_allocated(dev) - base,
+                    eval_b1=ck.LAUNCHES["flash_fused_step"])
+                del ev
             torch.cuda.empty_cache()
             for world, ps in procs.items():
                 for p in ps:
@@ -4915,9 +5034,12 @@ def phase_halo(torch, dev, card) -> dict:
                 outs[world] = [json.load(open(os.path.join(
                     root, f"w{world}", f"rank{r}.json")))
                     for r in range(world)]
-            pair_state = torch.load(os.path.join(root, "w2", "state.pt"))
-            fsdp_state = torch.load(os.path.join(root, "w4", "state.pt"))
+            saved = {(world, name): torch.load(os.path.join(
+                root, f"w{world}", f"state_{name}.pt"))
+                for world in (2, 4) for name in ("halo", "fence")}
             flows = torch.load(os.path.join(root, "w2", "eval.pt"))
+            slabs = [torch.load(os.path.join(root, "w2", f"fence_eval{i}.pt"))
+                     for i in range(2)]
         finally:
             for ps in procs.values():
                 for p in ps:
@@ -4930,7 +5052,13 @@ def phase_halo(torch, dev, card) -> dict:
                                 TOL_HALO_RTOL) for k, v in ref.items()
                    if v.is_floating_point())
 
+    def loss_excess(runs, ref):
+        return max(bound_excess(torch, r, ref[:len(r)], TOL_HALO_ATOL,
+                                TOL_HALO_RTOL) for r in runs)
+
     pair, fsdp = outs[2], outs[4]
+    fence_low, fence_up = (torch.cat([s[k] for s in slabs], dim=1)
+                           for k in ("low", "up"))
     h8, w8 = pad.padded_shape[0] // 8, pad.padded_shape[1] // 8
     rec.update(
         seconds=time.perf_counter() - t_start,
@@ -4939,25 +5067,64 @@ def phase_halo(torch, dev, card) -> dict:
                     4: [r["mesh"] for r in fsdp]},
         pair_losses=[r["losses"] for r in pair],
         fsdp_losses=[r["losses"] for r in fsdp],
-        one_process_losses=one_losses,
-        pair_loss_excess=max(bound_excess(torch, r["losses"], one_losses,
-                                          TOL_HALO_ATOL, TOL_HALO_RTOL)
-                             for r in pair),
-        fsdp_loss_excess=max(bound_excess(
-            torch, r["losses"], one_losses[:1], TOL_HALO_ATOL,
-            TOL_HALO_RTOL) for r in fsdp),
-        pair_params_excess=params_excess(pair_state, one_states[-1]),
-        fsdp_params_excess=params_excess(fsdp_state, one_states[0]),
-        finite=all(all(r["finite"]) for r in pair + fsdp),
-        eval_low_px=float((flows["low"] - low).abs().max()),
-        eval_up_px=float((flows["up"] - up).abs().max()),
+        one_process_losses=one["halo"]["losses"],
+        pair_loss_excess=loss_excess([r["losses"] for r in pair],
+                                     one["halo"]["losses"]),
+        fsdp_loss_excess=loss_excess([r["losses"] for r in fsdp],
+                                     one["halo"]["losses"]),
+        pair_params_excess=params_excess(saved[2, "halo"],
+                                         one["halo"]["states"][-1]),
+        fsdp_params_excess=params_excess(saved[4, "halo"],
+                                         one["halo"]["states"][0]),
+        finite=all(all(r["finite"]) and all(r["fence"]["finite"])
+                   for r in pair + fsdp),
+        eval_low_px=float((flows["low"] - one["halo"]["flows"][0])
+                          .abs().max()),
+        eval_up_px=float((flows["up"] - one["halo"]["flows"][1]).abs().max()),
+        fence={
+            "config": "v1 on B1 (flash fused), chairs state: train-mode "
+                      "BatchNorm, add_noise",
+            "pair_losses": [r["fence"]["losses"] for r in pair],
+            "fsdp_losses": [r["fence"]["losses"] for r in fsdp],
+            "one_process_losses": one["fence"]["losses"],
+            "pair_loss_excess": loss_excess(
+                [r["fence"]["losses"] for r in pair],
+                one["fence"]["losses"]),
+            "fsdp_loss_excess": loss_excess(
+                [r["fence"]["losses"] for r in fsdp],
+                one["fence"]["losses"]),
+            "pair_params_excess": params_excess(
+                saved[2, "fence"], one["fence"]["states"][-1]),
+            "fsdp_params_excess": params_excess(
+                saved[4, "fence"], one["fence"]["states"][0]),
+            "b1_per_step": [r["fence"]["b1"] for r in pair + fsdp],
+            "eval_b1": [r["fence_eval"]["launches"]["flash_fused_step"]
+                        for r in pair],
+            "one_process_eval_b1": one["fence"]["eval_b1"],
+            "eval_low_px": float((fence_low - one["fence"]["flows"][0])
+                                 .abs().max()),
+            "eval_up_px": float((fence_up - one["fence"]["flows"][1])
+                                .abs().max()),
+            "eval_slab_rows": [list(s["up"].shape[1:3]) for s in slabs],
+            "train_peak_bytes": {
+                "pair": [r["fence"]["peak_bytes"] for r in pair],
+                "fsdp": [r["fence"]["peak_bytes"] for r in fsdp],
+                "one_process": one["fence"]["peak"]},
+            "eval_peak_bytes": {
+                "pair": [r["fence_eval"]["peak_bytes"] for r in pair],
+                "one_process": one["fence"]["eval_peak"]},
+            "rank_seconds": {
+                "pair_train": [r["fence"]["s"] for r in pair],
+                "pair_eval": [r["fence_eval"]["s"] for r in pair],
+                "fsdp_train": [r["fence"]["s"] for r in fsdp]},
+            "launches": [r["fence"]["launches"] for r in pair + fsdp]},
         train_peak_bytes={"pair": [r["train_peak_bytes"] for r in pair],
                           "fsdp": [r["train_peak_bytes"] for r in fsdp],
-                          "one_process": one_train_peak},
+                          "one_process": one["halo"]["peak"]},
         train_base_bytes={"pair": [r["train_base_bytes"] for r in pair],
                           "fsdp": [r["train_base_bytes"] for r in fsdp]},
         eval_peak_bytes={"pair": [r["eval_peak_bytes"] for r in pair],
-                         "one_process": one_eval_peak},
+                         "one_process": one["halo"]["eval_peak"]},
         eval_volume_bytes=[r["eval_volume_bytes"] for r in pair],
         volume_level0_estimate_bytes={
             "rank": (h8 // 2) * w8 * h8 * w8 * 4,
@@ -4967,14 +5134,29 @@ def phase_halo(torch, dev, card) -> dict:
         rank_seconds={"pair_train": [r["train_s"] for r in pair],
                       "pair_eval": [r["eval_s"] for r in pair],
                       "fsdp_train": [r["train_s"] for r in fsdp]},
-        launches=[r["launches"] for r in pair + fsdp],
+        launches=[r["launches"] for r in pair + fsdp]
+        + [r["eval_launches"] for r in pair],
         card=card)
     emit(rec)
+    fence = rec["fence"]
     if not (rec["pair_loss_excess"] <= 1 and rec["fsdp_loss_excess"] <= 1
             and rec["pair_params_excess"] <= 1
             and rec["fsdp_params_excess"] <= 1 and rec["finite"]
             and rec["eval_low_px"] <= TOL_HALO_EVAL_PX
             and rec["eval_up_px"] <= TOL_HALO_EVAL_PX
+            and fence["pair_loss_excess"] <= 1
+            and fence["fsdp_loss_excess"] <= 1
+            and fence["pair_params_excess"] <= 1
+            and fence["fsdp_params_excess"] <= 1
+            and fence["eval_low_px"] <= TOL_HALO_EVAL_PX
+            and fence["eval_up_px"] <= TOL_HALO_EVAL_PX
+            and fence["b1_per_step"] == [[HALO_ITERS] * HALO_STEPS] * 2
+            + [[HALO_ITERS]] * 4
+            and fence["eval_b1"] == [HALO_EVAL_ITERS] * 2
+            and fence["one_process_eval_b1"] == HALO_EVAL_ITERS
+            and not any(n for counts in fence["launches"]
+                        for k, n in counts.items()
+                        if k != "flash_fused_step")
             and rec["backend"] == ["gloo"] * 6
             and rec["ranks_mesh"] == {2: [[0, 0, 0], [0, 0, 1]],
                                       4: [[0, 0, 0], [0, 0, 1], [0, 1, 0],
@@ -5106,9 +5288,10 @@ def main(argv=None) -> int:
     # data-parallel training on two ranks sharing the card, and a 1-rank
     # NCCL group (A12's first half)
     ddp = phase_ddp(torch, dev, smi)
-    # halo compute sharding and the row-block correlation (A12.2, A12.3):
-    # v1 over a seq axis of two ranks sharing the card, and fsdp x seq
-    phase_halo(torch, dev, smi)
+    # halo compute sharding, the row-block correlation and the fence step
+    # on row slabs (A12.2, A12.3, A12.2b): v1 over a seq axis of two ranks
+    # sharing the card, and fsdp x seq
+    halo_rec = phase_halo(torch, dev, smi)
     times = phase_times(torch, ck, gen, dev, v1_models, v5_models, smi)
 
     pc = "dexiraft_tpu/ops/pallas_corr.py"
@@ -5148,6 +5331,12 @@ def main(argv=None) -> int:
         entry["dexined_launches"] = dexined["launches"][entry["name"]]
         # every rank's launches in the ddp phase's runs
         entry["ddp_launches"] = ddp["launches"][entry["name"]]
+        # every rank's launches on the fence step on row slabs: the
+        # train steps and the measured eval forward
+        entry["fence_seq_launches"] = sum(
+            counts[entry["name"]] for counts in halo_rec["fence"]["launches"]
+        ) + (sum(halo_rec["fence"]["eval_b1"])
+             if entry["name"] == "flash_fused_step" else 0)
     # strict mode's checks: the in-process region's and the children's
     from dexiraft_tpu_torch.analysis import guards
 

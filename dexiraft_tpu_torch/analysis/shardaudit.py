@@ -16,7 +16,8 @@ virtual_mesh``: no process group, no forward, a ``meta`` model):
     ``parallel.layout.local_rows`` over the data axis and, on a seq mesh,
     ``parallel.halo.slab`` over the seq axis (read on index-coded
     tensors, so the audit sees which rows and image rows each rank
-    holds).
+    holds); the metrics the train step returns, 0-d values every rank
+    holds after their reduction.
 
 From the ranks' pieces of each tensor it derives the spec: per dim the
 mesh axes the pieces vary along, written in the flax logical order
@@ -25,21 +26,28 @@ strings compare with JAX's (``P(None, None, None, 'fsdp')``). Each group
 is summarised in JAX's format: the sorted set of specs, the leaf count,
 the whole bytes and the largest leaf's.
 
-Legs (one golden file each, beside this module):
+Legs (golden files beside this module):
 
   * ``train_fsdp`` (``layout_golden_fsdp.json``): v1 small, 48x64, batch
-    8, 2 iterations, on (data 2, fsdp 2). JAX's leg adds seq 2; the port
-    runs no fence step on a seq mesh (ROADMAP A12.2b), and the state's
-    groups do not depend on seq. The file also holds ``plans``: each
-    ``ShardPlan.layout()`` of full-width v1 and v5 at 2 and 4 ways with
-    its parameters' section, the production leaf policy pinned.
-  * ``train_halo`` (``layout_golden_halo.json``): the same model on
-    (data 2, fsdp 2, seq 2), through ``halo.check_halo_support``.
-
-  * ``serve``, ``serve_encode``, ``serve_refine`` (``layout_golden.json``,
-    JAX's file's name): the data-parallel eval step and the streaming
-    encode and refine steps (``train.step.make_*_step(mesh=)``) on JAX's
-    serve mesh, ``{data: 8}``, here 8 entries of the CPU
+    8, 2 iterations, the fence step on JAX's (data 2, fsdp 2, seq 2)
+    mesh. The file also holds ``plans``: each ``ShardPlan.layout()`` of
+    full-width v1 and v5 at 2 and 4 ways with its parameters' section,
+    the production leaf policy pinned.
+  * ``train_halo`` (``layout_golden_halo.json``): the same model on the
+    same mesh, through ``halo.check_halo_support``.
+  * ``train`` and ``eval`` (``layout_golden.json``, JAX's file's name):
+    the fence train step and the fence eval step on JAX's train mesh,
+    ``{data: 4, seq: 2}``, in JAX's geometry; the eval step in its
+    production configuration (v1 small, ``corr_impl="flash"``,
+    ``fused_update=True``). The eval step reads each replica's whole
+    parameters and its rows and image rows of image1, image2 and
+    flow_init (``train.step._seq_slab``, the step's own cut, on
+    index-coded inputs); its outputs are the forward of those slabs,
+    one output row block per input row block, read by the same cut.
+  * ``serve``, ``serve_encode``, ``serve_refine`` (``layout_golden.json``):
+    the data-parallel eval step and the streaming encode and refine steps
+    (``train.step.make_*_step(mesh=)``) on JAX's serve mesh, ``{data:
+    8}``, here 8 entries of the CPU
     (``parallel.layout.make_serve_mesh(devices=("cpu",) * 8)``), in JAX's
     geometry and production configuration: v1 small with
     ``corr_impl="flash"``, ``fused_update=True``, 48x64, batch 8, 2
@@ -53,14 +61,13 @@ Legs (one golden file each, beside this module):
     of each output's shards (``RowShards.rows``). Groups carry JAX's
     positional names (``[0]['params']``, ``[1]``, ``['ctx']``, ...); the
     golden's header lists the port argument each stands for
-    (:data:`SERVE_NAMES`). JAX's file also has ``train`` and ``eval``
-    sections, the fence steps on ``{data: 4, seq: 2}``: they wait for
-    the fence step on a seq mesh (ROADMAP A12.2b).
+    (:data:`SERVE_NAMES`).
 
-All three carry the declared groups of JAX's ``declared_groups`` at the
-production geometry (440x1024, batch 8), resolved on each golden's JAX
-mesh (data 2, fsdp 2, seq 2 for the train legs; JAX's train mesh, data 4,
-seq 2, for the serve golden): each group's canonical spec
+All three files carry the declared groups of JAX's ``declared_groups``
+at the production geometry (440x1024, batch 8), resolved on each
+golden's JAX mesh (data 2, fsdp 2, seq 2 for the fsdp and halo files;
+JAX's train mesh, data 4, seq 2, for ``layout_golden.json``): each
+group's canonical spec
 (``parallel.layout.group_spec``), total and per-rank megabytes, whether
 it is replicated, and the flag of a replicated group over the threshold
 (64 MB) that ``parallel.layout.REPLICATED_OK`` does not exempt.
@@ -70,9 +77,11 @@ Group names follow the port's train state: ``[0].params``,
 ``[0].opt_count`` (the optimizer's step count, a Python int in its
 parameter group, counted at 8 bytes, as is ``[0].step``),
 ``[0].generator`` (the generator's state: JAX's ``[0].rng`` key), and
-``[1]['image1']`` ... for the batch. JAX's ``[0].opt_state`` holds the
-moments and two int32 counts (optax's adam and schedule counts); the
-goldens' header lists these correspondences.
+``[1]['image1']`` ... for the batch, ``[1]['loss']`` ... for the train
+step's metrics (its ``lr`` a Python float, counted at 8 bytes: JAX's is
+an f32 array). JAX's ``[0].opt_state`` holds the moments and two int32
+counts (optax's adam and schedule counts); the goldens' header lists
+these correspondences.
 
   python -m dexiraft_tpu_torch.analysis.shardaudit [--write]
 
@@ -103,8 +112,10 @@ PROD_IMAGE = (440, 1024)
 PROD_BATCH = 8
 DEFAULT_THRESHOLD_MB = 64.0
 #: the legs' meshes, and the mesh the declared groups resolve on (JAX's)
-FSDP_MESH = {"data": 2, "fsdp": 2}
+FSDP_MESH = {"data": 2, "fsdp": 2, "seq": 2}
 HALO_MESH = {"data": 2, "fsdp": 2, "seq": 2}
+#: the fence train and eval legs' mesh (JAX's train mesh)
+TRAIN_MESH = {"data": 4, "seq": 2}
 DECLARED_MESH = {"data": 2, "fsdp": 2, "seq": 2}
 #: the serve legs' mesh, and the mesh the serve golden's declared groups
 #: resolve on (JAX's serve mesh and its train mesh)
@@ -116,6 +127,10 @@ PLANS = (("v1", 2), ("v1", 4), ("v5", 2), ("v5", 4))
 INT_BYTES = 8
 #: what the goldens' groups are in JAX's report
 RENAMED = {"[0].rng": "[0].generator"}
+#: the train step's metrics: name -> bytes of the 0-d value every rank
+#: returns (``lr`` is the update's Python float)
+METRIC_BYTES = {"loss": 4, "epe": 4, "1px": 4, "3px": 4, "5px": 4,
+                "lr": INT_BYTES, "state_finite": 1}
 OPT_STATE_SCALARS = {
     "jax": "[0].opt_state holds the moments and two int32 counts "
            "(optax's adam and schedule counts)",
@@ -140,6 +155,10 @@ SERVE_NAMES = {
                "[1]['fmap']": "features1['fmap']",
                "[2]['ctx']": "features2['ctx']",
                "[2]['fmap']": "features2['fmap']", "[3]": "flow_init"},
+        "out": {"[0]": "flow_low", "[1]": "flow_up"}},
+    "eval": {
+        "in": {"[0]['params']": "the model's parameters",
+               "[1]": "image1", "[2]": "image2", "[5]": "flow_init"},
         "out": {"[0]": "flow_low", "[1]": "flow_up"}},
 }
 
@@ -328,7 +347,7 @@ def _batch_groups(mesh_of, n_ranks: int, axes: Sequence[str],
                   accum: int, seq: bool) -> Dict[str, Dict[str, Any]]:
     """The batch's groups: each rank's rows (``local_rows``) and, on a
     seq mesh, its image rows (``halo.slab`` of the rank's rows, as the
-    halo step cuts them), read on index-coded tensors."""
+    fence and halo steps cut them), read on index-coded tensors."""
     from dexiraft_tpu_torch.parallel.halo import slab
     from dexiraft_tpu_torch.parallel.layout import data_axis, local_rows
 
@@ -369,15 +388,29 @@ def _audit_configs():
     return cfg, tc
 
 
+def _metric_groups() -> Dict[str, Dict[str, Any]]:
+    out = {}
+    for name, nbytes in METRIC_BYTES.items():
+        g = _Group()
+        g.add((), nbytes)
+        out[f"[1][{name!r}]"] = g.summary()
+    return out
+
+
+def _mesh_dims(mesh_axes: Dict[str, int]) -> Tuple[int, int, int]:
+    from dexiraft_tpu_torch.parallel.layout import (DATA_AXIS, FSDP_AXIS,
+                                                    SEQ_AXIS)
+
+    return (mesh_axes[DATA_AXIS], mesh_axes.get(FSDP_AXIS, 1),
+            mesh_axes.get(SEQ_AXIS, 1))
+
+
 def audit_leg(mesh_axes: Dict[str, int], halo: bool) -> Dict[str, Any]:
     """One train leg's section: {mesh, in, out} (module docstring)."""
-    from dexiraft_tpu_torch.parallel.layout import (DATA_AXIS, FSDP_AXIS,
-                                                    LAYOUT_AXES, SEQ_AXIS,
-                                                    virtual_mesh)
+    from dexiraft_tpu_torch.parallel.layout import LAYOUT_AXES, virtual_mesh
 
     cfg, tc = _audit_configs()
-    dims = (mesh_axes[DATA_AXIS], mesh_axes[FSDP_AXIS],
-            mesh_axes.get(SEQ_AXIS, 1))
+    dims = _mesh_dims(mesh_axes)
     n_ranks = dims[0] * dims[1] * dims[2]
 
     def mesh_of(r):
@@ -387,6 +420,10 @@ def audit_leg(mesh_axes: Dict[str, int], halo: bool) -> Dict[str, Any]:
         from dexiraft_tpu_torch.parallel.halo import check_halo_support
 
         check_halo_support(cfg, tc, mesh_of(0))
+    elif dims[2] > 1:
+        from dexiraft_tpu_torch.train.step import check_seq_fence
+
+        check_seq_fence(cfg)
     ranks = []
     for r in range(n_ranks):
         mesh = mesh_of(r)
@@ -394,14 +431,62 @@ def audit_leg(mesh_axes: Dict[str, int], halo: bool) -> Dict[str, Any]:
         ranks.append((plan, opt, _coords(mesh)))
     state_in = _state_groups(ranks, LAYOUT_AXES)
     batch = _batch_groups(mesh_of, n_ranks, LAYOUT_AXES, tc.accum_steps,
-                          seq=halo)
+                          seq=dims[2] > 1)
     for plan, _, _ in ranks:
         plan.free_()  # the step's exit fence: only the slices stay
         if any(leaf.param.numel() for leaf in plan.sharded):
             raise ValueError("a sharded parameter kept its full storage")
     state_out = _state_groups(ranks, LAYOUT_AXES)
     return {"mesh": dict(mesh_axes), "in": {**state_in, **batch},
-            "out": state_out}
+            "out": {**state_out, **_metric_groups()}}
+
+
+def audit_eval_leg(mesh_axes: Dict[str, int] = TRAIN_MESH
+                   ) -> Dict[str, Any]:
+    """The fence eval step's section on a seq mesh (module docstring):
+    each rank's whole parameters (a meta model of the production
+    config) and its rows and image rows of the inputs, cut by the step's
+    own ``_seq_slab`` after ``local_rows``; the outputs the same cut of
+    the outputs' rows."""
+    from dexiraft_tpu_torch.config import raft_v1
+    from dexiraft_tpu_torch.parallel.layout import (LAYOUT_AXES, data_axis,
+                                                    local_rows, virtual_mesh)
+    from dexiraft_tpu_torch.train.step import _seq_slab, check_seq_fence
+
+    cfg = raft_v1(small=True, corr_impl="flash", fused_update=True)
+    check_seq_fence(cfg)
+    dims = _mesh_dims(mesh_axes)
+    n_ranks = dims[0] * dims[1] * dims[2]
+    b, (h, w) = AUDIT_BATCH, AUDIT_IMAGE
+    shapes = {"[1]": (b, h, w, 3), "[2]": (b, h, w, 3),
+              "[5]": (b, h // 8, w // 8, 2), "out[0]": (b, h // 8, w // 8, 2),
+              "out[1]": (b, h, w, 2)}
+    coords, pieces = [], {k: [] for k in shapes}
+    for r in range(n_ranks):
+        mesh = virtual_mesh(r, *dims)
+        coords.append(_coords(mesh))
+        mine = local_rows(b, 1, data_axis(mesh))
+        for key, shape in shapes.items():
+            rows = tuple(range(b)) if mine is None else tuple(mine.tolist())
+            ids = torch.arange(shape[1]).view(1, shape[1], 1)
+            pieces[key].append((rows, tuple(
+                _seq_slab(ids, mesh.seq).reshape(-1).tolist())))
+    groups = {}
+    for key, shape in shapes.items():
+        dims_pieces = ([[p[0] for p in pieces[key]],
+                        [p[1] for p in pieces[key]]]
+                       + [[tuple(range(n))] * n_ranks for n in shape[2:]])
+        g = _Group()
+        g.add(_spec(dims_pieces, coords, shape, LAYOUT_AXES, trim=True),
+              _nbytes(shape, 4))
+        groups[key] = g.summary()
+    params = _Group()
+    for p in _meta_model(cfg).parameters():
+        params.add((), _nbytes(p.shape, p.element_size()))
+    return {"mesh": dict(mesh_axes),
+            "in": {"[0]['params']": params.summary(),
+                   **{k: groups[k] for k in ("[1]", "[2]", "[5]")}},
+            "out": {"[0]": groups["out[0]"], "[1]": groups["out[1]"]}}
 
 
 def plan_section(plan) -> Dict[str, Any]:
@@ -489,12 +574,12 @@ def _header(serve: bool = False) -> Dict[str, Any]:
     from dexiraft_tpu_torch.parallel.layout import LAYOUT_AXES
 
     head = {"version": 1, "axes": {a: a for a in LAYOUT_AXES},
-            "audit_image": list(AUDIT_IMAGE), "audit_batch": AUDIT_BATCH}
-    if serve:  # JAX's group names, each standing for a port argument
-        return {**head, "renamed_from_jax": {},
-                "positional_names": SERVE_NAMES}
-    return {**head, "renamed_from_jax": dict(RENAMED),
+            "audit_image": list(AUDIT_IMAGE), "audit_batch": AUDIT_BATCH,
+            "renamed_from_jax": dict(RENAMED),
             "opt_state_scalars": dict(OPT_STATE_SCALARS)}
+    if serve:  # JAX's group names, each standing for a port argument
+        return {**head, "positional_names": SERVE_NAMES}
+    return head
 
 
 # ---- the serve legs -------------------------------------------------------
@@ -664,12 +749,16 @@ SERVE_STEPS = ("serve", "serve_encode", "serve_refine")
 
 
 def run_audit(leg: str) -> Dict[str, Any]:
-    """The report of ``leg`` ("fsdp", "halo" or "serve")."""
+    """The report of ``leg`` ("fsdp", "halo" or "serve": the file
+    ``layout_golden.json``, whose steps are the serve legs and the fence
+    ``train`` and ``eval`` legs)."""
     if leg == "serve":
+        steps = {name: audit_serve_leg(name) for name in SERVE_STEPS}
+        steps["train"] = audit_leg(TRAIN_MESH, False)
+        steps["eval"] = audit_eval_leg()
         return {**_header(serve=True),
                 "declared": declared_groups(False, SERVE_DECLARED_MESH),
-                "steps": {name: audit_serve_leg(name)
-                          for name in SERVE_STEPS}}
+                "steps": dict(sorted(steps.items()))}
     halo = leg == "halo"
     report = {**_header(),
               "declared": declared_groups(halo),

@@ -40,10 +40,26 @@ and dropout draws the global microbatch's masks and keeps this rank's
 rows. Under fsdp the data axis is the data subgroup (the ranks of one
 fsdp group hold the same rows), whose process group the statistics
 reduce over.
+
+Row sharding over a seq axis (:func:`set_seq_mesh`, the fence steps on a
+(data[, fsdp], seq) mesh): each rank holds a contiguous slab of every
+map's rows, and each layer does what the unsharded layer does to the
+whole image, restricted to this rank's rows, as JAX's partitioner makes
+its layers do under ``P('data', 'seq')``. A conv exchanges its kernel's
+rows with its seq neighbours and convolves VALID in H, zero-padded in W
+(``parallel.halo.halo_conv``; the edge ranks' missing rows are the
+unsharded zero padding); instance and group norm merge their slabs'
+moments over seq (``parallel.halo.instance_norm``, Chan's rule);
+training-mode BatchNorm merges its statistics over (data, seq) with the
+same rule (:func:`_global_var_mean`), so its running statistics are one
+process's; channel dropout draws the global batch's masks, so every seq
+rank of a data index keeps the same ones. A layer with no seq axis set is
+untouched.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -59,14 +75,32 @@ class ComputeDtype:
     compute_dtype: Optional[torch.dtype] = None
 
 
-class Conv2d(ComputeDtype, nn.Conv2d):
-    """``nn.Conv2d`` with flax's ``dtype=`` rule (module docstring)."""
+class SeqAware:
+    """Mixin of the modules that act on a row slab when a seq axis is set
+    (:func:`set_seq_mesh`): ``seq`` is that axis (a
+    ``parallel.layout.MeshAxis``), None for the whole image."""
+
+    seq = None
+
+
+class Conv2d(ComputeDtype, SeqAware, nn.Conv2d):
+    """``nn.Conv2d`` with flax's ``dtype=`` rule (module docstring); on a
+    row slab (``seq``) the halo conv of ``parallel.halo``."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        if dt is None:
+        if self.seq is not None:
+            from dexiraft_tpu_torch.parallel.halo import halo_conv
+
+            if dt is None:
+                return halo_conv(x, self.weight, self.bias, self.seq,
+                                 self.stride[0])
+            y = halo_conv(x.to(dt), self.weight.to(dt), None, self.seq,
+                          self.stride[0])
+        elif dt is None:
             return super().forward(x)
-        y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
+        else:
+            y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
         return y if self.bias is None else y + self.bias.to(dt)[:, None, None]
 
 
@@ -143,20 +177,24 @@ class _FlaxBatchNorm2d(nn.BatchNorm2d):
     #: axis) whose global microbatch the training-mode statistics cover;
     #: None: this process's rows
     mesh = None
+    #: on row slabs (set_seq_mesh): the data and seq axes as one, whose
+    #: slabs of the global microbatch the statistics cover instead
+    seq = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        if self.mesh is not None:
-            var, mean = _global_var_mean(x, self.mesh)
+        axis = self.mesh if self.seq is None else self.seq
+        if axis is not None:
+            var, mean = _global_var_mean(x, axis)
         with torch.no_grad():
-            if self.mesh is None:
+            if axis is None:
                 var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
             self.running_var.mul_(1.0 - m).add_(var, alpha=m)
             self.num_batches_tracked.add_(1)
-        if self.mesh is None:
+        if axis is None:
             return F.batch_norm(x, None, None, self.weight, self.bias, True,
                                 0.0, self.eps)
         shape = (1, -1, 1, 1)
@@ -174,12 +212,42 @@ class BatchNorm2d(_Fp32Norm, _FlaxBatchNorm2d):
     and the normalisation are fp32 (module docstring)."""
 
 
-class GroupNorm(_Fp32Norm, nn.GroupNorm):
-    """``nn.GroupNorm`` that follows the compute dtype (module docstring)."""
+class _SeqGroupNorm(SeqAware, nn.GroupNorm):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.seq is None:
+            return super().forward(x)
+        from dexiraft_tpu_torch.parallel.halo import instance_norm
+
+        # a group's moments over (C/G, H, W) are an instance norm's over
+        # the (C/G * H, W) map of the grouped view, slab for slab
+        n, c, h, w = x.shape
+        y = instance_norm(x.reshape(n, self.num_groups, -1, w), self.seq,
+                          self.eps).reshape(n, c, h, w)
+        if self.affine:
+            y = y * self.weight[:, None, None] + self.bias[:, None, None]
+        return y
 
 
-class InstanceNorm2d(_Fp32Norm, nn.InstanceNorm2d):
-    """``nn.InstanceNorm2d`` that follows the compute dtype."""
+class _SeqInstanceNorm(SeqAware, nn.InstanceNorm2d):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.seq is None:
+            return super().forward(x)
+        from dexiraft_tpu_torch.parallel.halo import instance_norm
+
+        y = instance_norm(x, self.seq, self.eps)
+        if self.affine:
+            y = y * self.weight[:, None, None] + self.bias[:, None, None]
+        return y
+
+
+class GroupNorm(_Fp32Norm, _SeqGroupNorm):
+    """``nn.GroupNorm`` that follows the compute dtype (module docstring)
+    and merges its moments over seq on a row slab."""
+
+
+class InstanceNorm2d(_Fp32Norm, _SeqInstanceNorm):
+    """``nn.InstanceNorm2d`` that follows the compute dtype and merges its
+    moments over seq on a row slab."""
 
 
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -204,6 +272,49 @@ def set_data_mesh(model: nn.Module, mesh, micro: int = 0) -> nn.Module:
         if isinstance(m, ChannelDropout):
             m.micro = micro
     return model
+
+
+#: what row slabs refuse: v4/v5's embedded DexiNed
+SEQ_REFUSAL = ("a fence step on a seq mesh runs v1, v2 and v3 only: v4/v5's "
+               "embedded DexiNed is not row-sharded yet (ROADMAP A12.2c, "
+               "DexiNed on row slabs)")
+
+
+def set_seq_mesh(model: nn.Module, mesh) -> nn.Module:
+    """Give every layer of ``model`` the seq axis of ``mesh`` (a
+    ``parallel.layout.FsdpMesh`` with a seq axis; None: the whole image
+    again, every layer untouched): convs, instance and group norms and
+    the model itself (``SeqAware``) take ``mesh.seq``, every BatchNorm
+    ``mesh.data_seq`` (module docstring). Refuses a model holding a layer
+    with no row rule (v4/v5's embedded DexiNed: its transposed convs and
+    max-pools) or a conv whose padding is not k // 2."""
+    seq = None if mesh is None else mesh.seq
+    joint = None if mesh is None else mesh.data_seq
+    named = list(model.named_modules()) if seq is not None else []
+    for name, m in named:
+        if isinstance(m, nn.ConvTranspose2d):
+            raise ValueError(f"{SEQ_REFUSAL} ({name} has no row rule)")
+    for name, m in named:
+        if isinstance(m, nn.Conv2d) and any(
+                p != k // 2 for p, k in zip(m.padding, m.kernel_size)):
+            raise ValueError(f"{name}: padding {m.padding} is not k // 2 "
+                             "of its kernel, which row slabs need")
+    for m in model.modules():
+        if isinstance(m, _FlaxBatchNorm2d):
+            m.seq = joint
+        elif isinstance(m, SeqAware):
+            m.seq = seq
+    return model
+
+
+@contextlib.contextmanager
+def seq_mesh(model: nn.Module, mesh):
+    """:func:`set_seq_mesh` for the body; the whole image again after."""
+    set_seq_mesh(model, mesh)
+    try:
+        yield model
+    finally:
+        set_seq_mesh(model, None)
 
 
 def set_compute_dtype(model: nn.Module, dtype: Optional[torch.dtype]

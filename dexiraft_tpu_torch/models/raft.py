@@ -68,6 +68,19 @@ backward under either policy, as the Pallas call is in JAX.
 ``cfg.remat_lookup`` (unfused paths, without ``remat``) recomputes only
 the lookup. None of them applies when autograd is off (eval, serve and
 the adaptive loop run as without them).
+
+On row slabs (``layers.set_seq_mesh``: the fence steps on a mesh with a
+seq axis, v1-v3) the same forward runs on this rank's block of image
+rows, every conv and norm seq-aware; the model's own seq-dependent
+steps are four: ``coords0`` is the slab's grid in global pixels
+(``parallel.halo.global_coords_grid``); the pyramid is the row block,
+this rank's queries against fmap2 gathered over seq, for every
+``corr_impl`` (``parallel.context.row_block_pyramid``), so B1 takes a
+query block of the slab's rows against full-height levels; the
+upsamplers read one coarse halo row each (``parallel.halo.
+upsample_convex`` / ``upflow8``); and the gated loop's per-item ``dn``
+is the slab's sum, summed over seq, over the global H·W, so every seq
+rank freezes the same items on the same iteration.
 """
 
 from __future__ import annotations
@@ -76,6 +89,7 @@ import functools
 from typing import Dict, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -86,7 +100,8 @@ from dexiraft_tpu_torch.config import PORTED_CORR_IMPLS, RAFTConfig
 from dexiraft_tpu_torch.device import resolve_device
 from dexiraft_tpu_torch.models.dexined import DexiNed, stack_edge_maps
 from dexiraft_tpu_torch.models.extractor import BasicEncoder, SmallEncoder
-from dexiraft_tpu_torch.models.layers import (ChannelDropout, seeded_init_,
+from dexiraft_tpu_torch.models.layers import (ChannelDropout, SeqAware,
+                                              seeded_init_,
                                               set_compute_dtype)
 from dexiraft_tpu_torch.models.update import (BasicUpdateBlock, RefineFlow,
                                               SmallUpdateBlock)
@@ -127,7 +142,7 @@ def _dots_saveable(ctx, op, *args, **kwargs) -> CheckpointPolicy:
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-class RAFT(nn.Module):
+class RAFT(SeqAware, nn.Module):
     """RAFT v1-v5 with the reference's torch attribute names (``fnet``,
     ``cnet``, ``efnet``, ``ecnet``, ``update_block``, ``dexined``; v3's
     head is ``refine_flow``), so converted weights load strictly. v3's edge
@@ -311,6 +326,11 @@ class RAFT(nn.Module):
     def _upsample(self, flow: torch.Tensor,
                   mask: Optional[torch.Tensor]) -> torch.Tensor:
         flow = flow.float()
+        if self.seq is not None:
+            from dexiraft_tpu_torch.parallel import halo
+
+            return (halo.upflow8(flow, self.seq) if mask is None
+                    else halo.upsample_convex(flow, mask.float(), self.seq))
         if mask is None:  # the small model has no mask head
             return upflow8(flow.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
         return upsample_flow_convex_nchw(flow, mask.float())
@@ -387,7 +407,13 @@ class RAFT(nn.Module):
         net = torch.tanh(ctx[:, :hdim])
         inp = F.relu(ctx[:, hdim:])
         b, _, h8, w8 = fmap1.shape
-        coords0 = coords_grid(b, h8, w8, device=fmap1.device)
+        seq = self.seq
+        if seq is None:
+            coords0 = coords_grid(b, h8, w8, device=fmap1.device)
+        else:
+            from dexiraft_tpu_torch.parallel.halo import global_coords_grid
+
+            coords0 = global_coords_grid(b, h8, w8, seq, fmap1.device)
         coords1 = coords0.clone()
         if flow_init is not None:
             coords1 = coords1 + flow_init.permute(0, 2, 3, 1)
@@ -403,7 +429,14 @@ class RAFT(nn.Module):
 
         # the lookup's layout: NHWC, one pixel's channels contiguous
         f1, f2 = fmap1.permute(0, 2, 3, 1), fmap2.permute(0, 2, 3, 1)
-        if cfg.corr_impl == "allpairs":
+        if seq is not None:
+            from dexiraft_tpu_torch.parallel.context import row_block_pyramid
+
+            pyr = row_block_pyramid(f1, f2, seq, cfg.corr_levels, cfg.radius,
+                                    corr_impl=cfg.corr_impl,
+                                    dtype=cfg.corr_dtype,
+                                    row_chunk=cfg.corr_row_chunk)
+        elif cfg.corr_impl == "allpairs":
             pyr = build_corr_pyramid(f1, f2, cfg.corr_levels, cfg.radius,
                                      dtype=cfg.corr_dtype)
         else:
@@ -444,7 +477,13 @@ class RAFT(nn.Module):
             new_coords, new_net, new_mask = self._step(pyr, inp, base,
                                                        coords1, net, b)
             d = new_coords[:b] - coords1[:b]
-            dn = d.square().sum(-1).sqrt().mean((1, 2))
+            dn = d.square().sum(-1).sqrt()
+            if seq is None:
+                dn = dn.mean((1, 2))
+            else:  # the slabs' sums over the whole image's pixels
+                dn = dn.sum((1, 2))
+                dist.all_reduce(dn, group=seq.group)
+                dn = dn / (h8 * seq.size * w8)
             active = ~done
             rows = torch.cat([active, active]) if dual else active
             rows = rows[:, None, None, None]

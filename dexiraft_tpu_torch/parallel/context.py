@@ -17,7 +17,9 @@ when JAX shards one global array by rows.
     queries against the whole target map (:func:`row_block_pyramid`):
     each rank materializes a (B·H_loc·W, H, W) slice of the volume. The
     halo train and eval steps build their pyramid this way
-    (parallel/halo.py).
+    (parallel/halo.py), and so does the model on row slabs for every
+    ``corr_impl`` (models/raft.py): the on-demand lookups keep the
+    gathered fmap2 levels and correlate this rank's queries per lookup.
   * :func:`ring_corr_lookup`: fmap2 stays sharded. Per level, the target
     blocks rotate around the seq ring; at each of the n_seq hops a rank
     correlates its queries against the visiting block and adds that
@@ -36,11 +38,14 @@ send moves one.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from dexiraft_tpu_torch.ops.corr import (CorrPyramid, _axis_interp_matrix,
+from dexiraft_tpu_torch.ops.corr import (_axis_interp_matrix,
                                          all_pairs_correlation, avg_pool_2x2,
                                          build_corr_pyramid, corr_lookup)
+from dexiraft_tpu_torch.ops.local_corr import build_local_corr
 from dexiraft_tpu_torch.parallel.fsdp import all_gather_flat
 from dexiraft_tpu_torch.parallel.layout import MeshAxis
 
@@ -93,13 +98,23 @@ def _check_axis(axis: MeshAxis) -> None:
 
 def row_block_pyramid(fmap1: torch.Tensor, fmap2: torch.Tensor,
                       axis: MeshAxis, num_levels: int = 4,
-                      radius: int = 4) -> CorrPyramid:
-    """The all-pairs pyramid of this rank's queries ``fmap1`` (B, H_loc,
-    W, D) against the whole target map, gathered from every rank's
-    ``fmap2`` row block: this rank's (B·H_loc·W, H>>l, W>>l) slice of
-    each level."""
-    return build_corr_pyramid(fmap1, gather_rows(fmap2, axis), num_levels,
-                              radius)
+                      radius: int = 4, corr_impl: str = "allpairs",
+                      dtype: str = "fp32", row_chunk: Optional[int] = None):
+    """The pyramid of this rank's queries ``fmap1`` (B, H_loc, W, D)
+    against the whole target map, gathered from every rank's ``fmap2``
+    row block (the gather's backward sends each row's gradient to its
+    owner). ``corr_impl`` "allpairs": this rank's (B·H_loc·W, H>>l, W>>l)
+    slice of each level (a ``CorrPyramid``); "local", "flash", "pallas":
+    the whole fmap2 and its pooled levels beside this rank's queries (a
+    ``LocalCorr``, whose kernels take the query block against the
+    full-height levels), each level stored in ``dtype``."""
+    f2 = gather_rows(fmap2, axis)
+    if corr_impl == "allpairs":
+        return build_corr_pyramid(fmap1, f2, num_levels, radius, dtype=dtype)
+    return build_local_corr(fmap1, f2, num_levels, radius,
+                            row_chunk=row_chunk, dtype=dtype,
+                            kernel="plain" if corr_impl == "local"
+                            else corr_impl)
 
 
 def context_parallel_corr(fmap1: torch.Tensor, fmap2: torch.Tensor,

@@ -2,9 +2,9 @@
 
 Counterpart of ``make_train_step``, ``make_eval_step``, ``make_encode_step``
 and ``make_refine_step`` in ``dexiraft_tpu/train/step.py``, on one device;
-the train step also runs data-parallel over ranks, and with its
-parameters and Adam moments stored sharded over an fsdp axis (its
-``mesh=``). The test-mode steps also run data-parallel in one process
+the train step also runs data-parallel over ranks, with its parameters
+and Adam moments stored sharded over an fsdp axis, and with its image
+rows sharded over a seq axis (its ``mesh=``; the eval step too). The test-mode steps also run data-parallel in one process
 over a serve mesh (``parallel.layout.make_serve_mesh``, their
 ``mesh=``): one replica of the model per entry, each batch's rows cut
 into one block per entry, each block's forward launched on its entry's
@@ -42,7 +42,8 @@ import torch.distributed as dist
 from dexiraft_tpu_torch.analysis import guards
 from dexiraft_tpu_torch.config import RAFTConfig, TrainConfig
 from dexiraft_tpu_torch.device import resolve_device
-from dexiraft_tpu_torch.models.layers import set_data_mesh
+from dexiraft_tpu_torch.models.layers import (SEQ_REFUSAL, seq_mesh,
+                                              set_data_mesh)
 from dexiraft_tpu_torch.models.raft import RAFT
 from dexiraft_tpu_torch.ops.losses import (METRIC_KEYS, metrics_from_sums,
                                            sequence_loss_sums)
@@ -219,8 +220,12 @@ def make_eval_step(model: RAFT, iters: int = 24,
     ``parallel.layout.replicate``, which steps built over one mesh then
     share. ``iter_budget`` is one value for every block; the gated loop
     freezes each row on its own, so a block whose loop ends early gives
-    the rows the whole batch would. A fence step on a seq mesh is refused
-    (ROADMAP A12.2b).
+    the rows the whole batch would.
+
+    ``mesh`` a seq mesh (``parallel.make_train_mesh(..., seq=N)``, with
+    or without fsdp), ``compute_sharding="fence"``: the row-sharded
+    forward of the model itself (:func:`_make_seq_eval_step`), JAX's
+    fence eval step on ``P('data', 'seq')``.
     """
     if compute_sharding not in ("fence", "halo"):
         raise ValueError(f"compute_sharding must be fence|halo, "
@@ -235,10 +240,8 @@ def make_eval_step(model: RAFT, iters: int = 24,
     if shards is not None:
         raise ValueError("shards= belongs to compute_sharding='halo'")
     if has_seq(mesh):
-        raise ValueError(
-            "a fence eval step on a seq mesh is not ported to PyTorch "
-            "(ROADMAP A12.2b, seq in the fence step); rows shard over seq "
-            "in compute_sharding='halo'")
+        return _make_seq_eval_step(model, iters, device, tf32, adaptive,
+                                   mesh)
     if mesh is not None:
         mesh = check_serve_mesh(mesh)
         return _on_mesh([make_eval_step(rep, iters, dev, tf32, adaptive)
@@ -276,6 +279,57 @@ def make_eval_step(model: RAFT, iters: int = 24,
     @torch.inference_mode()
     def step(image1, image2, flow_init=None, *, edges1=None, edges2=None):
         return run(image1, image2, flow_init, edges1, edges2)
+
+    return step
+
+
+def _seq_slab(x, axis, dim: int = 1):
+    """This rank's block of image rows (``dim``) of a host array or
+    tensor (None passes)."""
+    if x is None:
+        return None
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    return halo.slab(x, axis, dim)
+
+
+def check_seq_fence(cfg: RAFTConfig) -> None:
+    """Refuse what the fence steps do not run on row slabs: v4/v5, whose
+    embedded DexiNed has no row rule yet (ROADMAP A12.2c)."""
+    if cfg.embed_dexined:
+        raise ValueError(SEQ_REFUSAL)
+
+
+def _make_seq_eval_step(model: RAFT, iters: int, device, tf32: bool,
+                        adaptive: bool, mesh: FsdpMesh):
+    """The fence eval step on a seq mesh: step(image1, image2,
+    flow_init=None[, iter_budget], *, edges1=None, edges2=None) ->
+    (flow_low, flow_up[, iters_used, final_delta]).
+
+    The inputs are this rank's rows of the batch (its data index's
+    block) at full height, NHWC, H divisible by 8·n_seq (pad with
+    ``data.padder.InputPadder(shape, seq=n_seq)``); flow_init and v2/v3's
+    edges likewise. The step keeps its seq index's block of image rows
+    of each and runs the one-device eval step's forward on it, the
+    model's layers on row slabs (``models.layers.seq_mesh``). It returns
+    this rank's slabs, as JAX's step leaves its outputs sharded
+    ``P('data', 'seq')``: flow_low (B, H/8/n_seq, W/8, 2), flow_up (B,
+    H/n_seq, W, 2). ``adaptive``: iters_used and final_delta are the same
+    on every seq rank (the gate's per-item delta is reduced over seq).
+    The model holds whole parameters (gather an fsdp state's with
+    ``state.shards.gathered_params()``)."""
+    check_seq_fence(model.cfg)
+    inner = make_eval_step(model, iters, device, tf32, adaptive)
+    seq = mesh.seq
+
+    def step(image1, image2, flow_init=None, *budget, edges1=None,
+             edges2=None):
+        halo.check_geometry(np.shape(image1)[1], mesh.n_seq)
+        with seq_mesh(model, mesh):
+            return inner(_seq_slab(image1, seq), _seq_slab(image2, seq),
+                         _seq_slab(flow_init, seq), *budget,
+                         edges1=_seq_slab(edges1, seq),
+                         edges2=_seq_slab(edges2, seq))
 
     return step
 
@@ -562,11 +616,27 @@ def make_train_step(cfg: RAFTConfig, tc: TrainConfig, mesh=None,
     stats stay fp32, with no loss scaling (bf16 has fp32's exponent
     range), as in JAX.
 
+    ``mesh`` a seq mesh (``parallel.make_train_mesh(..., seq=N)``, an
+    ``FsdpMesh`` whose fsdp axis may be one rank; the state in its
+    storage layout): JAX's fence step on ``P('data', 'seq')``. ``batch``
+    holds this rank's rows of the data axis at full height (H divisible
+    by 8·n_seq, at least 3 rows of 1/8 resolution a rank); the step draws
+    the noise of the global batch at full height, keeps its seq index's
+    block of image rows of every array, and runs the model's own forward
+    on that slab (``models.layers.seq_mesh``: halo convs, seq-merged
+    norms, BatchNorm statistics over (data, seq), the row-block pyramid,
+    B1 on a query block). Each rank's loss is its slab's mean and every
+    slab is the same size, so the global loss is the mean of the ranks'
+    losses over (data, seq) and its gradient the mean of their
+    gradients: the gradients are averaged over the (data, seq) group,
+    the metric sums summed over it (slabs hold different valid counts),
+    and the fsdp fences work as on a (data, fsdp) mesh. v4/v5 are
+    refused (ROADMAP A12.2c).
+
     ``compute_sharding="halo"`` on a mesh with a seq axis
     (``parallel.make_train_mesh(..., seq=N)``): image rows shard over
     the seq ranks and the parameters stay in their fsdp storage layout
     through compute (parallel/halo.py; :func:`_make_halo_train_step`).
-    A fence step on a seq mesh is refused (ROADMAP A12.2b).
     """
     if tc.precision not in ("fp32", "bf16"):
         raise ValueError(f"precision must be fp32|bf16, got {tc.precision!r}")
@@ -578,12 +648,9 @@ def make_train_step(cfg: RAFTConfig, tc: TrainConfig, mesh=None,
     cfg = train_model_config(cfg, tc)
     if compute_sharding == "halo":
         return _make_halo_train_step(cfg, tc, mesh)
-    if has_seq(mesh):
-        raise ValueError(
-            "a fence step on a seq mesh is not ported to PyTorch (ROADMAP "
-            "A12.2b, seq in the fence step: JAX partitions it with GSPMD, "
-            "which the port has no counterpart of); rows shard over seq "
-            "in compute_sharding='halo'")
+    seq = mesh.seq if has_seq(mesh) else None
+    if seq is not None:
+        check_seq_fence(cfg)
     if not (mesh is None or isinstance(mesh, FsdpMesh)
             or isinstance(mesh, World) and mesh.grouped):
         raise ValueError(f"mesh={mesh!r} is no mesh the port trains over "
@@ -593,6 +660,9 @@ def make_train_step(cfg: RAFTConfig, tc: TrainConfig, mesh=None,
     fsdp = isinstance(mesh, FsdpMesh)
     data = data_axis(mesh)
     n_data = 1 if data is None else data.size
+    # the ranks whose losses and gradients make the global step's: the
+    # data axis, or on row slabs every (data, seq) rank of one fsdp index
+    reduce_axis = data if seq is None else mesh.data_seq
     if tc.edge_sum_fusion and (cfg.variant != "raft" or cfg.embed_dexined):
         raise ValueError(
             "edge_sum_fusion is the v1 (plain 'raft') training fusion — "
@@ -642,18 +712,26 @@ def make_train_step(cfg: RAFTConfig, tc: TrainConfig, mesh=None,
         if n % accum:
             raise ValueError(
                 f"batch {n} not divisible by accum_steps {accum}")
+        if seq is not None:
+            halo.check_geometry(b["image1"].shape[2], mesh.n_seq)
         rows = local_rows(n * n_data, accum, data)
         set_data_mesh(model, data, n // accum)
         if fsdp:
             # the entry fence: the full parameters, for this step only
             state.shards.gather_()
-        with train_arithmetic(TRAIN_TF32):
+        with train_arithmetic(TRAIN_TF32), (
+                contextlib.nullcontext() if seq is None
+                else seq_mesh(model, mesh)):
             if tc.add_noise:
                 stdv = torch.rand((), device=dev, generator=gen) * 5.0
                 b["image1"] = _add_noise(b["image1"], stdv, gen, rows,
                                          n * n_data)
                 b["image2"] = _add_noise(b["image2"], stdv, gen, rows,
                                          n * n_data)
+            if seq is not None:  # this rank's image rows of every array
+                b = {k: None if v is None else halo.slab(
+                    v, seq, dim=1 if k == "valid" else 2)
+                    for k, v in b.items()}
             model.train()
             if tc.freeze_bn:
                 model.freeze_bn()
@@ -674,8 +752,9 @@ def make_train_step(cfg: RAFTConfig, tc: TrainConfig, mesh=None,
                 for p in model.parameters():
                     if p.grad is not None:
                         p.grad.div_(accum)
-            if data is not None:
-                _all_reduce_grads_(model, data.size, data.group)
+            if reduce_axis is not None:
+                _all_reduce_grads_(model, reduce_axis.size,
+                                   reduce_axis.group)
             lr = opt.current_lr()
             if fsdp:
                 # this rank's slices; the full parameters are freed
@@ -686,10 +765,10 @@ def make_train_step(cfg: RAFTConfig, tc: TrainConfig, mesh=None,
             finite = all_finite(_state_tensors(state))
             losses, seq_sums = torch.stack(losses), torch.stack(seq_sums)
             if fsdp:
-                if data is not None:
+                if reduce_axis is not None:
                     vec = torch.cat([losses, seq_sums.reshape(-1)])
-                    dist.all_reduce(vec, group=data.group)
-                    losses = vec[:accum] / data.size
+                    dist.all_reduce(vec, group=reduce_axis.group)
+                    losses = vec[:accum] / reduce_axis.size
                     seq_sums = vec[accum:].reshape(accum, -1)
                 # each rank checked only its own slices
                 bad = (~finite).to(torch.float32).reshape(1)

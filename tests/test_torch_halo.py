@@ -415,10 +415,15 @@ def test_support_matrix_needs_a_seq_axis_and_passes_v1():
 
 
 def test_fence_step_on_a_seq_mesh_is_refused_naming_a12_2b():
+    """A12.2b is ported (tests/test_torch_fence_seq.py): the fence step
+    on a seq mesh builds for v1, and what stays refused is v4/v5's
+    embedded DexiNed, naming ROADMAP A12.2c."""
     port_mesh, _ = _meshes()
     cfg, tc = _ok(False)
-    with pytest.raises(ValueError, match="A12.2b, seq in the fence step"):
-        make_train_step(cfg, tc, mesh=port_mesh)
+    assert callable(make_train_step(cfg, tc, mesh=port_mesh))
+    with pytest.raises(ValueError, match="A12.2c, DexiNed on row slabs"):
+        make_train_step(_cfg(False, variant="v5", small=True), tc,
+                        mesh=port_mesh)
     with pytest.raises(ValueError, match="adaptive=True"):
         make_eval_step(RAFT(cfg), device="cpu", mesh=port_mesh,
                        compute_sharding="halo", adaptive=True)

@@ -4,12 +4,16 @@ against the JAX package's goldens.
 JAX's ``dexiraft_tpu/analysis/layout_golden{,_fsdp,_halo}.json`` are read
 as JSON (nothing of JAX is imported): the port's ``train_fsdp`` and
 ``train_halo`` state groups equal JAX's (``[0].params`` whole; the Adam
-moments plus JAX's two int32 counts make JAX's ``[0].opt_state``), the
-halo leg's batch groups equal JAX's ``P('data', 'seq')`` entries, the
-serve legs (the data-parallel eval step, the streaming encode and refine
-steps on 8 CPU entries) equal JAX's ``serve``, ``serve_encode`` and
-``serve_refine`` sections group by group, and every declared group's
-spec, megabytes and replication equal JAX's. The CLI passes on the
+moments plus JAX's two int32 counts make JAX's ``[0].opt_state``), their
+batch groups equal JAX's ``P('data', 'seq')`` entries (the fsdp leg on
+JAX's data 2 x fsdp 2 x seq 2 mesh, the fence step on row slabs), the
+fence ``train`` leg on data 4 x seq 2 equals JAX's ``train`` section the
+same way (state, batch, metrics: the port's ``lr`` a Python float at 8
+bytes), the fence ``eval`` leg equals JAX's ``eval`` section group by
+group, the serve legs (the data-parallel eval step, the streaming encode
+and refine steps on 8 CPU entries) equal JAX's ``serve``,
+``serve_encode`` and ``serve_refine`` sections group by group, and every
+declared group's spec, megabytes and replication equal JAX's. The CLI passes on the
 shipped goldens and exits nonzero on a changed spec (in a train golden
 and in the serve golden), a vanished group, a new group and a replicated
 100 MB group.
@@ -63,14 +67,20 @@ def test_report_equals_the_shipped_golden(reports, leg):
 def test_state_groups_equal_jax(leg, io):
     port = _golden(leg)["steps"][f"train_{leg}"][io]
     jax = _golden(leg, jax=True)["steps"][f"train_{leg}"][io]
+    _hold_state_groups(port, jax, _golden(leg), [
+        "P()", "P(None, None, 'fsdp', None)", "P(None, None, None, 'fsdp')"])
+
+
+def _hold_state_groups(port, jax, golden, specs):
+    """A train leg's state groups against JAX's, through the golden's
+    header (``opt_state_scalars``, ``renamed_from_jax``)."""
     assert port["[0].params"] == jax["[0].params"]
     assert port["[0].params"]["leaves"] == 106
     assert port["[0].params"]["bytes"] == 3_960_648
-    assert port["[0].params"]["specs"] == [
-        "P()", "P(None, None, 'fsdp', None)", "P(None, None, None, 'fsdp')"]
+    assert port["[0].params"]["specs"] == specs
     # JAX's opt_state: the two moments of every parameter plus optax's
     # two int32 counts; the port's one count is its own group
-    scalars = _golden(leg)["opt_state_scalars"]
+    scalars = golden["opt_state_scalars"]
     moments, want = port["[0].opt_state"], jax["[0].opt_state"]
     assert moments["specs"] == want["specs"]
     assert moments["max_leaf_bytes"] == want["max_leaf_bytes"]
@@ -82,8 +92,8 @@ def test_state_groups_equal_jax(leg, io):
         want["bytes"] == 7_921_304
     assert port["[0].opt_count"]["specs"] == ["P()"]
     # renamed: JAX's rng key is the port's generator state
-    assert _golden(leg)["renamed_from_jax"] == {"[0].rng": "[0].generator"}
-    for jax_name, name in _golden(leg)["renamed_from_jax"].items():
+    assert golden["renamed_from_jax"] == {"[0].rng": "[0].generator"}
+    for jax_name, name in golden["renamed_from_jax"].items():
         assert port[name]["specs"] == jax[jax_name]["specs"] == ["P()"]
     assert port["[0].step"]["specs"] == jax["[0].step"]["specs"]
     state = {k for k in port if k.startswith("[0]")}
@@ -102,15 +112,71 @@ def test_halo_batch_groups_equal_jax():
         assert port[key] == jax[key], key
 
 
+BATCH = ("[1]['flow']", "[1]['image1']", "[1]['image2']", "[1]['valid']")
+
+
 def test_fsdp_leg_batch_is_split_over_data_only():
-    """The fence step's rows: the data axis cuts them, no seq axis."""
+    """The fence step's rows on JAX's fsdp leg mesh (data 2, fsdp 2, seq
+    2): the data axis cuts the batch's rows and, since the fence step
+    runs on row slabs, the seq axis its image rows, as JAX's leg."""
     port = _golden("fsdp")["steps"]["train_fsdp"]
-    assert port["mesh"] == {"data": 2, "fsdp": 2}
-    jax = _golden("fsdp", jax=True)["steps"]["train_fsdp"]["in"]
-    for key in ("[1]['flow']", "[1]['image1']", "[1]['image2']",
-                "[1]['valid']"):
-        assert port["in"][key]["specs"] == ["P('data')"]
-        assert port["in"][key]["bytes"] == jax[key]["bytes"]
+    jax = _golden("fsdp", jax=True)["steps"]["train_fsdp"]
+    assert port["mesh"] == jax["mesh"] == {"data": 2, "fsdp": 2, "seq": 2}
+    for key in BATCH:
+        assert port["in"][key]["specs"] == ["P('data', 'seq')"]
+        assert port["in"][key] == jax["in"][key], key
+
+
+def _hold_metric_groups(port, jax):
+    """The train step's metric groups against JAX's: equal, but for the
+    port's lr, a Python float counted at 8 bytes (JAX's an f32 array)."""
+    metrics = sorted(k for k in jax if k.startswith("[1]"))
+    assert metrics == sorted(k for k in port if k.startswith("[1]"))
+    assert len(metrics) == 7
+    for key in metrics:
+        want = dict(jax[key])
+        if key == "[1]['lr']":
+            want.update(bytes=shardaudit.METRIC_BYTES["lr"],
+                        max_leaf_bytes=shardaudit.METRIC_BYTES["lr"])
+        assert port[key] == want, key
+
+
+@pytest.mark.parametrize("leg", LEGS)
+def test_train_legs_metric_groups_equal_jax(leg):
+    _hold_metric_groups(_golden(leg)["steps"][f"train_{leg}"]["out"],
+                        _golden(leg, jax=True)["steps"][f"train_{leg}"]["out"])
+
+
+@pytest.mark.parametrize("io", ["in", "out"])
+def test_fence_train_leg_equals_jax(io):
+    """The fence train step on JAX's train mesh (data 4 x seq 2): the
+    state replicated (no fsdp axis), the batch over (data, seq), the
+    metrics replicated, group by group JAX's ``train`` section."""
+    port, jax = _golden("serve"), _golden("serve", jax=True)
+    mine, want = port["steps"]["train"], jax["steps"]["train"]
+    assert mine["mesh"] == want["mesh"] == {"data": 4, "seq": 2}
+    _hold_state_groups(mine[io], want[io], port, ["P()"])
+    if io == "in":
+        for key in BATCH:
+            assert want[io][key]["specs"] == ["P('data', 'seq')"]
+            assert mine[io][key] == want[io][key], key
+    else:
+        _hold_metric_groups(mine[io], want[io])
+
+
+@pytest.mark.parametrize("io", ["in", "out"])
+def test_fence_eval_leg_equals_jax(io):
+    """The fence eval step on data 4 x seq 2, production config (v1
+    small on B1): the whole parameters on every rank, image1, image2,
+    flow_init and both flows over (data, seq), group by group JAX's
+    ``eval`` section under its positional names."""
+    port, jax = _golden("serve"), _golden("serve", jax=True)
+    mine, want = port["steps"]["eval"], jax["steps"]["eval"]
+    assert mine["mesh"] == want["mesh"] == {"data": 4, "seq": 2}
+    assert mine[io] == want[io]
+    assert set(mine[io]) == set(port["positional_names"]["eval"][io])
+    rows = [k for k in mine[io] if k != "[0]['params']"]
+    assert all(mine[io][k]["specs"] == ["P('data', 'seq')"] for k in rows)
 
 
 @pytest.mark.parametrize("leg", LEGS)
@@ -138,7 +204,8 @@ def serve_report():
 
 
 def test_serve_report_equals_the_shipped_golden(serve_report):
-    assert sorted(serve_report["steps"]) == SERVE_STEPS
+    assert sorted(serve_report["steps"]) == sorted(SERVE_STEPS
+                                                   + ["eval", "train"])
     assert shardaudit.diff_golden(serve_report, _golden("serve")) == []
     assert shardaudit.flagged_groups(serve_report) == []
 
@@ -146,11 +213,14 @@ def test_serve_report_equals_the_shipped_golden(serve_report):
 @pytest.mark.parametrize("io", ["in", "out"])
 @pytest.mark.parametrize("step", SERVE_STEPS)
 def test_serve_sections_equal_jax(step, io):
-    """Group by group JAX's, under JAX's positional names: the golden
-    renames none of JAX's groups, and its header names the port argument
-    behind each."""
+    """Group by group JAX's, under JAX's positional names: no serve
+    section carries a group the golden renames (its header's renames are
+    the train leg's), and its header names the port argument behind
+    each."""
     port, jax = _golden("serve"), _golden("serve", jax=True)
-    assert port["renamed_from_jax"] == {}
+    renamed = set(port["renamed_from_jax"]) | set(
+        port["renamed_from_jax"].values())
+    assert not renamed & set(port["steps"][step][io])
     assert port["steps"][step]["mesh"] == jax["steps"][step]["mesh"] == \
         {"data": 8}
     mine, want = port["steps"][step][io], jax["steps"][step][io]

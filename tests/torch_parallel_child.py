@@ -39,8 +39,20 @@ and the gathered gradients), then ``halo["steps"]`` halo train steps
 (per-step metrics, the gathered state dict); with ``halo["remat"]`` the
 gradient again under ``remat="per_iter"``; with ``context`` also its
 rows of ``context_parallel_corr`` and ``ring_corr_lookup``, with
-``convs`` its rows of ``halo_conv`` beside the unsharded conv. Imports
-neither jax nor the JAX package.
+``convs`` its rows of ``halo_conv`` beside the unsharded conv.
+
+With ``fence_seq`` in the spec (tests/test_torch_fence_seq.py: ``fsdp``,
+``batch``) the rank joins a (data, fsdp, seq 2) mesh for that global
+batch and runs the spec's ``cases`` in order with the fence steps on it,
+writing one record per case: a ``train`` case (``variant``, ``cfg``,
+``tc``: the RAFTConfig and TrainConfig keywords, ``state_dict``,
+``batches``: global batches) its per-step metrics and the gathered state
+dict after the last step; an ``eval`` case (``variant``, ``cfg``,
+``state_dict``, ``iters``, ``adaptive``, ``inputs``: the global batch's
+arrays, ``iter_budget``) this rank's output slabs; a ``group_norm`` case
+(``x``, NCHW, ``groups``, ``weight``, ``bias``) the seq-aware
+``models.layers.GroupNorm`` of its rows of ``x``. Imports neither jax
+nor the JAX package.
 """
 
 import dataclasses
@@ -268,14 +280,65 @@ def run_halo(spec: dict, world) -> dict:
     return rec
 
 
+def run_fence_seq(spec: dict, world) -> dict:
+    """The ``fence_seq`` records (module docstring)."""
+    from dexiraft_tpu_torch.config import VARIANTS
+    from dexiraft_tpu_torch.train.step import make_eval_step
+
+    fs = spec["fence_seq"]
+    mesh = make_train_mesh(fs["batch"], world, fsdp=fs["fsdp"], seq=2)
+    rec = {"mesh": [mesh.data_index, mesh.fsdp_index, mesh.seq_index]}
+    for case in spec["cases"]:
+        if case["kind"] == "group_norm":
+            from dexiraft_tpu_torch.models.layers import GroupNorm
+            from dexiraft_tpu_torch.parallel.halo import slab
+
+            x = torch.from_numpy(case["x"])
+            gn = GroupNorm(case["groups"], x.shape[1])
+            with torch.no_grad():
+                gn.weight.copy_(torch.from_numpy(case["weight"]))
+                gn.bias.copy_(torch.from_numpy(case["bias"]))
+            gn.seq = mesh.seq
+            with torch.no_grad():
+                rec[case["name"]] = gn(slab(x, mesh.seq))
+            continue
+        cfg = VARIANTS[case["variant"]](**case["cfg"])
+        if case["kind"] == "train":
+            tc = TrainConfig(**case["tc"])
+            model = RAFT(train_model_config(cfg, tc))
+            model.load_state_dict(case["state_dict"], strict=True)
+            state = shard_state(create_state(cfg, tc, device="cpu",
+                                             model=model), mesh)
+            step = make_train_step(cfg, tc, mesh=mesh)
+            metrics = []
+            for batch in case["batches"]:
+                state, m = step(state, local_batch(batch, tc.accum_steps,
+                                                   mesh))
+                metrics.append({k: float(v) for k, v in m.items()})
+            rec[case["name"]] = {"metrics": metrics,
+                                 "state_dict": gathered(state)}
+            continue
+        model = RAFT(cfg)
+        model.load_state_dict(case["state_dict"], strict=True)
+        ev = make_eval_step(model, case["iters"], device="cpu", mesh=mesh,
+                            adaptive=case["adaptive"])
+        x = local_batch(case["inputs"], 1, mesh)
+        budget = (case["iter_budget"],) if case["adaptive"] else ()
+        rec[case["name"]] = [t.clone() for t in ev(
+            x["image1"], x["image2"], x.get("flow_init"), *budget,
+            edges1=x.get("edges1"), edges2=x.get("edges2"))]
+    return rec
+
+
 def main(spec_path: str, out_dir: str) -> None:
     torch.set_num_threads(2)
     spec = torch.load(spec_path, weights_only=False)
     world = initialize("cpu")
-    if "halo" in spec:
-        torch.save(run_halo(spec, world), f"{out_dir}/rank{world.rank}.pt")
-        teardown()
-        return
+    for key, fn in (("halo", run_halo), ("fence_seq", run_fence_seq)):
+        if key in spec:
+            torch.save(fn(spec, world), f"{out_dir}/rank{world.rank}.pt")
+            teardown()
+            return
     mesh = make_train_mesh(4, world, accum_steps=max(
         sc["accum"] for sc in spec["scenarios"]), fsdp=spec.get("fsdp"))
     results = (resume(spec, mesh) if "resume" in spec
